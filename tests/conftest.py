@@ -8,3 +8,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one (run on the "
+        "H100 with `python -m pytest -m gpu tests/test_torch_kernels.py`)")
