@@ -9,19 +9,30 @@ Phases (any failure exits non-zero and prints no result line):
    hand-written kernels built from ``src/repro_torch/csrc`` with nvcc for
    ``sm_90a`` (TF32 off for every float32 product);
 2. kernels — each CUDA kernel against its plain PyTorch version at the
-   serving path's shapes, in bf16 (atol 2e-2) and float32 (atol 1e-4);
+   serving path's shapes, in bf16 (atol 2e-2) and float32 (atol 1e-4); the
+   paged kernel also over int8 pages with q in either dtype;
 3. full-width model — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
-   model through the plain versions (max |Δlogit| <= 1e-3, argmax agreement);
+   model through the plain versions (max |Δlogit| <= 1e-3, argmax
+   agreement), over the dense ring and over a paged arena, and the paged
+   run against the dense one through the kernels;
 4. serving — ``qwen2-0.5b`` in bf16 behind EngineClient + OpenAIServer +
-   ApiServer on 127.0.0.1: 12 concurrent chat / completion requests (one
-   streamed, one chunked over 512 prompt tokens, one with logprobs); every
-   finish_reason and usage is checked, and both kernels' launch counters
-   must rise during this phase (they are zeroed just before it);
+   ApiServer on 127.0.0.1, with the prefix cache on: 12 concurrent chat /
+   completion requests (one streamed, one chunked over 512 prompt tokens,
+   one with logprobs) on the dense layout; the same 12 plus 6 chats sharing
+   a ~600-token system prompt on the paged layout (fp pages), which must hit
+   the prefix cache, share pages copy-on-write with zero full copies, leave
+   no page pinned, and launch the paged kernel 24 times per decode step and
+   the flash kernel 24 times per prefill wave (the dense decode kernel
+   never); a short round on int8 pages.  Every finish_reason and usage is
+   checked, and each round's launch counters are zeroed just before it and
+   read just after;
 5. times — each kernel, its plain version and one PyTorch library call
-   (SDPA with an explicit mask) at the phase-2 serving shapes, with CUDA
-   events over rotating input copies larger than the L2 cache, beside the
-   least time the card could take (``bound_ms``).
+   where one computes the same function (SDPA with an explicit mask; none
+   takes a page table, so the paged kernel's SDPA time is over a dense copy
+   gathered beforehand, labelled as such) at the phase-2 serving shapes,
+   with CUDA events over rotating input copies larger than the L2 cache,
+   beside the least time the card could take (``bound_ms``).
 
 The last lines are one ``{"kernels": [...]}`` JSON line, one ``serve`` JSON
 line, the card's ``nvidia-smi`` name and power limit, and
@@ -30,6 +41,7 @@ line, the card's ``nvidia-smi`` name and power limit, and
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -48,7 +60,9 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:61",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
+    "paged_attention": "src/repro/kernels/paged_attention.py:86",
 }
+KERNEL_NAMES = tuple(REPLACES)
 L2_BYTES = 50 * 2**20
 
 
@@ -107,6 +121,34 @@ def flash_case(torch, dtype, form, *, seed=0):
     return (q, k, v), kw
 
 
+def paged_case(torch, dtype, *, int8=False, b=8, ps=16, p=128, h=14, hkv=2,
+               d=64, seed=0):
+    """The serving arena: ``reserved + b * p`` pages (reserved as the pool
+    reserves them), ragged positions, rows 0 and 1 sharing their first four
+    pages, row 2 wrapped, every entry past a row's pages at page 0."""
+    from repro_torch.core.paged_kv import PagedKVPool
+    from repro_torch.kernels.quant_matmul import quantize_kv_int8
+    n = PagedKVPool.full_capacity(b, ps * p, ps)
+    reserved = n - b * p
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    kw, kv = {}, []
+    for name in ("k", "v"):
+        x = torch.randn((n, ps, hkv, d), generator=g, device="cuda")
+        if int8:
+            x, kw[f"{name}_scale"] = quantize_kv_int8(x)
+        kv.append(x if int8 else x.to(dtype))
+    pos = torch.randint(4 * ps, p * ps, (b,), generator=g, device="cuda")
+    pos[2] = p * ps + 37
+    table = torch.zeros((b, p), dtype=torch.int32, device="cuda")
+    perm = torch.randperm(b * p, generator=g, device="cuda") + reserved
+    for row in range(b):
+        live = p if row == 2 else int(pos[row]) // ps + 1
+        table[row, :live] = perm[row * p:row * p + live].int()
+    table[1, :4] = table[0, :4]
+    return (q, kv[0], kv[1], table, pos.int()), kw
+
+
 def max_err(torch, a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -114,7 +156,7 @@ def max_err(torch, a, b) -> float:
 # --------------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-def check_kernels(torch, dec, fla):
+def check_kernels(torch, dec, fla, pag):
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -124,6 +166,10 @@ def check_kernels(torch, dec, fla):
                   decode_case(torch, dtype, b=3, s=1000))]
         cases += [("flash_attention", form, fla, flash_case(torch, dtype, form))
                   for form in ("engine", "causal_offset", "window", "ragged")]
+        cases += [("paged_attention", "B8 ps16 P128", pag,
+                   paged_case(torch, dtype)),
+                  ("paged_attention", "int8 pages", pag,
+                   paged_case(torch, dtype, int8=True, seed=1))]
         for name, what, mod, (args, kw) in cases:
             kern = getattr(mod, f"{name}_cuda")
             plain = getattr(mod, f"{name}_plain")
@@ -147,16 +193,19 @@ def check_kernels(torch, dec, fla):
 def plain_attention(ops):
     """Route the layers' attention calls to the plain versions (the
     comparison's reference side), whatever the tensors' device."""
-    saved = ops.flash_attention, ops.decode_attention
+    saved = ops.flash_attention, ops.decode_attention, ops.paged_attention
     ops.flash_attention = ops._flash_plain
     ops.decode_attention = ops._decode_plain
+    ops.paged_attention = ops._paged_plain
     try:
         yield
     finally:
-        ops.flash_attention, ops.decode_attention = saved
+        (ops.flash_attention, ops.decode_attention,
+         ops.paged_attention) = saved
 
 
-def check_model(torch, ops, get_config, Model, init_cache):
+def check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
+                slice_cache_row):
     cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -168,38 +217,63 @@ def check_model(torch, ops, get_config, Model, init_cache):
     seq_valid = torch.arange(s, device="cuda")[None] < lengths[:, None]
     positions = torch.arange(s, device="cuda")[None].expand(b, s)
 
-    def run(feed):
+    def run(feed, paged):
         """Prefill, then 8 decode steps fed ``feed`` (or, with None, the
-        path's own greedy tokens, which are returned)."""
+        path's own greedy tokens, which are returned): over the dense ring,
+        or (``paged``) with the prefilled rows committed to a 16-token-page
+        arena and every decode step read through its page table."""
         cache = init_cache(cfg, b, cache_len, device="cuda")
         out = model.apply(params, tokens, mode="prefill", positions=positions,
                           cache=cache, resume=True, seq_valid=seq_valid)
         logits = [out.logits[torch.arange(b, device="cuda"), lengths - 1]]
+        kw = {}
+        if paged:
+            pool = PagedKVPool(cfg, b, cache_len, page_size=16,
+                               dtype=torch.float32, device="cuda")
+            slots = [pool.allocate() for _ in range(b)]
+            pool.insert_many(slots, [slice_cache_row(cache, i)
+                                     for i in range(b)],
+                             consumed=lengths.tolist())
+            cache = pool.cache
+            kw = dict(page_table=cache["page_table"],
+                      slot_active=torch.ones(b, dtype=torch.bool,
+                                             device="cuda"))
         toks, pos = [], lengths.clone()
         for step in range(8):
             tok = logits[-1].argmax(-1) if feed is None else feed[step]
             toks.append(tok)
+            if paged:
+                assert pool.ensure_decode_capacity(
+                    dict(zip(slots, pos.tolist())), 1)
             out = model.apply(params, tok[:, None], mode="decode",
-                              positions=pos[:, None], cache=cache)
+                              positions=pos[:, None], cache=cache, **kw)
             logits.append(out.logits[:, 0])
             pos = pos + 1
         return torch.stack(logits), toks
 
-    with torch.no_grad():
-        kern, fed = run(None)
-        with plain_attention(ops):
-            plain, _ = run(fed)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(kern).all()):
-        raise AssertionError("non-finite logits through the kernels")
-    err = max_err(torch, kern, plain)
-    agree = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    def compare(what, got, want, tol=1e-3):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+        err = max_err(torch, got, want)
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"  {what}: max|Δlogit| {err:.3e} (tol {tol:g}), argmax "
+            f"agreement {agree:.3f}, logit scale "
+            f"{got.abs().max().item():.3e}")
+        if err > tol or agree < 1.0:
+            raise AssertionError(f"{what} disagrees: {err}, {agree}")
+
     log(f"  qwen2-0.5b float32, {cfg.num_layers} layers: prefill {b}x{s} + "
-        f"8 decode steps, "
-        f"max|Δlogit| {err:.3e} (tol 1e-3), argmax agreement {agree:.3f}, "
-        f"logit scale {kern.abs().max().item():.3e}")
-    if err > 1e-3 or agree < 1.0:
-        raise AssertionError(f"model through kernels disagrees: {err}, {agree}")
+        f"8 decode steps")
+    with torch.no_grad():
+        kern, fed = run(None, paged=False)
+        paged, _ = run(fed, paged=True)
+        with plain_attention(ops):
+            plain, _ = run(fed, paged=False)
+            paged_plain, _ = run(fed, paged=True)
+    torch.cuda.synchronize()
+    compare("dense, kernels vs plain", kern, plain)
+    compare("paged, kernels vs plain", paged, paged_plain)
+    compare("paged vs dense, both through the kernels", paged, kern)
     del params
     torch.cuda.empty_cache()
 
@@ -286,18 +360,32 @@ def check_response(kind, body, resp, tok) -> int:
     return n
 
 
+def shared_prompt_chats():
+    """6 chats behind one ~600-token system prompt (the prefix cache's and
+    the copy-on-write pages' case)."""
+    system = "You are a careful assistant for a parts catalogue. " * 12
+    return [("chat", {"messages": [{"role": "system", "content": system},
+                                   {"role": "user",
+                                    "content": f"part number {i}?"}],
+                      "max_tokens": 10 + 2 * i}) for i in range(6)]
+
+
 def check_serving(torch, get_config, InferenceEngine, EngineClient,
-                  OpenAIServer, ApiServer, wrappers):
-    """``wrappers`` maps each kernel's name to its CUDA wrapper, whose
-    ``launches`` count is zeroed before the counted round and read after."""
+                  OpenAIServer, ApiServer, wrappers, *, bodies, rounds=2,
+                  profile=True, **engine_kw):
+    """Serve ``bodies`` ``rounds`` times (the first takes the first-call
+    costs; the last is the counted one) and once more under the profiler.
+    ``wrappers`` maps each kernel's name to its CUDA wrapper, whose
+    ``launches`` count is zeroed just before the counted round and read
+    just after.  Returns (launches, serve record, /stats after the counted
+    round, engine layers)."""
     engine = InferenceEngine(get_config("qwen2-0.5b"), device="cuda",
                              max_batch=8, cache_len=2048, prefill_chunk=512,
-                             seed=0)
+                             seed=0, **engine_kw)
     client = EngineClient(engine)
     server = ApiServer(OpenAIServer(client, "qwen2-0.5b"), host="127.0.0.1",
                        port=0)
     server.start()
-    bodies = serve_requests()
     tok = engine.tokenizer
 
     def send_all():
@@ -330,9 +418,11 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
         return done, wall
 
     try:
-        # a first round of the same mix takes the first-call costs (kernel
-        # loading, GEMM heuristics per shape); the second is the one counted
-        _, cold_wall = send_all()
+        # earlier rounds of the same mix take the first-call costs (kernel
+        # loading, GEMM heuristics per shape); the last is the one counted
+        cold_wall = None
+        for _ in range(rounds - 1):
+            _, cold_wall = send_all()
         torch.cuda.reset_peak_memory_stats()
         before = server.api.stats()
         for w in wrappers.values():
@@ -340,7 +430,7 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
         done, wall = send_all()
         launches = {name: w.launches for name, w in wrappers.items()}
         after = server.api.stats()
-        profile = profile_round(torch, send_all)
+        prof = profile_round(torch, send_all) if profile else None
     finally:
         server.stop()
         client.stop()
@@ -349,30 +439,49 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
     if stats["retired"] != len(bodies) or stats["aborted"]:
         raise AssertionError(f"engine counters disagree: {stats}")
     layers = engine.cfg.num_layers
-    log(f"  12 requests finished with correct usage: {done} completion "
-        f"tokens in {wall:.3f} s (first round {cold_wall:.3f} s), "
+    log(f"  {len(bodies)} requests finished with correct usage: {done} "
+        f"completion tokens in {wall:.3f} s (first round {cold_wall} s), "
         f"{stats['prefill_waves']} prefill waves, "
         f"{stats['device_steps']} decode steps, launches {launches} "
         f"({layers} per decode step / prefill wave)")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched while serving")
-    if launches["decode_attention"] != layers * stats["device_steps"] or \
-            launches["flash_attention"] != layers * stats["prefill_waves"]:
-        raise AssertionError(f"launch counts {launches} do not match "
-                             f"{stats['device_steps']} decode steps / "
-                             f"{stats['prefill_waves']} prefill waves")
     serve = {"requests": len(bodies), "completion_tokens": done,
              "wall_s": wall, "tokens_per_s": done / wall,
              "first_round_wall_s": cold_wall,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "prefill_waves": stats["prefill_waves"],
-             "decode_steps": stats["device_steps"],
+             "decode_steps": stats["device_steps"], "launches": launches,
              "max_batch": 8, "cache_len": 2048, "dtype": "bfloat16",
-             "profiled_round": profile}
-    del engine
+             **engine_kw, "profiled_round": prof}
+    # the engine and the client refer to each other: collect the cycle so
+    # the next round's peak memory holds its own engine only
+    del engine, client, server
+    gc.collect()
     torch.cuda.empty_cache()
-    return launches, serve
+    return launches, serve, after, layers
+
+
+def require_launches(launches, serve, layers, *, decode_kernel, unused):
+    """The counted round's launches: ``decode_kernel`` once per layer per
+    decode step, ``flash_attention`` once per layer per prefill wave, and
+    ``unused`` never."""
+    want = {decode_kernel: layers * serve["decode_steps"],
+            "flash_attention": layers * serve["prefill_waves"], unused: 0}
+    if any(launches[name] != n for name, n in want.items()) or \
+            not launches[decode_kernel] or not launches["flash_attention"]:
+        raise AssertionError(f"launch counts {launches}, want {want}")
+
+
+def check_paged_serving(stats):
+    """/stats after a paged round: prefix-cache hits, pages shared
+    copy-on-write, no full copy, and no page pinned once every request
+    retired."""
+    pages, cache = stats["kv_pages"], stats["prefix_cache"]
+    log(f"  prefix cache {cache}; kv pages {pages}")
+    if cache["hits"] <= 0 or pages["shares"] <= 0 or pages["full_copies"] \
+            or pages["pinned"] or \
+            pages["free"] + pages["reclaimable"] != pages["total"]:
+        raise AssertionError(f"paged round: prefix cache {cache}, pages "
+                             f"{pages}")
 
 
 def profile_round(torch, send_all):
@@ -384,6 +493,7 @@ def profile_round(torch, send_all):
     from torch.profiler import ProfilerActivity, profile
     kinds = {"decode_attention": ("decode_attention_kernel",),
              "flash_attention": ("flash_attention_kernel",),
+             "paged_attention": ("paged_attention_kernel",),
              "gemm": ("gemm", "xmma", "cutlass", "nvjet"),
              "memcpy_memset": ("Memcpy", "Memset")}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -395,8 +505,7 @@ def profile_round(torch, send_all):
         device_us[kind] += ev.self_device_time_total
     busy = sum(device_us.values()) / 1e6
     if busy <= 0:
-        log("  profiled round: not measured (no device time recorded)")
-        return None
+        raise RuntimeError("the profiled round recorded no device time")
     out = {"wall_s": wall, "device_busy_share": busy / wall,
            **{f"{k}_share": v / 1e6 / wall for k, v in device_us.items()}}
     log("  profiled round: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
@@ -435,7 +544,7 @@ def bound(byts: float, flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_kernels(torch, dec, fla):
+def time_kernels(torch, dec, fla, pag):
     """Each kernel, its plain version and SDPA on the same rotating input
     sets; ``bound_ms`` is the mean over those sets of what each one's data
     needs: decode reads only the live K/V rows, flash only the keys below
@@ -501,6 +610,73 @@ def time_kernels(torch, dec, fla):
         "shape": (f"B{b} Sq{sq} Skv{skv} H{h} Hkv{hkv} D{d} bf16 (engine "
                   f"form), {n_sets} sets"),
     }
+    out["paged_attention"] = time_paged(torch, pag, F)
+    return out
+
+
+def time_paged(torch, pag, F):
+    """The paged kernel at the serving arena (bf16 pages; int8 pages as an
+    extra column).  ``bound_ms`` counts each row's live cells only (K and V
+    rows, plus their 4-byte scales for int8), the live page-table entries,
+    positions, q and the output.  No PyTorch call takes a page table, so
+    ``library_ms`` is null; SDPA over a dense copy gathered beforehand (the
+    gather untimed) is recorded beside it, labelled as such."""
+    def live_cells(table, pos, ps):
+        total = table.shape[1] * ps
+        return [total if int(x) >= total else int(x) + 1 for x in pos]
+
+    def sets_of(int8):
+        args, kw = paged_case(torch, torch.bfloat16, int8=int8)
+        per = nbytes(args[1], args[2], *kw.values())
+        n_sets = max(2, 2 * L2_BYTES // per + 1)
+        return [paged_case(torch, torch.bfloat16, int8=int8, seed=i)
+                for i in range(n_sets)]
+
+    def bound_of(sets):
+        byts = flops = 0
+        for (q, k, v, table, pos), kw in sets:
+            ps, hkv, d = k.shape[1:]
+            cells = live_cells(table, pos, ps)
+            per_cell = 2 * hkv * (d * k.element_size()
+                                  + (4 if kw else 0))
+            byts += (2 * nbytes(q) + nbytes(pos)
+                     + 4 * sum(-(-c // ps) for c in cells)
+                     + per_cell * sum(cells))
+            flops += 4 * q.shape[1] * d * sum(cells)
+        return bound(byts / len(sets), flops / len(sets))
+
+    sets = sets_of(False)
+    n_sets = len(sets)
+    sdpa = []
+    for (q, k, v, table, pos), _ in sets:
+        s = table.shape[1] * k.shape[1]
+        valid = torch.arange(s, device="cuda")[None] <= pos.long()[:, None]
+        valid |= pos.long()[:, None] >= s
+        gk = k[table.long()].reshape(q.shape[0], s, *k.shape[2:])
+        gv = v[table.long()].reshape(q.shape[0], s, *v.shape[2:])
+        sdpa.append((q[:, :, None], gk.transpose(1, 2).contiguous(),
+                     gv.transpose(1, 2).contiguous(), valid[:, None, None]))
+    out = {
+        "ms": time_ms(torch, lambda i: pag.paged_attention_cuda(
+            *sets[i][0], **sets[i][1]), n_sets),
+        "plain_ms": time_ms(torch, lambda i: pag.paged_attention_plain(
+            *sets[i][0], **sets[i][1]), n_sets, cycles=1),
+        "library_ms": None,
+        "sdpa_on_gathered_dense_copy_ms": time_ms(
+            torch, lambda i: F.scaled_dot_product_attention(
+                sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
+                enable_gqa=True), n_sets),
+        **bound_of(sets),
+    }
+    del sdpa
+    int8_sets = sets_of(True)
+    out["int8_pages_ms"] = time_ms(torch, lambda i: pag.paged_attention_cuda(
+        *int8_sets[i][0], **int8_sets[i][1]), len(int8_sets))
+    out["int8_pages_bound_ms"] = bound_of(int8_sets)["bound_ms"]
+    q, k = sets[0][0][0], sets[0][0][1]
+    out["shape"] = (f"B{q.shape[0]} ps{k.shape[1]} P{sets[0][0][3].shape[1]} "
+                    f"N{k.shape[0]} H{q.shape[1]} Hkv{k.shape[2]} "
+                    f"D{k.shape[3]} bf16 pages, {n_sets} sets")
     return out
 
 
@@ -519,6 +695,9 @@ def main() -> int:
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import paged_attention as pag
+    from repro_torch.core.kv_cache import slice_cache_row
+    from repro_torch.core.paged_kv import PagedKVPool
     from repro_torch.models.model import Model, init_cache
     from repro_torch.serving.api import OpenAIServer
     from repro_torch.serving.client import EngineClient
@@ -543,24 +722,55 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     log("== 2. kernels against their plain versions")
-    errs = check_kernels(torch, dec, fla)
+    errs = check_kernels(torch, dec, fla, pag)
 
     log("== 3. full-width model, float32, kernels vs plain versions")
-    check_model(torch, ops, get_config, Model, init_cache)
+    check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
+                slice_cache_row)
 
-    log("== 4. serving qwen2-0.5b (bf16) over HTTP")
-    launches, serve = check_serving(
-        torch, get_config, InferenceEngine, EngineClient, OpenAIServer,
-        ApiServer, {"decode_attention": dec.decode_attention_cuda,
-                    "flash_attention": fla.flash_attention_cuda})
+    wrappers = {"decode_attention": dec.decode_attention_cuda,
+                "flash_attention": fla.flash_attention_cuda,
+                "paged_attention": pag.paged_attention_cuda}
+    serving = (torch, get_config, InferenceEngine, EngineClient, OpenAIServer,
+               ApiServer, wrappers)
+    log("== 4a. serving qwen2-0.5b (bf16) over HTTP, dense KV")
+    dense_launches, dense, _, layers = check_serving(
+        *serving, bodies=serve_requests())
+    require_launches(dense_launches, dense, layers,
+                     decode_kernel="decode_attention",
+                     unused="paged_attention")
+    log("== 4b. serving over HTTP, paged KV (fp pages, 16-token pages)")
+    paged_launches, paged, stats, _ = check_serving(
+        *serving, bodies=serve_requests() + shared_prompt_chats(),
+        kv_layout="paged", kv_page_size=16)
+    require_launches(paged_launches, paged, layers,
+                     decode_kernel="paged_attention",
+                     unused="decode_attention")
+    check_paged_serving(stats)
+    paged["kv_pages"], paged["prefix_cache"] = (stats["kv_pages"],
+                                                stats["prefix_cache"])
+    log("== 4c. serving over HTTP, paged KV (int8 pages), one round")
+    int8_launches, int8_round, _, _ = check_serving(
+        *serving, bodies=serve_requests()[:6], rounds=1, profile=False,
+        kv_layout="paged", kv_dtype="int8")
+    require_launches(int8_launches, int8_round, layers,
+                     decode_kernel="paged_attention",
+                     unused="decode_attention")
+    # each kernel's launches in the counted round of its own path
+    launches = {"decode_attention": dense_launches["decode_attention"],
+                "flash_attention": paged_launches["flash_attention"],
+                "paged_attention": paged_launches["paged_attention"]}
 
     log("== 5. times at the serving shapes (CUDA events)")
-    times = time_kernels(torch, dec, fla)
+    times = time_kernels(torch, dec, fla, pag)
     kernels = []
-    for name in ("decode_attention", "flash_attention"):
+    for name in KERNEL_NAMES:
         t = times[name]
+        lib = ("none (SDPA on a gathered dense copy "
+               f"{t['sdpa_on_gathered_dense_copy_ms']:.4f} ms)"
+               if t["library_ms"] is None else f"{t['library_ms']:.4f} ms")
         log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, SDPA {t['library_ms']:.4f} ms, bound "
+            f"{t['plain_ms']:.4f} ms, SDPA {lib}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
         kernels.append({
             "name": name, "route": "cuda",
@@ -568,11 +778,13 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    serve["card"] = card
-    serve["smoke_s"] = time.perf_counter() - t_start
-    print(json.dumps({"kernels": kernels, "card": card}))
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: v for k, v in t.items()
+               if k.startswith(("sdpa_on", "int8_pages"))}})
+    serve = {"dense": dense, "paged": paged, "paged_int8": int8_round,
+             "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

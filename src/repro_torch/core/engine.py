@@ -1,7 +1,8 @@
 """The inference engine of the port: continuous batching over a dense ring
-KV cache, with a device-resident K-step decode block and a chunked, batched
-prefill pipeline — the dense-text subset of the reference package's
-``core/engine.py``, in eager PyTorch.
+KV cache or a paged arena with copy-on-write prefix sharing, with a
+device-resident K-step decode block, a chunked, batched prefill pipeline and
+the text prefix cache (paper Alg.2) — the text subset of the reference
+package's ``core/engine.py``, in eager PyTorch.
 
 Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
@@ -24,12 +25,22 @@ Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
 Greedy outputs are invariant to K and to ``prefill_chunk``.
 
-Not ported in this slice (refused with ``NotImplementedError`` naming the
-ROADMAP item, or simply absent from ``/stats``): the prefix cache, paged
-KV, speculative decoding, media and the content cache, preemption, fault
-injection, drain and handoff, shared-prefix ``n`` groups (``n`` > 1 runs
-independent prefills), speculative wave filling, and echo / prompt
-logprobs.
+Prefix cache (``enable_prefix_cache``): a prefill opens at the longest
+cached block-aligned prefix of its prompt; a chunked prefill publishes its
+partial prefix at every chunk boundary (one rolling entry per job); the
+dense layout publishes a slot's prompt at retire, the paged layout at
+commit — as the slot's prompt pages, leased copy-on-write, beside a dense
+shadow row that later prefills resume from.  Under ``kv_layout="paged"``
+every decode block first makes the pages it will write exclusively owned
+(:meth:`PagedKVPool.ensure_decode_capacity`), evicting prefix-cache entries
+when the arena runs short.
+
+Not ported yet (refused with ``NotImplementedError`` naming the ROADMAP
+item, or simply absent from ``/stats``): arenas below full capacity (they
+need preemption), speculative decoding, media and the content cache,
+preemption, fault injection, drain and handoff, shared-prefix ``n`` groups
+(``n`` > 1 runs independent prefills), speculative wave filling, and echo /
+prompt logprobs.
 """
 from __future__ import annotations
 
@@ -43,7 +54,9 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.core.kv_cache import (SlotKVPool, admit_decode_state,
                                        concat_cache_rows, init_decode_state,
-                                       slice_cache_row)
+                                       slice_cache_row, tree_bytes)
+from repro_torch.core.paged_kv import PagedKVPool, PagePoolExhausted
+from repro_torch.core.prefix_cache import TextPrefixCache
 from repro_torch.core.request import (FinishReason, PromptTooLongError,
                                       Request, RequestStatus, StreamEvent)
 from repro_torch.core.sampling import (masked_sample_inner, request_base_key,
@@ -53,7 +66,7 @@ from repro_torch.core.scheduler import (ContinuousBatchingScheduler,
 from repro_torch.core.streaming import StopSequenceChecker, TokenStreamDecoder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import not_ported
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, tree_map
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
@@ -88,6 +101,7 @@ class _PrefillJob:
     cache: Any
     consumed: int
     t0: float
+    partial_key: Optional[str] = None    # rolling chunk-boundary prefix entry
 
 
 class InferenceEngine:
@@ -112,9 +126,30 @@ class InferenceEngine:
         max_prefill_buckets: int = 6,
         sched_policy: Union[str, SchedulingPolicy] = "fifo",
         aging_s: Optional[float] = None,
+        enable_prefix_cache: bool = True,
+        prefix_block_size: int = 16,
+        cache_max_bytes: int = 512 * 1024 * 1024,
+        kv_layout: str = "dense",        # 'dense' ring | 'paged' arena (COW)
+        kv_page_size: int = 16,          # tokens per KV page (paged layout)
+        kv_num_pages: Optional[int] = None,  # arena size; None = full capacity
+        kv_dtype: str = "fp",            # 'fp' | 'int8' (paged layout only)
     ):
         if cfg.vision is not None or cfg.audio is not None:
             raise not_ported("media models", "multimodal")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
+                             f"{kv_layout!r}")
+        if kv_layout == "dense" and kv_dtype != "fp":
+            raise ValueError("int8 KV requires kv_layout='paged'")
+        self._paged = kv_layout == "paged"
+        if self._paged and kv_num_pages is not None and kv_num_pages < \
+                PagedKVPool.full_capacity(max_batch, cache_len, kv_page_size):
+            # the reference's pressure ladder preempts a slot when evicting
+            # prefix-cache entries is not enough; without preemption the
+            # port would fail requests the reference finishes
+            raise not_ported(
+                f"a KV page arena below full capacity (kv_num_pages="
+                f"{kv_num_pages})", "preemption")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -133,7 +168,23 @@ class InferenceEngine:
         self.truncate_long_prompts = truncate_long_prompts
         self.prefill_chunk = max(0, prefill_chunk)
 
-        self.pool = SlotKVPool(cfg, max_batch, cache_len, device=self.device)
+        if self._paged:
+            self.pool: Any = PagedKVPool(
+                cfg, max_batch, cache_len, page_size=kv_page_size,
+                num_pages=kv_num_pages, kv_dtype=kv_dtype, device=self.device)
+        else:
+            self.pool = SlotKVPool(cfg, max_batch, cache_len,
+                                   device=self.device)
+        # COW page leases pinned by in-flight prefill jobs (request_id ->
+        # page ids incref'd at prefix-cache lookup); ownership transfers to
+        # the slot at commit, or is released when the request ends first
+        self._job_leases: Dict[int, List[int]] = {}
+        self.prefix_cache = (TextPrefixCache(prefix_block_size,
+                                             cache_max_bytes,
+                                             on_evict=(self._on_cache_evict
+                                                       if self._paged
+                                                       else None))
+                             if enable_prefix_cache else None)
         self.scheduler = ContinuousBatchingScheduler(max_batch,
                                                      policy=sched_policy,
                                                      aging_s=aging_s)
@@ -172,12 +223,13 @@ class InferenceEngine:
         come from the live requests' sampling parameters, known on the host,
         so the all-greedy block never touches the sampler's sort or noise."""
         st, n_top = self.state, self.max_top_logprobs
+        page_table = self.pool.cache["page_table"] if self._paged else None
         toks, lp_c, lp_v, lp_i = [], [], [], []
         for _ in range(num_steps):
             out = self.model.apply(
                 self.params, st.last_token[:, None], mode="decode",
                 positions=st.positions[:, None], cache=self.pool.cache,
-                slot_active=st.active)
+                slot_active=st.active, page_table=page_table)
             logits = out.logits[:, 0]
             # frozen slots' sampler fields are neutralised, as in the
             # reference, so a finished request's knobs cannot matter
@@ -263,9 +315,34 @@ class InferenceEngine:
         if not tokens:
             raise ValueError("empty prompt")
         req.status = RequestStatus.PREFILLING
-        return _PrefillJob(slot=slot, req=req, tokens=tokens,
-                           cache=self.pool.single_cache_zeros(), consumed=0,
-                           t0=time.monotonic())
+        # Alg.2: longest cached prefix (cap: leave >=1 token for logits)
+        matched, single = 0, None
+        if self.prefix_cache is not None:
+            value, matched = self.prefix_cache.lookup(
+                tokens, salt=self._salt(req), max_len=len(tokens) - 1)
+            if value is not None:
+                if "pages" in value:
+                    # paged entry: the dense shadow row resumes the prefill,
+                    # while the entry's full pages inside the match are
+                    # leased COW — pinned against eviction until the commit
+                    # transfers them to the slot (zero cache-copy admission)
+                    single = value["dense"]
+                    ps = self.pool.page_size
+                    shared = list(value["pages"][:min(matched // ps,
+                                                      len(value["pages"]))])
+                    if shared:
+                        self.pool.incref_pages(shared)
+                        self._release_lease(req.request_id)
+                        self._job_leases[req.request_id] = shared
+                else:
+                    single = value["cache"]
+                req.cached_prefix_len = matched
+            else:
+                matched = 0
+        if single is None:
+            single = self.pool.single_cache_zeros()
+        return _PrefillJob(slot=slot, req=req, tokens=tokens, cache=single,
+                           consumed=matched, t0=time.monotonic())
 
     def _dispatch_prefill_wave(self) -> List[Tuple[_PrefillJob, torch.Tensor]]:
         """Advance every queued prefill job by one chunk; returns (job,
@@ -320,9 +397,32 @@ class InferenceEngine:
             job.consumed += take
             if job.consumed >= len(job.tokens):
                 done.append((job, logits[i]))
-            else:
-                self.scheduler.enqueue_prefill(job)
+                continue
+            self._publish_partial(job)
+            self.scheduler.enqueue_prefill(job)
         return done
+
+    def _publish_partial(self, job: _PrefillJob) -> None:
+        """Alg.2, per chunk: publish the partial prefix so an identical long
+        prompt arriving behind this one resumes from finished chunks.
+        Rolling: each boundary replaces the job's previous entry, so one
+        in-flight prompt holds at most one partial cache in the byte
+        budget.  The entry owns its row (a clone, not a view pinning the
+        whole wave cache); the job continues from that same row, which
+        nothing writes into (the next wave concatenates it afresh)."""
+        if self.prefix_cache is None or \
+                job.consumed < self.prefix_cache.block_size:
+            return
+        salt = self._salt(job.req)
+        prefix = job.tokens[:job.consumed]
+        new_key = self.prefix_cache.key_for(prefix, salt=salt)
+        job.cache = tree_map(torch.clone, job.cache)
+        self.prefix_cache.insert(
+            prefix, {"cache": job.cache, "len": job.consumed},
+            tree_bytes(job.cache), salt=salt)
+        if job.partial_key and job.partial_key != new_key:
+            self.prefix_cache.discard(job.partial_key)
+        job.partial_key = new_key
 
     def _commit_jobs(self, completed: List[Tuple[_PrefillJob, torch.Tensor]]
                      ) -> List[StreamEvent]:
@@ -381,8 +481,11 @@ class InferenceEngine:
     def _commit_admissions(self, wave: List[_Admission]) -> List[StreamEvent]:
         """Land an admission wave: one cache copy into the pool, one
         decode-state scatter, then per-request stream/finish bookkeeping."""
-        self.pool.insert_many([a.slot for a in wave],
-                              [a.single_cache for a in wave])
+        if self._paged:
+            self._paged_insert_wave(wave)
+        else:
+            self.pool.insert_many([a.slot for a in wave],
+                                  [a.single_cache for a in wave])
         self._live_slots.update(a.slot for a in wave)
         events: List[StreamEvent] = []
         for a in wave:
@@ -398,6 +501,54 @@ class InferenceEngine:
             [(a.slot, a.req, a.first_token, a.seq_len, not a.req.is_finished)
              for a in wave])
         return events
+
+    def _paged_insert_wave(self, wave: List[_Admission]) -> None:
+        """Paged admission: each row's COW-leased prefix pages map into the
+        slot's table with zero copies (the lease's refs transfer), fresh
+        pages are allocated only past the shared prefix, and the dense
+        prefill row is copied into those fresh pages alone.  On arena
+        exhaustion, prefix-cache entries are evicted (freeing their leased
+        pages) and the insert retried; leases are popped only after
+        success, so an abort before then still releases them."""
+        slots = [a.slot for a in wave]
+        singles = [a.single_cache for a in wave]
+        consumed = [a.seq_len for a in wave]
+        shared = [self._job_leases.get(a.req.request_id, ())
+                  for a in wave]
+        while True:
+            try:
+                self.pool.insert_many(slots, singles, consumed=consumed,
+                                      shared=shared)
+                break
+            except PagePoolExhausted:
+                if self.prefix_cache is not None and \
+                        self.prefix_cache.evict_lru():
+                    continue
+                raise
+        for a in wave:                  # lease ownership moved to the slot
+            self._job_leases.pop(a.req.request_id, None)
+        # Alg.2 publication at *commit* (the dense pool publishes at retire):
+        # the slot's full prompt pages are shared into the prefix cache now,
+        # so an identical prompt admitted while this one still decodes maps
+        # the same pages COW.  A ring wrap never corrupts the entry:
+        # wrapping writes COW-split first.  The dense shadow row is cloned
+        # out of the wave cache it is a view of.
+        if self.prefix_cache is None:
+            return
+        ps = self.pool.page_size
+        for a in wave:
+            req = a.req
+            toks = req.prompt_tokens + req.output_tokens[:-1]
+            assert len(toks) == a.seq_len
+            if len(toks) < self.prefix_cache.block_size:
+                continue
+            pub = list(self.pool.slot_pages(a.slot)[:a.seq_len // ps])
+            self.pool.incref_pages(pub)
+            dense = tree_map(torch.clone, a.single_cache)
+            value = {"pages": pub, "dense": dense, "len": a.seq_len}
+            nbytes = self.pool.pages_nbytes(len(pub)) + tree_bytes(dense)
+            self.prefix_cache.insert(toks, value, nbytes,
+                                     salt=self._salt(req))
 
     def _admit_rows_to_state(self, rows: List[Tuple[int, Request, int, int,
                                                     bool]]) -> None:
@@ -444,7 +595,8 @@ class InferenceEngine:
             # be frozen before the slot is reused; buffered text follows
             # the match and is discarded
             events.extend(self._finish(slot, req, FinishReason.STOP,
-                                       deactivate=True, drop_tail=True))
+                                       publish=False, deactivate=True,
+                                       drop_tail=True))
         else:
             events.extend(self._maybe_finish(slot, req, token))
         return events
@@ -462,8 +614,8 @@ class InferenceEngine:
         return self._finish(slot, req, reason)
 
     def _finish(self, slot: int, req: Request, reason: FinishReason, *,
-                deactivate: bool = False, drop_tail: bool = False
-                ) -> List[StreamEvent]:
+                publish: bool = True, deactivate: bool = False,
+                drop_tail: bool = False) -> List[StreamEvent]:
         """Terminal transition: flush the streamer (through the stop
         checker), retire the slot, and emit the finished event."""
         req.finish_reason = reason
@@ -477,13 +629,28 @@ class InferenceEngine:
             safe, stopped = chk.push(tail)
             tail = safe if stopped else safe + chk.flush()
         req.output_text += tail
-        self._retire(slot)
+        self._retire(slot, req, publish=publish)
         if deactivate:
             self._deactivate_slot(slot)
         return [StreamEvent(req.request_id, None, tail,
                             finished=True, finish_reason=reason)]
 
-    def _retire(self, slot: int) -> None:
+    def _retire(self, slot: int, req: Request, *, publish: bool = True
+                ) -> None:
+        # dense layout: publish the prompt's KV to the prefix cache (Alg.2
+        # insert).  Skipped if generation ring-wrapped the cache (prompt
+        # cells were overwritten by generated-token KV) and for host-side
+        # stop-sequence finishes (publish=False: the device kept writing
+        # past the stop point for the rest of the block)
+        wrapped = (len(req.prompt_tokens) + req.num_generated - 1
+                   > self.pool.cache_len)
+        if publish and self.prefix_cache is not None and not wrapped and \
+                not self._paged and \
+                len(req.prompt_tokens) >= self.prefix_cache.block_size:
+            single = self.pool.read(slot)
+            value = {"cache": single, "len": len(req.prompt_tokens)}
+            self.prefix_cache.insert(req.prompt_tokens, value,
+                                     tree_bytes(single), salt=self._salt(req))
         self.scheduler.retire(slot)
         self.pool.free(slot)
         self._live_slots.discard(slot)
@@ -510,6 +677,7 @@ class InferenceEngine:
             self._deactivate_slot(slot)
         else:
             req = self.scheduler.abort_pending(request_id)
+        self._release_lease(request_id)
         if req is None or req.is_finished:
             return []
         req.finish_reason = FinishReason.ABORT
@@ -520,6 +688,55 @@ class InferenceEngine:
         self._stopchk.pop(request_id, None)
         return [StreamEvent(request_id, None, "", finished=True,
                             finish_reason=FinishReason.ABORT)]
+
+    # ------------------------------------------------------------------ #
+    # prefix-cache salt and paged-KV bookkeeping
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _salt(req: Request) -> bytes:
+        """Prefix-cache salt from the admission-time media digest: ``b""``
+        for the text requests this engine serves."""
+        return (bytes.fromhex(req.media_set_digest)
+                if req.media_set_digest else b"")
+
+    def _on_cache_evict(self, key: str, value: Any) -> None:
+        """Prefix-cache entry displaced (LRU squeeze, replacement, or forced
+        page-pressure eviction): release the device pages it leased."""
+        if isinstance(value, dict) and value.get("pages"):
+            self.pool.release_pages(value["pages"])
+
+    def _release_lease(self, request_id: int) -> None:
+        pages = self._job_leases.pop(request_id, None)
+        if pages:
+            self.pool.release_pages(pages)
+
+    def _live_positions(self) -> Dict[int, int]:
+        """slot -> absolute position of its last sampled token (where the
+        next decode step writes KV) for every live slot."""
+        out = {}
+        for slot in self._live_slots:
+            req = self.scheduler.active.get(slot)
+            if req is not None:
+                out[slot] = len(req.prompt_tokens) + req.num_generated - 1
+        return out
+
+    def _ensure_paged_capacity(self, k_steps: int) -> None:
+        """Before a decode block: make the pages it will write exclusively
+        owned (lazy tail allocation + COW splits).  On exhaustion, evict
+        prefix-cache entries (their leases free real pages) — rung 1 of the
+        reference's pressure ladder.  Its later rungs preempt or fail a
+        slot; the port refuses arenas below full capacity instead, where
+        rung 1 always frees enough, so running out here is a broken
+        invariant and raises."""
+        while not self.pool.ensure_decode_capacity(self._live_positions(),
+                                                   k_steps):
+            if self.prefix_cache is not None and \
+                    self.prefix_cache.evict_lru():
+                continue
+            raise RuntimeError(
+                f"KV page arena exhausted with nothing left to evict "
+                f"({self.pool.page_occupancy()}): a full-capacity arena "
+                "should never run out")
 
     def validate_request(self, req: Request) -> None:
         """Validate + normalise a request without enqueueing it: prompt
@@ -576,6 +793,9 @@ class InferenceEngine:
             samp = [self._resolve_sampling(r) for r in live_reqs]
             num_steps = self.scheduler.plan_decode_block(
                 self.max_decode_block, reclaim_queued=reclaim_q)
+            if self._paged:
+                # the block's KV writes must land on exclusively-owned pages
+                self._ensure_paged_capacity(num_steps)
             toks, lps = self._decode_block(
                 num_steps,
                 want_logprobs=any(r.sampling.logprobs for r in live_reqs),

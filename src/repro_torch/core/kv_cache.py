@@ -27,7 +27,13 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import init_cache, tree_map
+from repro_torch.models.model import init_cache, tree_leaves, tree_map
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes held by every tensor leaf of a cache tree (the prefix cache's
+    LRU byte accounting)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 # --------------------------------------------------------------------------- #
@@ -116,7 +122,9 @@ def concat_cache_rows(singles: Sequence[Any]):
 def slice_cache_row(cache, row: int):
     """One row of a ``[k, ...]`` wave cache as a batch=1 cache of *views*
     (no copy): the engine hands it back to the row's chunk job, whose next
-    chunk concatenates it into a fresh wave cache."""
+    chunk concatenates it into a fresh wave cache.  A view pins the whole
+    wave cache, so whatever keeps a row longer (a prefix-cache entry) stores
+    ``tree_map(torch.clone, row)`` instead."""
     out = {"prefix": [tree_map(lambda a: a[row:row + 1], bp)
                       for bp in cache["prefix"]]}
     out["block"] = (tree_map(lambda a: a[:, row:row + 1], cache["block"])
@@ -190,9 +198,11 @@ class SlotKVPool:
 
         It is shared by every fresh prefill job and every padding row of a
         wave, so an in-place write into it — or into any view that aliases
-        it — would corrupt every later prefill.  Nothing writes into it:
-        waves run on the fresh tensors of :func:`concat_cache_rows`, and
-        decode writes only into the pool's own ``self.cache``."""
+        it — would corrupt every later prefill.  The same holds for every
+        prefix-cache entry, which resumed prefill jobs start from.  Nothing
+        writes into either: waves run on the fresh tensors of
+        :func:`concat_cache_rows`, and decode writes only into the pool's
+        own ``self.cache``."""
         if self._zeros is None:
             self._zeros = init_cache(self.cfg, 1, self.cache_len,
                                      device=self.device)

@@ -33,6 +33,8 @@ SIGNATURES = {
                          [_PTR] * 5 + [_INT] * 6 + [_LL] * 7 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
+    "paged_attention": ("paged_attention_launch",
+                        [_PTR] * 8 + [_INT] * 8 + [_LL] * 13 + [_PTR]),
 }
 KERNELS = tuple(SIGNATURES)
 CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env

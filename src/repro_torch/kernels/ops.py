@@ -5,9 +5,11 @@ hand-written kernel, which raises on anything it does not take.  There is no
 switch and no fallback: a kernel or build failure on the card propagates.
 
 ``_flash_plain`` and ``_decode_plain`` are the torch forms of the
-reference's ``_flash_jnp`` and ``_decode_jnp``; the kernels themselves live
-in :mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.decode_attention`, each beside its plain version.
+reference's ``_flash_jnp`` and ``_decode_jnp``, ``_paged_plain`` that of the
+CPU path of its ``paged_attention``; the kernels themselves live in
+:mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.decode_attention` and
+:mod:`repro_torch.kernels.paged_attention`, each beside its plain version.
 """
 from __future__ import annotations
 
@@ -19,9 +21,12 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                 paged_attention_plain)
 
 _flash_plain = flash_attention_plain
 _decode_plain = decode_attention_plain
+_paged_plain = paged_attention_plain
 
 
 def flash_attention(
@@ -54,3 +59,21 @@ def decode_attention(
     if q.is_cuda:
         return decode_attention_cuda(q, k_cache, v_cache, kv_valid)
     return _decode_plain(q, k_cache, v_cache, kv_valid)
+
+
+def paged_attention(
+    q: torch.Tensor,                   # [B, H, D]
+    k_pages: torch.Tensor,             # [N, ps, Hkv, D] page arena
+    v_pages: torch.Tensor,             # [N, ps, Hkv, D]
+    page_table: torch.Tensor,          # [B, P] int32
+    positions: torch.Tensor,           # [B] int32 query-token positions
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # [N, ps, Hkv] f32 (int8 pages)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    if q.is_cuda:
+        return paged_attention_cuda(q, k_pages, v_pages, page_table,
+                                    positions, k_scale=k_scale,
+                                    v_scale=v_scale)
+    return _paged_plain(q, k_pages, v_pages, page_table, positions,
+                        k_scale=k_scale, v_scale=v_scale)

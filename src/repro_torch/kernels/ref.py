@@ -8,6 +8,8 @@ them in turn.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 NEG_INF = -1e30
@@ -66,3 +68,43 @@ def decode_attention_ref(
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs, v)
     return out.to(q.dtype)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,                   # [B, H, D] one new token per sequence
+    k_pages: torch.Tensor,             # [N, ps, Hkv, D] global page arena
+    v_pages: torch.Tensor,             # [N, ps, Hkv, D]
+    page_table: torch.Tensor,          # [B, P] int page id per table entry
+    positions: torch.Tensor,           # [B] int position of the query token
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # [N, ps, Hkv] f32 (int8 pages)
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention through a page table: gather each sequence's pages
+    into a contiguous [B, P*ps, Hkv, D] view (dequantising int8 pages with
+    their per-(position, head) scales), mask cells past the query position
+    (ring semantics: a fully wrapped cache attends to everything), and run
+    the dense decode oracle."""
+    valid = ring_valid(positions, page_table.shape[1] * k_pages.shape[1])
+    return decode_attention_ref(q, gather_pages(k_pages, page_table, k_scale),
+                                gather_pages(v_pages, page_table, v_scale),
+                                valid)
+
+
+def gather_pages(pages: torch.Tensor, page_table: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``pages[page_table]`` as one contiguous ``[B, P*ps, Hkv, D]`` row per
+    sequence; int8 pages come back as float32 times their scales."""
+    b, p = page_table.shape
+    rows = pages[page_table.long()]                   # [B, P, ps, Hkv, D]
+    if scale is not None:
+        rows = rows.float() * scale[page_table.long()][..., None]
+    return rows.reshape(b, p * pages.shape[1], *pages.shape[2:])
+
+
+def ring_valid(positions: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, s] liveness of a ring of ``s`` cells for a query at ``positions``:
+    cell ``i`` is live iff ``i <= pos``, or every cell once ``pos >= s``."""
+    idx = torch.arange(s, device=positions.device)[None, :]
+    pos = positions.long()[:, None]
+    return (idx <= pos) | (pos >= s)

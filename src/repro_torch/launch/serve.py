@@ -3,7 +3,7 @@ continuous-batching engine, on the CUDA card unless ``--device`` says
 otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
-      --port 8177 --max-batch 8 --cache-len 2048
+      --port 8177 --max-batch 8 --cache-len 2048 [--kv-layout paged]
 
 Weights are random, drawn from ``--seed`` (nothing is downloaded), so the
 text is gibberish: check the contract (finish_reason, usage, chunk framing).
@@ -49,6 +49,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["fifo", "priority", "edf"],
                     help="request ordering for admission and the prefill "
                          "chunk queue")
+    ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--kv-layout", choices=("dense", "paged"),
+                    default="dense",
+                    help="KV cache layout: dense per-slot ring, or paged "
+                         "global arena with copy-on-write prefix sharing")
+    ap.add_argument("--kv-page-size", type=int, default=16,
+                    help="tokens per KV page (paged layout; default matches "
+                         "the prefix-cache block size)")
+    ap.add_argument("--kv-num-pages", type=int, default=None,
+                    help="page-arena size (paged layout); default sizes for "
+                         "full max-batch capacity + reserved pages (smaller "
+                         "arenas need preemption, not ported yet)")
+    ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
+                    help="KV page storage: model dtype, or int8 with "
+                         "per-(position, head) scales (paged layout only)")
     return ap.parse_args(argv)
 
 
@@ -62,7 +77,10 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         max_decode_block=args.max_decode_block, top_p=args.top_p,
         top_k=args.top_k, min_p=args.min_p, prefill_chunk=args.prefill_chunk,
         max_prefill_buckets=args.max_prefill_buckets,
-        sched_policy=args.sched_policy)
+        sched_policy=args.sched_policy,
+        enable_prefix_cache=not args.no_prefix_cache,
+        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
+        kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype)
     return ApiServer(OpenAIServer(EngineClient(engine), cfg.name),
                      port=args.port)
 

@@ -11,14 +11,18 @@ leaves without transposing.  Each block runs one of the reference's modes:
                   positions with a ``seq_valid`` right-padding mask (the
                   engine's batched, chunked prefill waves);
   * ``decode``  — one token per slot at per-slot positions over a dense
-                  ring cache.
+                  ring cache, or (with a ``page_table``) over one layer of
+                  the paged arena of :mod:`repro_torch.core.paged_kv`, fp
+                  or int8.
 
 Unlike the reference, caches are updated **in place**: a layer writes its
 new K/V cells into the tensors of the ``cache`` dict it is given and returns
 that dict.  Callers hand in caches they own (the engine's pool, or a wave's
 freshly concatenated prefill cache — never a shared zeros tree).  A frozen
 decode slot (``slot_active`` False) has its cell rewritten with its old
-value, the in-place form of the reference's ``select_cache_slots`` rule.
+value, the in-place form of the reference's ``select_cache_slots`` rule; in
+a paged arena its write goes to its reserved trash cell instead, as in the
+reference.
 
 Branches of the reference not yet ported raise ``NotImplementedError``
 naming the ROADMAP port-queue item that brings them.
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.quant_matmul import quantize_kv_int8
 
 Params = Dict[str, Any]
 
@@ -138,10 +143,8 @@ def apply_self_attn(
     resume: bool = False,            # prefill continues from cached tokens
     seq_valid: Optional[torch.Tensor] = None,    # [B, S] prefix mask
     slot_active: Optional[torch.Tensor] = None,  # [B] live mask (decode)
-    page_table: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,   # [B, P] int32 (paged decode)
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    if page_table is not None:
-        raise not_ported("paged-KV decode", "paged KV with paged_attention")
     b, s, _ = x.shape
     hn = rmsnorm(x, p["ln"], cfg.rms_eps)
     q, k, v = _qkv(p, hn, cfg)
@@ -165,6 +168,41 @@ def apply_self_attn(
         vc[bidx, slots] = v
         out = ops.flash_attention(q, kc, vc, causal=True, window=window,
                                   q_positions=positions)
+        new_cache = cache
+    elif mode == "decode" and page_table is not None:
+        # paged KV: the cache holds one layer of the page arena [N, ps, Hkv,
+        # hd] and each slot's cells are reached through page_table.  The
+        # engine's ensure_decode_capacity makes the write target a page the
+        # slot owns alone; a frozen slot (slot_active False), whose pages
+        # may already be freed and handed to another slot, redirects its
+        # write to its reserved trash cell (b // ps, b % ps).  So the
+        # indices of each indexed write below are distinct.
+        if s > 1:
+            raise not_ported("S > 1 paged decode (speculative verification)",
+                             "speculative decoding")
+        kc, vc = cache["k"], cache["v"]
+        ps = kc.shape[1]
+        pos = positions[:, 0]
+        ring = pos % (ps * page_table.shape[1])
+        bidx = torch.arange(b, device=x.device)
+        page = page_table[bidx, ring // ps].long()
+        off = ring % ps
+        if slot_active is not None:
+            page = torch.where(slot_active, page, bidx // ps)
+            off = torch.where(slot_active, off, bidx % ps)
+        pos32 = pos.to(torch.int32)
+        if "k_scale" in cache:                          # int8 arena
+            ksc, vsc = cache["k_scale"], cache["v_scale"]
+            kq, ks = quantize_kv_int8(k[:, 0])
+            vq, vs = quantize_kv_int8(v[:, 0])
+            kc[page, off], vc[page, off] = kq, vq
+            ksc[page, off], vsc[page, off] = ks, vs
+            out = ops.paged_attention(q[:, 0], kc, vc, page_table, pos32,
+                                      k_scale=ksc, v_scale=vsc)[:, None]
+        else:
+            kc[page, off], vc[page, off] = k[:, 0], v[:, 0]
+            out = ops.paged_attention(q[:, 0], kc, vc, page_table,
+                                      pos32)[:, None]
         new_cache = cache
     elif mode == "decode" and s > 1:
         raise not_ported("S > 1 decode (speculative verification)",

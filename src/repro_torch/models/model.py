@@ -119,7 +119,11 @@ class Model:
         """``last_idx`` (a port addition for the engine's prefill waves)
         takes each row's hidden state at its own last real token before
         the LM head, so a wave never materialises ``[k, bucket, vocab]``
-        logits; it yields ``[B, 1, V]`` like ``logits_mode='last'``."""
+        logits; it yields ``[B, 1, V]`` like ``logits_mode='last'``.
+
+        With ``page_table`` (paged decode), ``cache`` is a paged arena: its
+        layers are read and written through the table, and every other
+        top-level key (the arena's own ``page_table``) is left untouched."""
         cfg = self.cfg
         b, s = tokens.shape
         window_eff = cfg.sliding_window if window is None else window

@@ -15,6 +15,7 @@ readiness, the router, and ``echo`` (rejected by the engine with a 400);
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import time
 import uuid
@@ -23,6 +24,7 @@ from typing import Any, Dict, Iterator, List, Tuple, Union
 import torch
 
 from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.paged_kv import PagedKVPool
 from repro_torch.core.request import (GenerationRequest, PromptTooLongError,
                                       SamplingParams)
 from repro_torch.core.sampling import (SamplingParamError,
@@ -457,9 +459,10 @@ class OpenAIServer:
 
     def stats(self) -> Dict[str, Any]:
         """Serving observability (``GET /stats``): scheduler and client
-        counters plus the engine's knobs; subsystems not ported in this
-        slice (prefix cache, admission, speculation, router) have no
-        block."""
+        counters plus the engine's knobs, the ``prefix_cache`` block when
+        the cache is on, and under the paged layout a ``kv_pages`` block
+        (arena occupancy and allocator counters); subsystems not ported yet
+        (admission, speculation, router) have no block."""
         eng = self.engine
         out = dict(self.client.stats())
         out.update({
@@ -474,6 +477,17 @@ class OpenAIServer:
             "prefill_buckets_seen": sorted(eng._seen_buckets),
             "sched_policy": eng.scheduler.policy.name,
         })
+        if eng.prefix_cache is not None:
+            out["prefix_cache"] = {
+                "entries": len(eng.prefix_cache),
+                "hits": eng.prefix_cache.stats.hits,
+                "misses": eng.prefix_cache.stats.misses,
+            }
+        if isinstance(eng.pool, PagedKVPool):
+            out["kv_pages"] = {"page_size": eng.pool.page_size,
+                               "kv_dtype": eng.pool.kv_dtype,
+                               **eng.pool.page_occupancy(),
+                               **dataclasses.asdict(eng.pool.stats)}
         return out
 
     def healthz(self) -> Tuple[Dict[str, Any], int]:

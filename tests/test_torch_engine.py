@@ -2,9 +2,9 @@
 CPU, given the same weights (bridged from one JAX init): greedy tokens must
 be identical — with ``prefill_chunk`` 0 and 32, with more requests than
 ``max_batch``, with stop tokens, ``max_tokens`` and an abort — and logprobs
-close (atol 1e-4, float32).  The reference runs with its prefix cache and
-speculative wave filling off (both outside this slice; neither changes
-greedy tokens).  Also the sampler: the keep-set semantics against the
+close (atol 1e-4, float32).  Both engines run with the same arguments,
+the prefix cache on; the reference's speculative wave filling (outside the
+port so far; it changes no greedy token) is off.  Also the sampler: the keep-set semantics against the
 reference's, and the stateless per-token stream.
 """
 import jax
@@ -43,9 +43,11 @@ def _prompts():
 
 
 def _engines(weights, **kw):
+    """Both engines with the same arguments (the prefix cache on, as by
+    default); speculative wave filling is off on the reference's side."""
     jcfg, tcfg, jp, tp = weights
-    je = JaxEngine(jcfg, jp, enable_prefix_cache=False,
-                   speculative_fill=False, **kw)
+    kw.setdefault("enable_prefix_cache", True)
+    je = JaxEngine(jcfg, jp, speculative_fill=False, **kw)
     te = InferenceEngine(tcfg, tp, device="cpu", **kw)
     return je, te
 

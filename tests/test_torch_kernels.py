@@ -21,6 +21,9 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
+from repro_torch.kernels.paged_attention import (paged_attention_cuda,
+                                                 paged_attention_plain)
+from repro_torch.kernels.quant_matmul import quantize_kv_int8
 
 F32 = dict(atol=2e-5, rtol=1e-3)
 CARD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -281,3 +284,67 @@ def test_flash_kernel_matches_plain(cuda, dtype, form):
     got = flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     _close(got, flash_attention_plain(q, k, v, **kw), dtype)
+
+
+def _paged_case(device, dtype, *, b=8, ps=16, p=128, reserved=1, h=14,
+                hkv=2, d=64, int8=False, seed=0, stacked=0):
+    """An arena of ``reserved + b * p`` pages, rows 0 and 1 sharing their
+    first pages, row 2 wrapped, ragged positions, and every table entry past
+    a row's allocation pointing at reserved page 0 (filled with noise).  With
+    ``stacked`` layers the pages are one layer of an ``[N, L, ...]`` arena, a
+    view whose page stride is not its page size."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = reserved + b * p
+    lead = (stacked,) if stacked else ()
+
+    def arena():
+        """(pages, scales or None), both one layer of the stack if any."""
+        x = torch.randn((n,) + lead + (ps, hkv, d), generator=g, device=device)
+        x, sc = quantize_kv_int8(x) if int8 else (x.to(dtype), None)
+        if stacked:
+            return (x[:, stacked // 2],
+                    None if sc is None else sc[:, stacked // 2])
+        return x, sc
+
+    q = torch.randn((b, h, d), generator=g, device=device).to(dtype)
+    (k, ks), (v, vs) = arena(), arena()
+    kw = dict(k_scale=ks, v_scale=vs) if int8 else {}
+    pos = torch.randint(0, p * ps, (b,), generator=g, device=device)
+    pos[2] = p * ps + 37                      # wrapped ring: every cell live
+    pos[:2] = pos[:2].clamp_min(min(5, p - 1) * ps)   # rows 0, 1: many pages
+    table = torch.zeros((b, p), dtype=torch.int32, device=device)
+    perm = torch.randperm(b * p, generator=g, device=device) + reserved
+    for row in range(b):
+        live = p if row == 2 else int(pos[row]) // ps + 1
+        table[row, :live] = perm[row * p:row * p + live].int()
+    table[1, :4] = table[0, :4]               # shared prefix pages
+    return (q, k, v, table, pos.int()), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float32", "bfloat16", "int8-q-float32",
+                                "int8-q-bfloat16"])
+@pytest.mark.parametrize("ps,p,h,hkv,d", [
+    (16, 128, 14, 2, 64),                     # the main path's shape
+    (16, 8, 14, 2, 64), (4, 20, 8, 2, 32), (32, 6, 16, 1, 128),
+    (8, 10, 4, 4, 64)])
+def test_paged_kernel_matches_plain(cuda, kv, ps, p, h, hkv, d):
+    int8 = kv.startswith("int8")
+    dtype = getattr(torch, kv.split("-")[-1])
+    args, kw = _paged_case(cuda, dtype, ps=ps, p=p, h=h, hkv=hkv, d=d,
+                           int8=int8)
+    got = paged_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, paged_attention_plain(*args, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_reads_a_layer_of_a_stacked_arena(cuda, int8):
+    args, kw = _paged_case(cuda, torch.float32, b=4, p=16, int8=int8,
+                           stacked=3)
+    assert not args[1].is_contiguous()
+    assert not int8 or not kw["k_scale"].is_contiguous()
+    got = paged_attention_cuda(*args, **kw)
+    want = paged_attention_plain(*args, **kw)
+    _close(got, want, torch.float32)

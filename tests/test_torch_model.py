@@ -2,8 +2,9 @@
 bridge, the layer primitives, the attention layer in each ported mode, and
 ``Model.apply`` logits (train, prefill, resume-prefill with ``seq_valid``,
 decode) on ``qwen2-0.5b`` reduced (qkv bias, tied embeddings, G = 4) and
-``qwen3-0.6b-toy``, in float32.  Tolerance atol 1e-4: the same float32
-arithmetic summed in another order.  Also the port's import rules.
+``qwen3-0.6b-toy``, in float32, and the paged decode branch over a page
+arena, fp and int8.  Tolerance atol 1e-4: the same float32 arithmetic
+summed in another order.  Also the port's import rules.
 """
 import re
 import subprocess
@@ -22,6 +23,7 @@ from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch.configs import get_config, registry
 from repro_torch.core.kv_cache import SlotKVPool, init_decode_state
+from repro_torch.core.paged_kv import PagedKVPool
 from repro_torch.models import layers, model
 from repro_torch.models.convert import params_from_jax
 
@@ -168,6 +170,50 @@ def test_attention_layer_modes_match_reference(pair, mode):
             _close(tnew[n], jnew[n])
 
 
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_paged_decode_layer_matches_reference(pair, kv):
+    """The S = 1 paged decode branch on a small arena: row 0 live, row 1
+    wrapped and sharing row 0's first page, row 2 frozen (its write goes to
+    its trash cell), fp and int8 pages — output and arena after the write
+    against the reference's layer."""
+    jcfg, tcfg, jp, tp = pair
+    from repro.kernels.quant_matmul import quantize_kv_int8 as jq
+    jblock = jax.tree.map(lambda a: a[0], jp["block"]["pos0"]["attn"])
+    tblock = model.tree_map(lambda a: a[0], tp["block"]["pos0"]["attn"])
+    rng = np.random.default_rng(6)
+    b, ps, n, hkv, hd = 3, 4, 12, jcfg.num_kv_heads, jcfg.head_dim
+    x = rng.standard_normal((b, 1, jcfg.d_model)).astype(np.float32)
+    arena = {name: rng.standard_normal((n, ps, hkv, hd)).astype(np.float32)
+             for name in ("k", "v")}
+    if kv == "int8":
+        for name in ("k", "v"):
+            qv, sc = jq(arena[name])
+            arena[name], arena[name + "_scale"] = np.asarray(qv), np.asarray(sc)
+    table = np.array([[2, 3, 4], [2, 5, 6], [7, 8, 0]], np.int32)
+    pos = np.array([[6], [13], [9]])
+    active = np.array([True, True, False])
+    jx, jnew = jlayers.apply_self_attn(
+        jblock, x, cfg=jcfg, mode="decode", positions=pos,
+        cache={k: jnp.asarray(a) for k, a in arena.items()},
+        page_table=jnp.asarray(table), slot_active=jnp.asarray(active))
+    tc = {k: torch.from_numpy(a.copy()) for k, a in arena.items()}
+    tx, tnew = layers.apply_self_attn(
+        tblock, torch.from_numpy(x), cfg=tcfg, mode="decode",
+        positions=torch.from_numpy(pos), cache=tc,
+        page_table=torch.from_numpy(table),
+        slot_active=torch.from_numpy(active))
+    _close(tx, jx)
+    assert tnew is tc
+    for name, leaf in tc.items():
+        np.testing.assert_allclose(_np_t(leaf), np.asarray(jnew[name]),
+                                   atol=1e-6, err_msg=name)
+    assert not np.array_equal(_np_t(tc["k"])[0, 2], arena["k"][0, 2])
+
+
+def _np_t(t):
+    return t.float().numpy() if t.dtype == torch.int8 else t.numpy()
+
+
 def test_unported_branches_name_their_roadmap_item(pair):
     _, tcfg, _, tp = pair
     attn = model.tree_map(lambda a: a[0], tp["block"]["pos0"]["attn"])
@@ -178,10 +224,11 @@ def test_unported_branches_name_their_roadmap_item(pair):
         layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
                                positions=torch.zeros((1, 2), dtype=torch.long),
                                cache=cache)
-    with pytest.raises(NotImplementedError, match="paged KV"):
-        layers.apply_self_attn(attn, x[:, :1], cfg=tcfg, mode="decode",
-                               positions=torch.zeros((1, 1), dtype=torch.long),
-                               cache=cache, page_table=torch.zeros((1, 1)))
+    with pytest.raises(NotImplementedError, match="speculative decoding"):
+        layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
+                               positions=torch.zeros((1, 2), dtype=torch.long),
+                               cache=cache, page_table=torch.zeros(
+                                   (1, 1), dtype=torch.int32))
     for kind, item in (("moe", "MoE"), ("ssm", "SSM"), ("xattn", "multimodal")):
         with pytest.raises(NotImplementedError, match=item):
             layers.init_layer(torch.Generator(), kind, tcfg)
@@ -278,6 +325,8 @@ _HELPERS = {
     "init_cache": lambda cfg, **kw: model.init_cache(cfg, 1, 8, **kw),
     "init_decode_state": lambda cfg, **kw: init_decode_state(4, 2, **kw),
     "SlotKVPool": lambda cfg, **kw: SlotKVPool(cfg, 2, 8, **kw),
+    "PagedKVPool": lambda cfg, **kw: PagedKVPool(cfg, 2, 8, page_size=4,
+                                                 **kw),
     "params_from_jax": lambda cfg, **kw: params_from_jax(
         {"embed": np.zeros((4, 2), np.float32)}, cfg, **kw),
 }
@@ -291,7 +340,7 @@ def test_helpers_need_cuda_unless_cpu_is_asked_for(name, monkeypatch):
         _HELPERS[name](cfg)
     out = _HELPERS[name](cfg, device="cpu")
     assert all(t.device.type == "cpu" for t in model.tree_leaves(
-        out.cache if name == "SlotKVPool" else
+        out.cache if name.endswith("KVPool") else
         vars(out) if name == "init_decode_state" else out))
 
 

@@ -1,7 +1,7 @@
 """The port's OpenAI server over HTTP on the CPU: the text-only golden
 fixtures of ``tests/golden_openai`` (the image, echo and multimodal-stop
 fixtures belong to slices not ported yet), chat, completions, SSE, ``n=2``,
-and the launcher."""
+``/stats``, and the launcher, dense and paged."""
 import json
 
 import pytest
@@ -109,7 +109,8 @@ def test_stats_and_health(server):
     _, stats = _request_json(server, {"method": "GET", "path": "/stats"})
     assert stats["device"] == "cpu" and stats["retired"] >= 1
     assert stats["tokens_generated"] >= 1 and stats["aborted"] == 0
-    for absent in ("prefix_cache", "admission", "speculation", "router"):
+    assert set(stats["prefix_cache"]) == {"entries", "hits", "misses"}
+    for absent in ("kv_pages", "admission", "speculation", "router"):
         assert absent not in stats
     _, health = _request_json(server, {"method": "GET", "path": "/healthz"})
     assert health["ok"] is True
@@ -128,6 +129,34 @@ def test_launcher_serves_on_the_cpu():
     finally:
         srv.stop()
         srv.api.client.stop()
+
+
+def test_launcher_serves_paged_on_the_cpu():
+    """``--kv-layout paged``: a request is served and ``/stats`` carries the
+    ``kv_pages`` block; the same prompt again hits the prefix cache and
+    maps its pages copy-on-write."""
+    args = serve.parse_args(["--arch", "qwen2-0.5b", "--smoke", "--device",
+                             "cpu", "--port", "0", "--cache-len", "64",
+                             "--max-batch", "2", "--kv-layout", "paged"])
+    srv = serve.build_server(args)
+    srv.start()
+    try:
+        prompt = "a paged prompt long enough for two pages"
+        for _ in range(2):
+            status, body = _chat(srv, prompt, max_tokens=3)
+            assert status == 200 and body["usage"]["completion_tokens"] == 3
+        _, stats = _request_json(srv, {"method": "GET", "path": "/stats"})
+        pages = stats["kv_pages"]
+        assert pages["page_size"] == 16 and pages["kv_dtype"] == "fp"
+        assert pages["total"] == 2 * 4 and pages["pinned"] == 0
+        assert pages["shares"] > 0 and pages["full_copies"] == 0
+        assert stats["prefix_cache"]["hits"] >= 1
+    finally:
+        srv.stop()
+        srv.api.client.stop()
+    no_cache = serve.parse_args(["--no-prefix-cache", "--kv-dtype", "int8",
+                                 "--kv-layout", "paged"])
+    assert no_cache.no_prefix_cache and no_cache.kv_dtype == "int8"
 
 
 def test_client_abort_and_engine_failure_finish_every_handle():
