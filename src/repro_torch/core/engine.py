@@ -1,13 +1,18 @@
 """The inference engine of the port: continuous batching over a dense ring
 KV cache or a paged arena with copy-on-write prefix sharing, with a
-device-resident K-step decode block, a chunked, batched prefill pipeline and
-the text prefix cache (paper Alg.2) — the text subset of the reference
-package's ``core/engine.py``, in eager PyTorch.
+device-resident K-step decode block, a chunked, batched prefill pipeline,
+the text prefix cache (paper Alg.2) and, for vision models, batched encode
+waves with in-flight dedup and the content cache (paper Alg.3) — the
+reference package's ``core/engine.py`` less what the port queue still
+holds, in eager PyTorch.
 
 Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
   1. **Plan admissions**: pending requests bind to free decode slots; each
-     opens a *prefill job* that parks in the scheduler's chunk queue.
+     opens a *prefill job* that parks in the scheduler's chunk queue.  A
+     request with images or video frames is admissible only once its whole
+     media set has an embedding (content-cache hits at job open, the rest
+     from encode waves).
   2. **Dispatch a decode block** (if any slot is live): K decode+sample
      iterations as a Python loop over device tensors — sampling, stop-token
      detection and budget accounting all stay on the device, and a slot
@@ -15,9 +20,13 @@ Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
      writes, no position advance).  K comes from
      ``scheduler.plan_decode_block`` and collapses to 1 while requests or
      prefill chunks wait.
-  3. **Dispatch a prefill wave**: every queued job's next chunk, packed into
-     right-padded ``[k, bucket]`` forward passes (per-row positions and a
-     ``seq_valid`` length mask), ``prefill_chunk`` tokens per job per step.
+  3. **Run an encode wave, then dispatch a prefill wave**: up to
+     ``ENCODE_WAVE`` unique pending encodes (singleflight on the content
+     hash: N requests with one image cost one encoder call), then every
+     queued job's next chunk, packed into right-padded ``[k, bucket]``
+     forward passes (per-row positions and a ``seq_valid`` length mask),
+     ``prefill_chunk`` tokens per job per step, grouped by bucket and by
+     whether the rows' cross KV came from the content cache.
   4. **Sync + emit**: the host syncs **once per block** (the copy of the
      ``[K, B]`` token block), emits and retires, then commits finished
      prefills — one multi-slot cache copy, one decode-state scatter, one
@@ -35,12 +44,19 @@ every decode block first makes the pages it will write exclusively owned
 (:meth:`PagedKVPool.ensure_decode_capacity`), evicting prefix-cache entries
 when the arena runs short.
 
-Not ported yet (refused with ``NotImplementedError`` naming the ROADMAP
-item, or simply absent from ``/stats``): arenas below full capacity (they
-need preemption), speculative decoding, media and the content cache,
+Content cache (``enable_content_cache``): per-frame embedding entries skip
+the encoder; per-media-set cross-KV entries (device clones, never views
+into a wave cache) skip the context projection of every cross-attention
+layer.  Under ``kv_layout="paged"`` a cross-KV entry leases accounting
+pages of the arena, and the pressure ladder evicts it after the prefix
+cache's entries.
+
+Not ported yet (refused with ``NotImplementedError`` or ``ValueError``
+naming the ROADMAP item, or simply absent from ``/stats``): arenas below
+full capacity (they need preemption), speculative decoding, audio models,
 preemption, fault injection, drain and handoff, shared-prefix ``n`` groups
-(``n`` > 1 runs independent prefills), speculative wave filling, and echo /
-prompt logprobs.
+(``n`` > 1 runs independent prefills; refused for media requests),
+speculative wave filling, and echo / prompt logprobs.
 """
 from __future__ import annotations
 
@@ -52,6 +68,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.content_cache import (ContentCache, CrossKVEntry,
+                                            EmbeddingEntry, MediaStats,
+                                            content_hash, media_set_digest)
 from repro_torch.core.kv_cache import (SlotKVPool, admit_decode_state,
                                        concat_cache_rows, init_decode_state,
                                        slice_cache_row, tree_bytes)
@@ -67,7 +86,12 @@ from repro_torch.core.streaming import StopSequenceChecker, TokenStreamDecoder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import not_ported
 from repro_torch.models.model import Model, tree_map
+from repro_torch.serving.media import VisionEncoderStub, decode_media
 from repro_torch.serving.tokenizer import ByteTokenizer
+
+
+MAX_MEDIA_ITEMS = 4     # images the cross-attention context window holds
+ENCODE_WAVE = 4         # unique encodes per step: a video streams across
 
 
 def _next_bucket(n: int, floor: int = 16) -> int:
@@ -85,6 +109,7 @@ class _Admission:
     req: Request
     single_cache: Any
     first_token: int
+    ctx_valid: Optional[np.ndarray]      # [T] bool or None
     seq_len: int                         # tokens materialised in the cache
     logprob: Optional[float] = None
     top_logprobs: Optional[List[Tuple[int, float]]] = None
@@ -100,8 +125,45 @@ class _PrefillJob:
     tokens: List[int]
     cache: Any
     consumed: int
+    embeds: Optional[np.ndarray]         # [1, T, De] media embeddings | None
+    ctx_valid: Optional[np.ndarray]      # [1, T] bool | None
+    cross_cached: bool                   # cross KV restored from the cache
+    publish_xkv: bool                    # publish cross KV after 1st chunk
     t0: float
     partial_key: Optional[str] = None    # rolling chunk-boundary prefix entry
+
+
+@dataclass
+class _MediaItem:
+    """One media payload of a request, resolved to an embedding either by a
+    content-cache hit at job open or by an encode wave."""
+    hash: str
+    ntok: int                            # context tokens this item occupies
+    emb: Optional[np.ndarray] = None     # [ntok, De] once resolved
+
+
+@dataclass
+class _MediaJob:
+    """A request's media set being resolved ahead of admission: payloads are
+    decoded and hashed once at job open, embedding-cache hits resolve items
+    at once, the rest wait on shared in-flight encode tasks.  The request
+    stays pending until ``remaining == 0``, so a 64-frame video streams
+    through encode waves across steps instead of stalling one."""
+    req: Request
+    items: List[_MediaItem]
+    remaining: int                       # items still awaiting an embedding
+
+
+@dataclass
+class _EncodeTask:
+    """One *unique* pending encode, keyed by content hash (singleflight):
+    every request whose media set needs this hash waits on it, and the
+    encode wave runs the encoder once for all of them."""
+    hash: str
+    pixels: np.ndarray
+    encoder: Any
+    ntok: int
+    waiters: List[_MediaJob]
 
 
 class InferenceEngine:
@@ -133,9 +195,15 @@ class InferenceEngine:
         kv_page_size: int = 16,          # tokens per KV page (paged layout)
         kv_num_pages: Optional[int] = None,  # arena size; None = full capacity
         kv_dtype: str = "fp",            # 'fp' | 'int8' (paged layout only)
+        enable_content_cache: bool = True,
+        cache_vision_embeddings: bool = True,
+        cache_vision_kv: bool = True,
+        content_cache_bytes: Optional[int] = None,  # None = cache_max_bytes
+        vision_work_iters: int = 8,
     ):
-        if cfg.vision is not None or cfg.audio is not None:
-            raise not_ported("media models", "multimodal")
+        if cfg.audio is not None:
+            raise not_ported("audio models (Model._encode_audio)",
+                             "multimodal (audio)")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{kv_layout!r}")
@@ -168,13 +236,29 @@ class InferenceEngine:
         self.truncate_long_prompts = truncate_long_prompts
         self.prefill_chunk = max(0, prefill_chunk)
 
+        # media geometry (the reference's defaults): the context window
+        # holds MAX_MEDIA_ITEMS images; a video frame takes a quarter of an
+        # image's slots
+        self.media_kind = "vision" if cfg.vision is not None else "none"
+        self.ctx_len = 0
+        if self.media_kind == "vision":
+            self.image_tokens = cfg.vision.num_image_tokens
+            self.frame_tokens = max(4, self.image_tokens // 4)
+            self.ctx_len = self.image_tokens * MAX_MEDIA_ITEMS
+            self.embed_dim = cfg.vision.embed_dim
+            self._img_encoder = VisionEncoderStub(
+                self.image_tokens, self.embed_dim, work_iters=vision_work_iters)
+            self._frame_encoder = VisionEncoderStub(
+                self.frame_tokens, self.embed_dim, work_iters=vision_work_iters)
+
         if self._paged:
             self.pool: Any = PagedKVPool(
-                cfg, max_batch, cache_len, page_size=kv_page_size,
-                num_pages=kv_num_pages, kv_dtype=kv_dtype, device=self.device)
+                cfg, max_batch, cache_len, ctx_len=self.ctx_len,
+                page_size=kv_page_size, num_pages=kv_num_pages,
+                kv_dtype=kv_dtype, device=self.device)
         else:
             self.pool = SlotKVPool(cfg, max_batch, cache_len,
-                                   device=self.device)
+                                   ctx_len=self.ctx_len, device=self.device)
         # COW page leases pinned by in-flight prefill jobs (request_id ->
         # page ids incref'd at prefix-cache lookup); ownership transfers to
         # the slot at commit, or is released when the request ends first
@@ -185,6 +269,24 @@ class InferenceEngine:
                                                        if self._paged
                                                        else None))
                              if enable_prefix_cache else None)
+        self.content_cache = (ContentCache(
+            cache_max_bytes if content_cache_bytes is None
+            else content_cache_bytes,
+            cache_embeddings=cache_vision_embeddings,
+            cache_kv=cache_vision_kv,
+            on_evict=self._on_content_evict if self._paged else None)
+            if enable_content_cache else None)
+        # batched vision encoding: per-request media jobs plus the
+        # singleflight table of unique in-flight encodes (hash -> task).
+        # The jobs' table bound is the reference's: 2 * max_batch plus its
+        # max_batch speculative jobs, so jobs open at the same steps
+        self.media_stats = MediaStats()
+        self._media_jobs: Dict[int, _MediaJob] = {}
+        self._encode_tasks: Dict[str, _EncodeTask] = {}
+        self._max_media_jobs = 3 * max_batch
+        # terminal events of requests failed inside the admission predicate
+        # (an undecodable media payload), drained at the end of step()
+        self._fault_events: List[StreamEvent] = []
         self.scheduler = ContinuousBatchingScheduler(max_batch,
                                                      policy=sched_policy,
                                                      aging_s=aging_s)
@@ -192,6 +294,7 @@ class InferenceEngine:
         # boundary, so plan_decode_block collapses K to 1
         self.reclaim_hint: Optional[Callable[[], bool]] = None
         self.state = init_decode_state(max_batch, max_stop_tokens,
+                                       ctx_len=self.ctx_len,
                                        device=self.device)
         # unseeded requests draw their base key from this engine-owned
         # stream (deterministic for a fixed engine seed + add order)
@@ -224,12 +327,14 @@ class InferenceEngine:
         so the all-greedy block never touches the sampler's sort or noise."""
         st, n_top = self.state, self.max_top_logprobs
         page_table = self.pool.cache["page_table"] if self._paged else None
+        ctx_valid = st.ctx_valid if self.media_kind != "none" else None
         toks, lp_c, lp_v, lp_i = [], [], [], []
         for _ in range(num_steps):
             out = self.model.apply(
                 self.params, st.last_token[:, None], mode="decode",
                 positions=st.positions[:, None], cache=self.pool.cache,
-                slot_active=st.active, page_table=page_table)
+                slot_active=st.active, page_table=page_table,
+                ctx_valid=ctx_valid)
             logits = out.logits[:, 0]
             # frozen slots' sampler fields are neutralised, as in the
             # reference, so a finished request's knobs cannot matter
@@ -262,7 +367,8 @@ class InferenceEngine:
     def _plan_bucket(self, n: int) -> int:
         return _next_bucket(n, floor=self._bucket_floor)
 
-    def _prefill(self, tokens, positions, single_caches, seq_valid, last_idx):
+    def _prefill(self, tokens, positions, single_caches, seq_valid, last_idx,
+                 media, ctx_valid, cross_cached: bool):
         """Batched prefill for one wave group: k right-padded rows at one
         bucket, each resuming at its own offset (per-row positions) with its
         own length mask.  The rows' caches are concatenated into a fresh
@@ -273,8 +379,170 @@ class InferenceEngine:
         cache = concat_cache_rows(single_caches)
         out = self.model.apply(self.params, tokens, mode="prefill",
                                positions=positions, cache=cache, resume=True,
-                               seq_valid=seq_valid, last_idx=last_idx)
+                               seq_valid=seq_valid, last_idx=last_idx,
+                               image_embeds=media, ctx_valid=ctx_valid,
+                               cross_cached=cross_cached)
         return out.logits[:, 0], cache
+
+    # ------------------------------------------------------------------ #
+    # media pipeline (Alg.3 lines 1-10): batched encode waves + in-flight
+    # dedup (singleflight on content hash) ahead of admission
+    # ------------------------------------------------------------------ #
+    def _has_media(self, req: Request) -> bool:
+        return (self.media_kind != "none"
+                and bool(req.images or req.video_frames
+                         or req.audio is not None))
+
+    def _iter_media_payloads(self, req: Request):
+        """(payload, encoder, ntok) triples in context order: images, then
+        video frames (an audio payload on a vision model is ignored, as in
+        the reference)."""
+        for img in req.images:
+            yield img, self._img_encoder, self.image_tokens
+        for frame in req.video_frames:
+            yield frame, self._frame_encoder, self.frame_tokens
+
+    def _open_media_job(self, req: Request) -> _MediaJob:
+        """Decode + hash every payload once, resolve items straight from the
+        embedding cache, and register the rest with the singleflight table:
+        a hash already pending — from this job or a concurrent request —
+        never spawns a second encode task."""
+        ms = self.media_stats
+        items: List[_MediaItem] = []
+        job = _MediaJob(req, items, remaining=0)
+        for payload, encoder, ntok in self._iter_media_payloads(req):
+            pixels = decode_media(payload)
+            h = content_hash(pixels)
+            item = _MediaItem(h, ntok)
+            items.append(item)
+            entry = (self.content_cache.get_embedding(h)
+                     if self.content_cache is not None else None)
+            if entry is not None:
+                item.emb = entry.embeddings
+                req.vision_cache_hits += 1
+                ms.embed_hits += 1
+                continue
+            req.vision_cache_misses += 1
+            ms.embed_misses += 1
+            job.remaining += 1
+            task = self._encode_tasks.get(h)
+            if task is None:
+                self._encode_tasks[h] = _EncodeTask(h, pixels, encoder, ntok,
+                                                    [job])
+            elif job not in task.waiters:
+                # joined a concurrent request's in-flight encode
+                ms.dedup_joins += 1
+                task.waiters.append(job)
+        req.media_set_digest = (media_set_digest([it.hash for it in items])
+                                if items else None)
+        self._media_jobs[req.request_id] = job
+        return job
+
+    def _media_admissible(self, req: Request) -> bool:
+        """Admission predicate (passed to the scheduler): a media request
+        binds a slot only once its whole media set is resolved.  Opens the
+        request's media job on first sight (bounded table); a payload that
+        does not decode fails the request."""
+        if not self._has_media(req):
+            return True
+        job = self._media_jobs.get(req.request_id)
+        if job is None:
+            if len(self._media_jobs) >= self._max_media_jobs:
+                return False             # table full: stays queued
+            try:
+                job = self._open_media_job(req)
+            except (KeyError, TypeError, ValueError, OSError) as e:
+                self._fault_events.extend(self._terminate(
+                    req.request_id, FinishReason.ERROR,
+                    f"media decode failed: {e!r}"))
+                return False
+        return job.remaining == 0
+
+    def _cancel_media_job(self, request_id: int) -> None:
+        """Drop a request's media job (abort/failure): deregister it from
+        every in-flight encode task; a task left with no waiters is dropped
+        before it costs an encoder invocation."""
+        job = self._media_jobs.pop(request_id, None)
+        if job is None:
+            return
+        for h in {it.hash for it in job.items if it.emb is None}:
+            task = self._encode_tasks.get(h)
+            if task is None:
+                continue
+            task.waiters = [j for j in task.waiters if j is not job]
+            if not task.waiters:
+                del self._encode_tasks[h]
+
+    def _dispatch_encode_wave(self) -> None:
+        """Run up to ``ENCODE_WAVE`` unique pending encodes (most urgent
+        waiter first, policy order), delivering each embedding to *all*
+        waiters.  Called between the decode-block dispatch and the token
+        sync, so the host encoder work overlaps the device block."""
+        if not self._encode_tasks:
+            return
+        key = self.scheduler.policy.key
+        order = sorted(self._encode_tasks.values(),
+                       key=lambda t: min(key(j.req) for j in t.waiters))
+        self.media_stats.encode_waves += 1
+        for task in order[:ENCODE_WAVE]:
+            del self._encode_tasks[task.hash]
+            if not task.waiters:
+                continue
+            emb = task.encoder(task.pixels)
+            self.media_stats.encoder_invocations += 1
+            if self.content_cache is not None:
+                self.content_cache.put_embedding(
+                    task.hash, EmbeddingEntry(emb, emb.nbytes))
+            for job in task.waiters:
+                for item in job.items:
+                    if item.hash == task.hash and item.emb is None:
+                        item.emb = emb
+                        job.remaining -= 1
+
+    def _assemble_media(self, job: Optional[_MediaJob]):
+        """Pack a resolved job's embeddings into the fixed context window
+        (cursor walk in context order): (embeds [1, T, De], ctx_valid
+        [1, T], set digest or None).  ``None`` (a text request on a vision
+        model) gives an empty, all-invalid window."""
+        embeds = np.zeros((self.ctx_len, self.embed_dim), np.float32)
+        valid = np.zeros((self.ctx_len,), bool)
+        items = job.items if job is not None else []
+        cursor = 0
+        for item in items:
+            take = min(item.ntok, self.ctx_len - cursor)
+            embeds[cursor:cursor + take] = item.emb[:take]
+            valid[cursor:cursor + take] = True
+            cursor += take
+        digest = media_set_digest([it.hash for it in items]) if items else None
+        return embeds[None], valid[None], digest
+
+    # ------------------------------------------------------------------ #
+    # cross-KV extraction / injection (content cache payloads)
+    # ------------------------------------------------------------------ #
+    @staticmethod
+    def _extract_xkv(cache):
+        """Every cross-attention layer's ``xk``/``xv`` of a batch=1 row, as
+        device clones (an entry never pins or aliases a wave cache)."""
+        def pick(sub):
+            return {k: v.clone() for k, v in (sub or {}).items()
+                    if k in ("xk", "xv")}
+
+        block = {pos: pick(sub)
+                 for pos, sub in (cache.get("block") or {}).items()}
+        return {"prefix": [pick(c) for c in cache["prefix"]],
+                "block": {pos: x for pos, x in block.items() if x}}
+
+    @staticmethod
+    def _inject_xkv(cache, xkv):
+        """A new batch=1 cache tree whose cross-KV leaves are the entry's
+        (read-only: the next wave concatenates them into fresh storage)."""
+        cache = dict(cache)
+        cache["prefix"] = [{**c, **x} for c, x in zip(cache["prefix"],
+                                                      xkv["prefix"])]
+        if cache.get("block"):
+            cache["block"] = {pos: {**sub, **xkv["block"].get(pos, {})}
+                              for pos, sub in cache["block"].items()}
+        return cache
 
     # ------------------------------------------------------------------ #
     # admission pipeline
@@ -302,8 +570,13 @@ class InferenceEngine:
         self.scheduler.policy.tick(time.monotonic())
         while (self.pool.num_free and self.scheduler.pending
                and self.scheduler.num_active < self.scheduler.max_batch):
+            # requests whose embeddings are still resolving are skipped
+            # without losing their queue position; peeking also opens the
+            # media jobs of newly seen requests
+            if self.scheduler.peek_pending(self._media_admissible) is None:
+                break
             slot = self.pool.allocate()
-            admitted = self.scheduler.admit([slot])
+            admitted = self.scheduler.admit([slot], self._media_admissible)
             if not admitted:
                 self.pool.free(slot)
                 break
@@ -314,7 +587,18 @@ class InferenceEngine:
         tokens = list(req.prompt_tokens)
         if not tokens:
             raise ValueError("empty prompt")
+        t0 = time.monotonic()
         req.status = RequestStatus.PREFILLING
+        embeds = ctx_valid = set_digest = None
+        if self.media_kind != "none":
+            # resolved by encode waves / embedding-cache hits ahead of
+            # admission: assembly only, no encoder work on this path
+            job = self._media_jobs.pop(req.request_id, None)
+            if job is not None and job.remaining:
+                raise AssertionError(f"request {req.request_id} admitted "
+                                     "with unresolved media")
+            embeds, ctx_valid, set_digest = self._assemble_media(job)
+        req.media_set_digest = set_digest
         # Alg.2: longest cached prefix (cap: leave >=1 token for logits)
         matched, single = 0, None
         if self.prefix_cache is not None:
@@ -341,14 +625,29 @@ class InferenceEngine:
                 matched = 0
         if single is None:
             single = self.pool.single_cache_zeros()
-        return _PrefillJob(slot=slot, req=req, tokens=tokens, cache=single,
-                           consumed=matched, t0=time.monotonic())
+        # Alg.3: cross-KV reuse (skip the context projection in every layer)
+        cross_cached = False
+        if set_digest is not None and self.content_cache is not None:
+            entry = self.content_cache.get_cross_kv(set_digest)
+            if entry is not None:
+                single = self._inject_xkv(single, entry.xkv)
+                cross_cached = True
+                self.media_stats.xkv_hits += 1
+            else:
+                self.media_stats.xkv_misses += 1
+        return _PrefillJob(
+            slot=slot, req=req, tokens=tokens, cache=single, consumed=matched,
+            embeds=embeds, ctx_valid=ctx_valid, cross_cached=cross_cached,
+            publish_xkv=(set_digest is not None
+                         and self.content_cache is not None
+                         and not cross_cached),
+            t0=t0)
 
     def _dispatch_prefill_wave(self) -> List[Tuple[_PrefillJob, torch.Tensor]]:
         """Advance every queued prefill job by one chunk; returns (job,
         logits row) for jobs whose prompt is now fully materialised."""
         jobs = self.scheduler.pop_prefill_wave()
-        groups: Dict[int, List[Tuple[_PrefillJob, int]]] = {}
+        groups: Dict[Tuple[int, bool], List[Tuple[_PrefillJob, int]]] = {}
         for job in jobs:
             remaining = len(job.tokens) - job.consumed
             take = (remaining if self.prefill_chunk == 0
@@ -357,13 +656,15 @@ class InferenceEngine:
             # distinct mod cache_len (reference :1385-1393)
             take = min(take, self.pool.cache_len)
             bucket = min(self._plan_bucket(take), self.pool.cache_len)
-            groups.setdefault(bucket, []).append((job, take))
+            groups.setdefault((bucket, job.cross_cached),
+                              []).append((job, take))
         completed: List[Tuple[_PrefillJob, torch.Tensor]] = []
-        for bucket, rows in groups.items():
-            completed.extend(self._run_wave_group(bucket, rows))
+        for (bucket, cross_cached), rows in groups.items():
+            completed.extend(self._run_wave_group(bucket, cross_cached, rows))
         return completed
 
-    def _run_wave_group(self, bucket: int, rows: List[Tuple[_PrefillJob, int]]
+    def _run_wave_group(self, bucket: int, cross_cached: bool,
+                        rows: List[Tuple[_PrefillJob, int]]
                         ) -> List[Tuple[_PrefillJob, torch.Tensor]]:
         k = len(rows)
         kp = 1 << (k - 1).bit_length()               # pad rows to power of two
@@ -383,10 +684,19 @@ class InferenceEngine:
             singles.append(job.cache)
         singles.extend(self.pool.single_cache_zeros() for _ in range(kp - k))
         dev = self.device
+        media = ctxv = None
+        if self.media_kind != "none":
+            zero_e = np.zeros((1, self.ctx_len, self.embed_dim), np.float32)
+            zero_v = np.zeros((1, self.ctx_len), bool)
+            media = torch.from_numpy(np.concatenate(
+                [job.embeds for job, _ in rows] + [zero_e] * (kp - k))).to(dev)
+            ctxv = torch.from_numpy(np.concatenate(
+                [job.ctx_valid for job, _ in rows] + [zero_v] * (kp - k))
+            ).to(dev)
         logits, out_cache = self._prefill(
             torch.from_numpy(toks).to(dev), torch.from_numpy(poss).to(dev),
             singles, torch.from_numpy(valid).to(dev),
-            torch.from_numpy(last_idx).to(dev))
+            torch.from_numpy(last_idx).to(dev), media, ctxv, cross_cached)
         stats = self.scheduler.stats
         stats.prefill_waves += 1
         stats.prefill_chunks += k
@@ -395,12 +705,31 @@ class InferenceEngine:
         for i, (job, take) in enumerate(rows):
             job.cache = slice_cache_row(out_cache, i)
             job.consumed += take
+            if job.publish_xkv:
+                self._publish_xkv(job)
             if job.consumed >= len(job.tokens):
                 done.append((job, logits[i]))
                 continue
             self._publish_partial(job)
             self.scheduler.enqueue_prefill(job)
         return done
+
+    def _publish_xkv(self, job: _PrefillJob) -> None:
+        """Publish the job's cross KV for future identical media sets (the
+        first chunk materialises every layer's ``xk``/``xv``).  Under the
+        paged layout the entry leases accounting pages of the arena, so the
+        pressure ladder governs device-resident media like a slot's pages;
+        if the arena cannot spare them the publication is skipped."""
+        xkv = self._extract_xkv(job.cache)
+        nbytes = tree_bytes(xkv)
+        pages = self._lease_xkv_pages(nbytes)
+        if pages is None:
+            self.media_stats.xkv_publish_skipped += 1
+        else:
+            self.content_cache.put_cross_kv(
+                job.req.media_set_digest,
+                CrossKVEntry(xkv, self.ctx_len, nbytes, pages=pages))
+        job.publish_xkv = False
 
     def _publish_partial(self, job: _PrefillJob) -> None:
         """Alg.2, per chunk: publish the partial prefix so an identical long
@@ -462,9 +791,10 @@ class InferenceEngine:
             if lp is not None and req.sampling.logprobs:
                 logprob, top = self._top_logprobs(lp[i], int(first),
                                                   req.sampling.top_logprobs)
-            wave.append(_Admission(job.slot, req, job.cache, int(first),
-                                   seq_len=len(job.tokens), logprob=logprob,
-                                   top_logprobs=top))
+            wave.append(_Admission(
+                job.slot, req, job.cache, int(first),
+                None if job.ctx_valid is None else job.ctx_valid[0],
+                seq_len=len(job.tokens), logprob=logprob, top_logprobs=top))
         return self._commit_admissions(wave)
 
     @staticmethod
@@ -498,8 +828,8 @@ class InferenceEngine:
             events.extend(self._emit_token(a.slot, a.req, a.first_token,
                                            a.logprob, a.top_logprobs))
         self._admit_rows_to_state(
-            [(a.slot, a.req, a.first_token, a.seq_len, not a.req.is_finished)
-             for a in wave])
+            [(a.slot, a.req, a.first_token, a.seq_len, a.ctx_valid,
+              not a.req.is_finished) for a in wave])
         return events
 
     def _paged_insert_wave(self, wave: List[_Admission]) -> None:
@@ -523,6 +853,9 @@ class InferenceEngine:
             except PagePoolExhausted:
                 if self.prefix_cache is not None and \
                         self.prefix_cache.evict_lru():
+                    continue
+                if self.content_cache is not None and \
+                        self.content_cache.evict_cross_kv_lru():
                     continue
                 raise
         for a in wave:                  # lease ownership moved to the slot
@@ -551,21 +884,27 @@ class InferenceEngine:
                                      salt=self._salt(req))
 
     def _admit_rows_to_state(self, rows: List[Tuple[int, Request, int, int,
+                                                    Optional[np.ndarray],
                                                     bool]]) -> None:
         """Scatter admission rows into the device decode state.  Each row:
-        (slot, req, last_token, position-of-last_token, active)."""
+        (slot, req, last_token, position-of-last_token, ctx_valid row or
+        None, active)."""
         stops = np.full((len(rows), self.max_stop_tokens), -1, np.int64)
-        for i, (_, req, *_) in enumerate(rows):
+        ctx = np.zeros((len(rows), max(self.ctx_len, 1)), bool)
+        for i, (_, req, _, _, ctx_valid, _) in enumerate(rows):
             ids = (self.tokenizer.EOS,) + tuple(req.sampling.stop_token_ids)
             stops[i, :len(ids)] = ids
+            if ctx_valid is not None:
+                ctx[i] = ctx_valid
         samp = [self._resolve_sampling(req) for _, req, *_ in rows]
         admit_decode_state(
             self.state, [slot for slot, *_ in rows],
             last_token=[last for _, _, last, *_ in rows],
-            positions=[pos for _, _, _, pos, _ in rows],
+            positions=[pos for _, _, _, pos, *_ in rows],
             temps=[s[0] for s in samp], top_p=[s[1] for s in samp],
             top_k=[s[2] for s in samp], min_p=[s[3] for s in samp],
             sample_key=[req.sample_key for _, req, *_ in rows],
+            ctx_valid=ctx,
             budget=[req.sampling.max_tokens - req.num_generated
                     for _, req, *_ in rows],
             stop_tokens=stops,
@@ -661,11 +1000,18 @@ class InferenceEngine:
         self.state.active[slot] = False
 
     def abort(self, request_id: int) -> List[StreamEvent]:
-        """Cancel a request wherever it lives — pending queue, prefill chunk
+        """Cancel a request wherever it lives — pending queue (its media
+        job and its share of in-flight encodes included), prefill chunk
         queue, or a live decode slot (freed at once, device row frozen).
         Returns the final ABORT event (empty if unknown or finished).  Not
         thread-safe: callers off the engine thread go through
         :meth:`repro_torch.serving.client.EngineClient.abort`."""
+        return self._terminate(request_id, FinishReason.ABORT)
+
+    def _terminate(self, request_id: int, reason: FinishReason,
+                   detail: Optional[str] = None) -> List[StreamEvent]:
+        """Abort (``reason`` ABORT) or fail (ERROR, with ``detail``) one
+        request wherever it lives; every other request is untouched."""
         slot = next((s for s, r in self.scheduler.active.items()
                      if r.request_id == request_id), None)
         if slot is not None:
@@ -680,14 +1026,20 @@ class InferenceEngine:
         self._release_lease(request_id)
         if req is None or req.is_finished:
             return []
-        req.finish_reason = FinishReason.ABORT
+        self._cancel_media_job(request_id)
+        req.finish_reason = reason
         req.finish_time = time.monotonic()
-        req.status = RequestStatus.ABORTED
-        self.scheduler.stats.aborted += 1
+        if reason is FinishReason.ABORT:
+            req.status = RequestStatus.ABORTED
+            self.scheduler.stats.aborted += 1
+        else:
+            req.status = RequestStatus.FAILED
+            req.error = detail
+            self.scheduler.stats.failed += 1
         self._streamers.pop(request_id, None)
         self._stopchk.pop(request_id, None)
         return [StreamEvent(request_id, None, "", finished=True,
-                            finish_reason=FinishReason.ABORT)]
+                            finish_reason=reason)]
 
     # ------------------------------------------------------------------ #
     # prefix-cache salt and paged-KV bookkeeping
@@ -704,6 +1056,34 @@ class InferenceEngine:
         page-pressure eviction): release the device pages it leased."""
         if isinstance(value, dict) and value.get("pages"):
             self.pool.release_pages(value["pages"])
+
+    def _on_content_evict(self, key: str, value: Any) -> None:
+        """Content-cache entry displaced (LRU squeeze, replacement, or a
+        forced page-pressure eviction): release the arena pages its cross
+        KV leased.  Embedding entries carry no lease."""
+        pages = getattr(value, "pages", None)
+        if pages:
+            self.pool.release_pages(pages)
+            self.media_stats.xkv_lease_pages -= len(pages)
+            value.pages = None
+
+    def _lease_xkv_pages(self, nbytes: int) -> Optional[List[int]]:
+        """Charge a cross-KV entry's bytes against the paged arena: lease
+        ceil(nbytes / page_bytes) accounting pages, evicting prefix-cache
+        entries if the arena is tight.  None (publication skipped) if it
+        cannot spare them — serving capacity outranks media caching.  The
+        dense layout has no arena: nothing to lease."""
+        if not self._paged:
+            return []
+        npages = -(-nbytes // self.pool.page_bytes)
+        while self.pool.allocator.num_free < npages:
+            if self.prefix_cache is not None and \
+                    self.prefix_cache.evict_lru():
+                continue
+            return None
+        pages = [self.pool.allocator.alloc() for _ in range(npages)]
+        self.media_stats.xkv_lease_pages += npages
+        return pages
 
     def _release_lease(self, request_id: int) -> None:
         pages = self._job_leases.pop(request_id, None)
@@ -733,6 +1113,11 @@ class InferenceEngine:
             if self.prefix_cache is not None and \
                     self.prefix_cache.evict_lru():
                 continue
+            # cached cross-KV entries surrender their leases before any
+            # live request would (media caching never outranks decode)
+            if self.content_cache is not None and \
+                    self.content_cache.evict_cross_kv_lru():
+                continue
             raise RuntimeError(
                 f"KV page arena exhausted with nothing left to evict "
                 f"({self.pool.page_occupancy()}): a full-capacity arena "
@@ -742,9 +1127,10 @@ class InferenceEngine:
         """Validate + normalise a request without enqueueing it: prompt
         length (truncate or raise), stop tokens / sequences, logprobs and
         sampler ranges, and base-key binding.  Idempotent."""
-        if req.images or req.video_frames or req.audio is not None:
-            raise ValueError("this engine serves text only (media requests "
-                             "are not ported yet)")
+        if self._has_media(req) and req.group_size > 1:
+            raise ValueError("n > 1 with media is not ported yet (ROADMAP.md,"
+                             " port queue: shared-prefix groups and n "
+                             "sharing)")
         if req.sampling.echo:
             raise ValueError("echo (prompt logprobs) is not ported yet")
         n = len(req.prompt_tokens)
@@ -804,6 +1190,9 @@ class InferenceEngine:
                              for s in samp if s[0] > 0))
             block_plan = (num_steps, toks, lps)
 
+        # the encode wave and the prefill wave run behind the dispatched
+        # block; encodes resolved here make requests admissible next step
+        self._dispatch_encode_wave()
         completed = self._dispatch_prefill_wave()
 
         if block_plan is not None:
@@ -836,7 +1225,36 @@ class InferenceEngine:
                                                    top))
 
         events.extend(self._commit_jobs(completed))
+        if self._fault_events:
+            events.extend(self._fault_events)
+            self._fault_events.clear()
         return events
+
+    def content_cache_stats(self) -> Dict[str, Any]:
+        """Content-cache and media-pipeline counters for ``GET /stats``
+        (plain-int reads; handler threads may call this while the engine
+        loop runs).  The media counters exist with the cache disabled."""
+        ms = self.media_stats
+        out: Dict[str, Any] = {
+            "enabled": self.content_cache is not None,
+            "encoder_invocations": ms.encoder_invocations,
+            "encode_waves": ms.encode_waves,
+            "encode_queue_depth": len(self._encode_tasks),
+            "dedup_joins": ms.dedup_joins,
+            "embed_hits": ms.embed_hits,
+            "embed_misses": ms.embed_misses,
+            "xkv_hits": ms.xkv_hits,
+            "xkv_misses": ms.xkv_misses,
+            "xkv_lease_pages": ms.xkv_lease_pages,
+            "xkv_publish_skipped": ms.xkv_publish_skipped,
+        }
+        if self.content_cache is not None:
+            st = self.content_cache.stats
+            out.update(bytes=self.content_cache.nbytes,
+                       entries=len(self.content_cache),
+                       insertions=st.insertions, evictions=st.evictions,
+                       bytes_evicted=st.bytes_evicted)
+        return out
 
     def run(self) -> List[StreamEvent]:
         events = []

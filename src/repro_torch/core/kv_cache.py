@@ -5,10 +5,10 @@ The decode batch has a *static* shape of ``max_batch`` slots over a
 pre-allocated ring cache; requests occupy slots, admission fills free slots
 at step boundaries, retirement frees them.  :class:`DecodeState` holds
 everything the decode loop needs per slot — last sampled token, absolute
-position, the per-request sampler state, remaining token budget, stop-token
-table and the live/frozen mask — as tensors on the engine's device, so the
-engine's K-step decode block runs without the host re-uploading state
-between tokens.
+position, the per-request sampler state, media-context liveness, remaining
+token budget, stop-token table and the live/frozen mask — as tensors on
+the engine's device, so the engine's K-step decode block runs without the
+host re-uploading state between tokens.
 
 Unlike the reference (immutable arrays, donated through ``jit``), the port
 updates in place: :func:`admit_decode_state` scatters into the state's
@@ -57,15 +57,16 @@ class DecodeState:
     top_k: torch.Tensor        # [B] int64 — 0 = off
     min_p: torch.Tensor        # [B] float32 — 0 = off
     sample_key: torch.Tensor   # [B] int64 — per-request base key
+    ctx_valid: torch.Tensor    # [B, T] bool — media context liveness
     budget: torch.Tensor       # [B] int64 — tokens left before LENGTH stop
     stop_tokens: torch.Tensor  # [B, S] int64 — per-slot stop ids, -1 pad
     active: torch.Tensor       # [B] bool — False: slot frozen/empty
 
 
-def init_decode_state(max_batch: int, max_stop: int,
+def init_decode_state(max_batch: int, max_stop: int, *, ctx_len: int = 0,
                       device: DeviceLike = None) -> DecodeState:
     """An all-empty state on ``device`` (``cuda`` unless the caller asks
-    for another)."""
+    for another); ``ctx_len`` is the media context length (0: text)."""
     device = resolve_device(device)
 
     def z(dtype, fill=0):
@@ -75,7 +76,10 @@ def init_decode_state(max_batch: int, max_stop: int,
         last_token=z(torch.int64), positions=z(torch.int64),
         temps=z(torch.float32), top_p=z(torch.float32, 1.0),
         top_k=z(torch.int64), min_p=z(torch.float32),
-        sample_key=z(torch.int64), budget=z(torch.int64),
+        sample_key=z(torch.int64),
+        ctx_valid=torch.zeros((max_batch, max(ctx_len, 1)), dtype=torch.bool,
+                              device=device),
+        budget=z(torch.int64),
         stop_tokens=torch.full((max_batch, max_stop), -1, dtype=torch.int64,
                                device=device),
         active=z(torch.bool, False))
@@ -138,13 +142,14 @@ class SlotKVPool:
     ``self.cache``; the engine's decode steps write into it in place."""
 
     def __init__(self, cfg: ModelConfig, max_batch: int, cache_len: int, *,
-                 dtype=None, device: DeviceLike = None):
+                 ctx_len: int = 0, dtype=None, device: DeviceLike = None):
         self.cfg = cfg
         self.max_batch = max_batch
         self.cache_len = cache_len
+        self.ctx_len = ctx_len
         self.device = resolve_device(device)
-        self.cache = init_cache(cfg, max_batch, cache_len, dtype=dtype,
-                                device=self.device)
+        self.cache = init_cache(cfg, max_batch, cache_len, ctx_len=ctx_len,
+                                dtype=dtype, device=self.device)
         self._free: List[int] = list(range(max_batch))[::-1]
         self._used: Set[int] = set()
         self._zeros: Optional[Any] = None
@@ -205,5 +210,5 @@ class SlotKVPool:
         own ``self.cache``."""
         if self._zeros is None:
             self._zeros = init_cache(self.cfg, 1, self.cache_len,
-                                     device=self.device)
+                                     ctx_len=self.ctx_len, device=self.device)
         return self._zeros

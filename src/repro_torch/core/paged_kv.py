@@ -1,13 +1,15 @@
 """Paged KV pool of the port: a global page arena + per-slot page tables +
 copy-on-write sharing (the reference package's ``core/paged_kv.py``, less
-what only preemption, media and speculative decoding call).
+what only preemption and speculative decoding call).
 
 KV memory is one arena of ``num_pages`` fixed-size pages per attention
 layer — ``k``/``v`` leaves are ``[N, page_size, Hkv, hd]`` (stacked block
 layers ``[L, N, ...]``) — and each slot owns an ordered list of page ids,
 mirrored into a page table ``[max_batch, pages_per_slot]`` (int32) on the
 engine's device that the decode steps thread through attention
-(:func:`repro_torch.kernels.ops.paged_attention`).
+(:func:`repro_torch.kernels.ops.paged_attention`).  The cross-attention
+leaves (``xk``/``xv``) stay dense per slot: O(1) per slot, paging them buys
+nothing.
 
 Sharing is copy-on-write at page granularity: a prefix-cache hit maps
 already-materialised pages into the new owner's table with a refcount bump
@@ -47,6 +49,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quant_matmul import quantize_kv_int8
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import init_cache
+
+ARENA_KEYS = ("k", "v", "k_scale", "v_scale")
+
 
 class PagePoolExhausted(RuntimeError):
     """No free pages left in the arena.  The engine reacts with its pressure
@@ -138,7 +143,7 @@ class PagedKVPool:
     """
 
     def __init__(self, cfg: ModelConfig, max_batch: int, cache_len: int, *,
-                 dtype=None, page_size: int = 16,
+                 ctx_len: int = 0, dtype=None, page_size: int = 16,
                  num_pages: Optional[int] = None, kv_dtype: str = "fp",
                  device: DeviceLike = None):
         if kv_dtype not in ("fp", "int8"):
@@ -151,6 +156,7 @@ class PagedKVPool:
         self.cfg = cfg
         self.max_batch = max_batch
         self.cache_len = cache_len
+        self.ctx_len = ctx_len
         self.page_size = page_size
         self.pages_per_slot = cache_len // page_size
         self.kv_dtype = kv_dtype
@@ -180,7 +186,7 @@ class PagedKVPool:
             leaf[:, 0].numel() * leaf.element_size() if stacked
             else leaf[0].numel() * leaf.element_size()
             for sub, stacked in _arena_leaves(self.cache)
-            for leaf in sub.values())
+            for name, leaf in sub.items() if name in ARENA_KEYS)
         self.stats = self.allocator.stats                  # alias
 
     @staticmethod
@@ -195,12 +201,16 @@ class PagedKVPool:
         n, ps = self.num_pages, self.page_size
         int8 = self.kv_dtype == "int8"
         # the dense layout's shapes, without allocating it
-        shapes = init_cache(self.cfg, 1, 1, dtype=self._dense_dtype,
-                            device="meta")
+        shapes = init_cache(self.cfg, self.max_batch, 1, ctx_len=self.ctx_len,
+                            dtype=self._dense_dtype, device="meta")
 
         def to_arena(sub, stacked):
             out = {}
             for name, leaf in sub.items():
+                if name not in ("k", "v"):      # cross KV: dense per slot
+                    out[name] = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                                            device=self.device)
+                    continue
                 lead = (leaf.shape[0],) if stacked else ()
                 shape = lead + (n, ps) + tuple(leaf.shape[-2:])
                 out[name] = torch.zeros(shape, device=self.device,
@@ -334,6 +344,7 @@ class PagedKVPool:
         if dst:
             self._scatter_rows(single_caches, self._index(src),
                                self._index(dst))
+        self._insert_dense(self._index(slots), single_caches)
         self.sync_page_table()
 
     def _scatter_rows(self, singles, src: torch.Tensor, dst: torch.Tensor):
@@ -344,17 +355,31 @@ class PagedKVPool:
         rows_prefix = [s["prefix"] for s in singles]
         rows_block = [s["block"] for s in singles]
         for li, sub in enumerate(self.cache["prefix"]):
-            for name in ("k", "v"):
+            for name in ("k", "v") if "k" in sub else ():
                 rows = torch.cat([r[li][name].reshape(-1, ps, *r[li][name]
                                                       .shape[2:])
                                   for r in rows_prefix])[src]
                 self._write_pages(sub, name, rows, dst, None, int8)
         for pos, sub in (self.cache.get("block") or {}).items():
-            for name in ("k", "v"):
+            for name in ("k", "v") if "k" in sub else ():
                 rows = torch.cat([r[pos][name].reshape(
                     r[pos][name].shape[0], -1, ps, *r[pos][name].shape[3:])
                     for r in rows_block], dim=1)[:, src]
                 self._write_pages(sub, name, rows, dst, slice(None), int8)
+
+    def _insert_dense(self, slots: torch.Tensor, singles) -> None:
+        """Copy the wave's dense per-slot leaves (cross KV) into ``slots``."""
+        for li, sub in enumerate(self.cache["prefix"]):
+            for name, leaf in sub.items():
+                if name not in ARENA_KEYS:
+                    leaf[slots] = torch.cat([r["prefix"][li][name]
+                                             for r in singles]).to(leaf.dtype)
+        for pos, sub in (self.cache.get("block") or {}).items():
+            for name, leaf in sub.items():
+                if name not in ARENA_KEYS:
+                    leaf[:, slots] = torch.cat(
+                        [r["block"][pos][name] for r in singles],
+                        dim=1).to(leaf.dtype)
 
     @staticmethod
     def _write_pages(sub, name, rows, dst, lead, int8):
@@ -369,7 +394,8 @@ class PagedKVPool:
     def read(self, slot: int):
         """A slot's pages gathered back into a dense batch=1 cache row in
         the dense dtype (int8 pages dequantised); never-allocated table
-        entries read as zeros, as a dense row starts from zeros."""
+        entries read as zeros, as a dense row starts from zeros.  Dense
+        per-slot leaves (cross KV) are copied out of the slot."""
         pages = self._slot_pages.get(slot, [])
         ps, cap = self.page_size, self.pages_per_slot
         ids = self._index(pages)
@@ -392,10 +418,17 @@ class PagedKVPool:
             out[:len(pages)] = rows.to(self._dense_dtype)
             return out.reshape(1, cap * ps, *shape[2:])
 
-        out: Dict[str, Any] = {"prefix": [
-            {n: gather(sub, n, False) for n in ("k", "v")}
-            for sub in self.cache["prefix"]]}
-        out["block"] = ({pos: {n: gather(sub, n, True) for n in ("k", "v")}
+        def row(sub, stacked):
+            out = {n: (leaf[:, slot:slot + 1] if stacked
+                       else leaf[slot:slot + 1]).clone()
+                   for n, leaf in sub.items() if n not in ARENA_KEYS}
+            out.update({n: gather(sub, n, stacked)
+                        for n in ("k", "v") if n in sub})
+            return out
+
+        out: Dict[str, Any] = {"prefix": [row(sub, False)
+                                          for sub in self.cache["prefix"]]}
+        out["block"] = ({pos: row(sub, True)
                          for pos, sub in self.cache["block"].items()}
                         if self.cache.get("block") is not None else None)
         return out
@@ -465,7 +498,9 @@ class PagedKVPool:
     def _copy_pages(self, src: torch.Tensor, dst: torch.Tensor) -> None:
         """COW split: copy whole pages (every arena leaf) src -> dst."""
         for sub, stacked in _arena_leaves(self.cache):
-            for leaf in sub.values():
+            for name, leaf in sub.items():
+                if name not in ARENA_KEYS:
+                    continue
                 if stacked:
                     leaf[:, dst] = leaf[:, src]
                 else:
@@ -478,6 +513,7 @@ class PagedKVPool:
         whatever the pool's layout; pagination happens at the commit."""
         if self._zeros is None:
             self._zeros = init_cache(self.cfg, 1, self.cache_len,
+                                     ctx_len=self.ctx_len,
                                      dtype=self._dense_dtype,
                                      device=self.device)
         return self._zeros

@@ -35,6 +35,7 @@ SIGNATURES = {
                         [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
     "paged_attention": ("paged_attention_launch",
                         [_PTR] * 8 + [_INT] * 8 + [_LL] * 13 + [_PTR]),
+    "quant_matmul": ("quant_matmul_launch", [_PTR] * 4 + [_INT] * 5 + [_PTR]),
 }
 KERNELS = tuple(SIGNATURES)
 CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env

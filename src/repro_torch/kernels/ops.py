@@ -1,4 +1,4 @@
-"""Entry points for the attention kernels: dispatch by the tensor's device.
+"""Entry points for the kernels: dispatch by the tensor's device.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor takes the
 hand-written kernel, which raises on anything it does not take.  There is no
@@ -6,10 +6,12 @@ switch and no fallback: a kernel or build failure on the card propagates.
 
 ``_flash_plain`` and ``_decode_plain`` are the torch forms of the
 reference's ``_flash_jnp`` and ``_decode_jnp``, ``_paged_plain`` that of the
-CPU path of its ``paged_attention``; the kernels themselves live in
+CPU path of its ``paged_attention``, ``_qmm_plain`` the arithmetic of its
+``_qmm_kernel``; the kernels themselves live in
 :mod:`repro_torch.kernels.flash_attention`,
-:mod:`repro_torch.kernels.decode_attention` and
-:mod:`repro_torch.kernels.paged_attention`, each beside its plain version.
+:mod:`repro_torch.kernels.decode_attention`,
+:mod:`repro_torch.kernels.paged_attention` and
+:mod:`repro_torch.kernels.quant_matmul`, each beside its plain version.
 """
 from __future__ import annotations
 
@@ -23,10 +25,14 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
+from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
+                                              quant_matmul_plain,
+                                              quantize_int8)  # noqa: F401
 
 _flash_plain = flash_attention_plain
 _decode_plain = decode_attention_plain
 _paged_plain = paged_attention_plain
+_qmm_plain = quant_matmul_plain
 
 
 def flash_attention(
@@ -77,3 +83,12 @@ def paged_attention(
                                     v_scale=v_scale)
     return _paged_plain(q, k_pages, v_pages, page_table, positions,
                         k_scale=k_scale, v_scale=v_scale)
+
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                 scales: torch.Tensor) -> torch.Tensor:
+    """``x [M, K] @ dequant(w_q [K, N] int8, scales [N])`` in x's dtype
+    (pair with :func:`quantize_int8`)."""
+    if x.is_cuda:
+        return quant_matmul_cuda(x, w_q, scales)
+    return _qmm_plain(x, w_q, scales)

@@ -108,3 +108,13 @@ def ring_valid(positions: torch.Tensor, s: int) -> torch.Tensor:
     idx = torch.arange(s, device=positions.device)[None, :]
     pos = positions.long()[:, None]
     return (idx <= pos) | (pos >= s)
+
+
+def quant_matmul_ref(
+    x: torch.Tensor,                   # [M, K] bf16/f32
+    w_q: torch.Tensor,                 # [K, N] int8
+    scales: torch.Tensor,              # [N] f32 per-output-channel scales
+) -> torch.Tensor:
+    """int8-weight matmul oracle: dequantise then matmul in f32."""
+    w = w_q.float() * scales[None, :].float()
+    return (x.float() @ w).to(x.dtype)

@@ -4,6 +4,8 @@ otherwise.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
       --port 8177 --max-batch 8 --cache-len 2048 [--kv-layout paged]
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-90b ...   # image_url content parts
 
 Weights are random, drawn from ``--seed`` (nothing is downloaded), so the
 text is gibberish: check the contract (finish_reason, usage, chunk framing).
@@ -64,6 +66,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
                     help="KV page storage: model dtype, or int8 with "
                          "per-(position, head) scales (paged layout only)")
+    ap.add_argument("--no-content-cache", action="store_true")
+    ap.add_argument("--no-vision-embed-cache", action="store_true",
+                    help="content-cache ablation: keep cross-KV entries but "
+                         "re-encode every frame (paper Table 4 'KV-only')")
+    ap.add_argument("--no-vision-kv-cache", action="store_true",
+                    help="content-cache ablation: keep frame embeddings but "
+                         "re-project cross-KV (paper Table 4 "
+                         "'embeddings-only')")
+    ap.add_argument("--content-cache-mb", type=int, default=None,
+                    help="byte budget for the content cache in MiB "
+                         "(default: the prefix cache's 512 MiB figure)")
+    ap.add_argument("--vision-work-iters", type=int, default=8,
+                    help="vision encoder work multiplier (stubbed encoder "
+                         "cost; higher = heavier encode, larger cache wins)")
     return ap.parse_args(argv)
 
 
@@ -80,7 +96,13 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         sched_policy=args.sched_policy,
         enable_prefix_cache=not args.no_prefix_cache,
         kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
-        kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype)
+        kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype,
+        enable_content_cache=not args.no_content_cache,
+        cache_vision_embeddings=not args.no_vision_embed_cache,
+        cache_vision_kv=not args.no_vision_kv_cache,
+        content_cache_bytes=(None if args.content_cache_mb is None
+                             else args.content_cache_mb * 1024 * 1024),
+        vision_work_iters=args.vision_work_iters)
     return ApiServer(OpenAIServer(EngineClient(engine), cfg.name),
                      port=args.port)
 

@@ -1,5 +1,5 @@
-"""Layer library of the port: the dense-attention subset of the reference's
-``models/layers.py``.
+"""Layer library of the port: the dense-attention and vision
+cross-attention subset of the reference's ``models/layers.py``.
 
 Pure functions over dict params.  Weights keep the reference's ``[in, out]``
 layout (``x @ w``), so the weight bridge (``models/convert.py``) copies
@@ -14,6 +14,12 @@ leaves without transposing.  Each block runs one of the reference's modes:
                   ring cache, or (with a ``page_table``) over one layer of
                   the paged arena of :mod:`repro_torch.core.paged_kv`, fp
                   or int8.
+
+A gated cross-attention layer (kind ``xattn``, the VLM image layers)
+attends to the projected image context: a fresh prefill projects it to
+``xk``/``xv`` and writes them into its cache, a content-cache hit
+(``cross_cached``) reads them back from the cache instead, and decode reads
+them; ``ctx_valid [B, T]`` masks the context slots no image fills.
 
 Unlike the reference, caches are updated **in place**: a layer writes its
 new K/V cells into the tensors of the ``cache`` dict it is given and returns
@@ -101,7 +107,8 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 # self-attention (GQA, RoPE, optional sliding window)
 # --------------------------------------------------------------------------- #
-def init_attn(gen: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attn(gen: torch.Generator, cfg: ModelConfig, *,
+              cross: bool = False) -> Params:
     d, h, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = dtype_of(cfg.dtype)
     dev = gen.device
@@ -112,7 +119,7 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wv": _dense_init(gen, (d, hkv * hd), dt),
         "wo": _dense_init(gen, (h * hd, d), dt),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((h * hd,), dtype=dt, device=dev)
         p["bk"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
         p["bv"] = torch.zeros((hkv * hd,), dtype=dt, device=dev)
@@ -244,22 +251,88 @@ def apply_self_attn(
 
 
 # --------------------------------------------------------------------------- #
+# gated cross-attention (VLM image layers)
+# --------------------------------------------------------------------------- #
+def init_xattn(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The reference's gated ``init_xattn``: the gate starts at 0, so a
+    freshly initialised layer passes its input through unchanged."""
+    p = init_attn(gen, cfg, cross=True)
+    p["xgate_attn"] = torch.zeros((), dtype=dtype_of(cfg.dtype),
+                                  device=gen.device)
+    return p
+
+
+def _gate(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``tanh(gate)`` in float32, in the output's dtype, times ``out``."""
+    return torch.tanh(g.float()).to(out.dtype) * out
+
+
+def apply_cross_attn(
+    p: Params,
+    x: torch.Tensor,                 # [B, S, D]
+    *,
+    cfg: ModelConfig,
+    mode: str,
+    context: Optional[torch.Tensor],  # [B, T, D] projected image context
+    cache: Optional[Params] = None,  # {'xk','xv'}: [B, T, Hkv, hd], in place
+    cross_cached: bool = False,      # content-cache hit: xk/xv in the cache
+    ctx_valid: Optional[torch.Tensor] = None,    # [B, T] context liveness
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    hn = rmsnorm(x, p["ln"], cfg.rms_eps)
+    if mode == "prefill" and cross_cached:
+        # Alg.3 hit: the layer's cross KV came from the content cache, so
+        # the context is not projected again
+        q = (hn @ p["wq"]).reshape(b, s, h, hd)
+        out = ops.flash_attention(q, cache["xk"], cache["xv"], causal=False,
+                                  kv_valid=ctx_valid)
+    elif mode == "decode":
+        if s > 1:
+            raise not_ported("S > 1 cross-attention decode (speculative "
+                             "verification)", "speculative decoding")
+        xk, xv = cache["xk"], cache["xv"]
+        q = (hn @ p["wq"]).reshape(b, h, hd)
+        valid = (torch.ones((b, xk.shape[1]), dtype=torch.bool,
+                            device=x.device) if ctx_valid is None
+                 else ctx_valid)
+        out = ops.decode_attention(q, xk, xv, valid)[:, None]
+    elif mode in ("train", "prefill"):
+        hkv = cfg.num_kv_heads
+        q = (hn @ p["wq"]).reshape(b, s, h, hd)
+        xk = (context @ p["wk"]).reshape(b, -1, hkv, hd)
+        xv = (context @ p["wv"]).reshape(b, -1, hkv, hd)
+        out = ops.flash_attention(q, xk, xv, causal=False, kv_valid=ctx_valid)
+        if mode == "prefill":
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    out = out.reshape(b, s, h * hd) @ p["wo"]
+    return x + _gate(p["xgate_attn"], out), cache
+
+
+# --------------------------------------------------------------------------- #
 # composed layers (one per ModelConfig.layer_kinds entry)
 # --------------------------------------------------------------------------- #
-def _check_kind(kind: str) -> None:
-    if kind == "attn":
+def _check_kind(kind: str, cfg: ModelConfig) -> None:
+    if cfg.audio is not None:
+        raise not_ported("the audio encoder-decoder family",
+                         "multimodal (audio)")
+    if kind in ("attn", "xattn"):
         return
-    item = {"moe": "MoE", "xattn": "multimodal", "ssm": "SSM",
-            "ssm_moe": "SSM"}.get(kind, kind)
+    item = {"moe": "MoE", "ssm": "SSM", "ssm_moe": "SSM"}.get(kind, kind)
     raise not_ported(f"layer kind {kind!r}", item)
 
 
 def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
-    _check_kind(kind)
-    if cfg.audio is not None or cfg.vision is not None:
-        raise not_ported("cross-attention", "multimodal")
+    _check_kind(kind, cfg)
     dt = dtype_of(cfg.dtype)
-    p: Params = {"attn": init_attn(gen, cfg)}
+    if kind == "xattn":
+        p: Params = {"cross": init_xattn(gen, cfg),
+                     "xgate_ffn": torch.zeros((), dtype=dt, device=gen.device)}
+    else:
+        p = {"attn": init_attn(gen, cfg)}
     if cfg.d_ff > 0:
         p["ffn_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
         p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
@@ -280,13 +353,24 @@ def apply_layer(
     seq_valid: Optional[torch.Tensor] = None,
     slot_active: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
+    context: Optional[torch.Tensor] = None,
+    cross_cached: bool = False,
+    ctx_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x, cache); the cache is updated in place."""
-    _check_kind(kind)
-    x, c = apply_self_attn(p["attn"], x, cfg=cfg, mode=mode,
-                           positions=positions, cache=cache, window=window,
-                           resume=resume, seq_valid=seq_valid,
-                           slot_active=slot_active, page_table=page_table)
+    """Returns (x, cache); the cache is updated in place.  An ``xattn``
+    layer's MLP output is gated like its attention (``tanh`` in float32)."""
+    _check_kind(kind, cfg)
+    if kind == "xattn":
+        x, c = apply_cross_attn(p["cross"], x, cfg=cfg, mode=mode,
+                                context=context, cache=cache,
+                                cross_cached=cross_cached, ctx_valid=ctx_valid)
+    else:
+        x, c = apply_self_attn(p["attn"], x, cfg=cfg, mode=mode,
+                               positions=positions, cache=cache,
+                               window=window, resume=resume,
+                               seq_valid=seq_valid, slot_active=slot_active,
+                               page_table=page_table)
     if "ffn" in p:
-        x = x + apply_mlp(p["ffn"], rmsnorm(x, p["ffn_ln"], cfg.rms_eps))
+        out = apply_mlp(p["ffn"], rmsnorm(x, p["ffn_ln"], cfg.rms_eps))
+        x = x + (_gate(p["xgate_ffn"], out) if kind == "xattn" else out)
     return x, c

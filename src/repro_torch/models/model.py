@@ -1,13 +1,16 @@
 """Model builder of the port: the reference's ``models/model.py`` for the
-dense-attention families.
+dense-attention and vision (gated cross-attention) families.
 
 A model is a dict of params plus ``apply`` in three modes (``train``,
 ``prefill``, ``decode``).  ``ModelConfig.layer_kinds()`` is factored into
 ``prefix + pattern x repeats``; the repeated pattern's params are stacked on a
 leading axis, exactly as the reference stacks them for ``lax.scan``, and
 ``apply`` runs a Python loop over the repeats.  Caches keep the same layout
-(``block/pos{i}`` leaves ``[repeats, B, S, Hkv, D]``) and are updated in
-place (see :mod:`repro_torch.models.layers`).
+(``block/pos{i}`` leaves ``[repeats, B, S, Hkv, D]``; an ``xattn`` layer's
+``xk``/``xv`` leaves ``[repeats, B, ctx_len, Hkv, D]``) and are updated in
+place (see :mod:`repro_torch.models.layers`).  A vision model projects the
+image embeddings with ``vision_proj`` into the context its cross-attention
+layers attend to.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import torch
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers
-from repro_torch.models.layers import Params, dtype_of, not_ported
+from repro_torch.models.layers import Params, dtype_of
 
 
 def find_pattern(kinds: Tuple[str, ...]) -> Tuple[Tuple[str, ...], Tuple[str, ...], int]:
@@ -98,6 +101,9 @@ class Model:
                     for _ in range(repeats)]
             block[f"pos{i}"] = _stack(reps)
         params["block"] = block
+        if cfg.vision is not None:
+            params["vision_proj"] = layers._dense_init(
+                generator, (cfg.vision.embed_dim, cfg.d_model), dt)
         return tree_map(lambda a: a.to(target), params)
 
     def apply(
@@ -115,6 +121,9 @@ class Model:
         logits_mode: str = "full",              # 'full' | 'last'
         last_idx: Optional[torch.Tensor] = None,    # [B]: logits at one row each
         page_table: Optional[torch.Tensor] = None,
+        image_embeds: Optional[torch.Tensor] = None,  # [B, T_img, De]
+        cross_cached: bool = False,     # content-cache hit: xk/xv in cache
+        ctx_valid: Optional[torch.Tensor] = None,   # [B, T_ctx] media liveness
     ) -> ModelOutput:
         """``last_idx`` (a port addition for the engine's prefill waves)
         takes each row's hidden state at its own last real token before
@@ -131,9 +140,15 @@ class Model:
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
         x = params["embed"][tokens]
+        context = None
+        if cfg.vision is not None and mode != "decode" and not cross_cached:
+            if image_embeds is None:
+                raise ValueError("a vision model's prefill needs image_embeds")
+            context = image_embeds.to(x.dtype) @ params["vision_proj"]
         kw = dict(cfg=cfg, mode=mode, positions=positions, window=window_eff,
                   resume=resume, seq_valid=seq_valid, slot_active=slot_active,
-                  page_table=page_table)
+                  page_table=page_table, context=context,
+                  cross_cached=cross_cached, ctx_valid=ctx_valid)
 
         for i, kind in enumerate(prefix):
             sub = cache["prefix"][i] if cache is not None else None
@@ -167,27 +182,30 @@ def _stack(trees):
 # decode-cache construction
 # --------------------------------------------------------------------------- #
 def _layer_cache(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
-                 cache_len: int, dtype, device) -> Params:
-    layers._check_kind(kind)
-    if cfg.audio is not None or cfg.vision is not None:
-        raise not_ported("cross-attention caches", "multimodal")
-    shape = lead + (cache_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+                 cache_len: int, ctx_len: int, dtype, device) -> Params:
+    """A self-attention layer's ring ``k``/``v``; an ``xattn`` layer's
+    cross KV ``xk``/``xv`` over the ``ctx_len`` media context."""
+    layers._check_kind(kind, cfg)
+    names, length = (("xk", "xv"), ctx_len) if kind == "xattn" else \
+        (("k", "v"), cache_len)
+    shape = lead + (length, cfg.num_kv_heads, cfg.head_dim)
+    return {n: torch.zeros(shape, dtype=dtype, device=device) for n in names}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               dtype=None, device: DeviceLike = None) -> Params:
+               ctx_len: int = 0, dtype=None,
+               device: DeviceLike = None) -> Params:
     """Zeroed decode cache on ``device`` (``cuda`` unless the caller asks
-    for another); ``cache_len`` is the KV ring size."""
+    for another); ``cache_len`` is the KV ring size, ``ctx_len`` the
+    cross-attention context length (image tokens)."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype) if dtype is None else dtype
     prefix, pattern, repeats = find_pattern(cfg.layer_kinds())
     cache: Params = {"prefix": [
-        _layer_cache(cfg, kind, (batch,), cache_len, dtype, device)
+        _layer_cache(cfg, kind, (batch,), cache_len, ctx_len, dtype, device)
         for kind in prefix]}
     cache["block"] = {
         f"pos{i}": _layer_cache(cfg, kind, (repeats, batch), cache_len,
-                                dtype, device)
+                                ctx_len, dtype, device)
         for i, kind in enumerate(pattern)} or None
     return cache

@@ -96,9 +96,10 @@ def _parse_stop(body: Dict[str, Any]) -> Tuple[str, ...]:
 
 
 def _parse_content(content: Any, param: str = "content") -> Dict[str, Any]:
-    """OpenAI message content: plain string or a list of typed parts (image
-    parts are parsed so they get the reference's errors, and then refused by
-    the text-only engine)."""
+    """OpenAI message content: plain string or a list of typed parts.
+    ``None``/missing content and malformed parts raise :class:`OpenAIError`
+    (never ``KeyError`` through the handler); an ``image_url`` part becomes
+    a media payload (a ``data:`` URL's base64 body, else the URL)."""
     text_parts: List[str] = []
     images: List[Any] = []
     if content is None:
@@ -125,10 +126,14 @@ def _parse_content(content: Any, param: str = "content") -> Dict[str, Any]:
                     f"'{where}.image_url' must be an object with a string 'url'",
                     param=where)
             url = image_url["url"]
-            if url.startswith("data:") and "," not in url:
-                raise OpenAIError(f"'{where}.image_url.url' is a malformed data: URL",
-                                  param=where)
-            images.append({"url": url})
+            if url.startswith("data:"):               # data:...;base64,XXX
+                if "," not in url:
+                    raise OpenAIError(
+                        f"'{where}.image_url.url' is a malformed data: URL",
+                        param=where)
+                images.append({"base64": url.split(",", 1)[1]})
+            else:
+                images.append({"url": url})
         else:
             raise OpenAIError(f"unknown content part type {kind!r} in '{where}'",
                               param=where)
@@ -459,10 +464,12 @@ class OpenAIServer:
 
     def stats(self) -> Dict[str, Any]:
         """Serving observability (``GET /stats``): scheduler and client
-        counters plus the engine's knobs, the ``prefix_cache`` block when
-        the cache is on, and under the paged layout a ``kv_pages`` block
-        (arena occupancy and allocator counters); subsystems not ported yet
-        (admission, speculation, router) have no block."""
+        counters with the ``content_cache`` block (media pipeline and
+        content-cache counters), the engine's knobs, the ``prefix_cache``
+        block when the cache is on, and under the paged layout a
+        ``kv_pages`` block (arena occupancy and allocator counters);
+        subsystems not ported yet (admission, speculation, router) have no
+        block."""
         eng = self.engine
         out = dict(self.client.stats())
         out.update({

@@ -250,6 +250,7 @@ class EngineClient:
     def stats(self) -> Dict[str, object]:
         out = dict(self.engine.scheduler.snapshot())
         out["loop_errors"] = self._loop_errors
+        out["content_cache"] = self.engine.content_cache_stats()
         return out
 
     @property

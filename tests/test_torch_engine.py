@@ -7,6 +7,8 @@ the prefix cache on; the reference's speculative wave filling (outside the
 port so far; it changes no greedy token) is off.  Also the sampler: the keep-set semantics against the
 reference's, and the stateless per-token stream.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +21,7 @@ from repro.core.engine import InferenceEngine as JaxEngine
 from repro.core.request import Request as JaxRequest
 from repro.core.request import SamplingParams as JaxSampling
 from repro.models import build_model
-from repro_torch.configs import get_config
+from repro_torch.configs import AudioConfig, get_config
 from repro_torch.core import sampling
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import FinishReason, Request, SamplingParams
@@ -123,14 +125,28 @@ def test_engine_needs_cuda_unless_cpu_is_asked_for(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(weights[1], weights[3])
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        InferenceEngine(get_config("qwen3-vl-toy"), device="cpu")
+    with pytest.raises(NotImplementedError, match="multimodal \\(audio\\)"):
+        InferenceEngine(audio_config(), device="cpu")
+
+
+def audio_config():
+    """An audio encoder-decoder config (the family the port still refuses;
+    the reference's is ``seamless-m4t-medium``)."""
+    return dataclasses.replace(get_config("qwen3-0.6b-toy"), family="audio",
+                               audio=AudioConfig(embed_dim=64, num_frames=16,
+                                                 encoder_layers=2))
 
 
 def test_requests_outside_the_slice_are_refused(weights):
+    """A text model ignores media, as the reference does; ``n`` > 1 with
+    media on a vision model is refused, naming its ROADMAP item."""
     te = InferenceEngine(weights[1], weights[3], device="cpu", cache_len=64)
-    with pytest.raises(ValueError, match="text only"):
-        te.add_request(Request(prompt_tokens=[1, 2], images=[np.zeros(3)]))
+    te.add_request(Request(prompt_tokens=[1, 2], images=[np.zeros(3)]))
+    vision = InferenceEngine(get_config("qwen3-vl-toy"), device="cpu",
+                             cache_len=64)
+    with pytest.raises(ValueError, match="n > 1 with media"):
+        vision.add_request(Request(prompt_tokens=[1, 2], group_size=2,
+                                   images=[np.zeros((4, 4, 3))]))
     with pytest.raises(ValueError, match="echo"):
         te.add_request(Request(prompt_tokens=[1, 2],
                                sampling=SamplingParams(echo=True)))

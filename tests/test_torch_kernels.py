@@ -1,6 +1,7 @@
-"""The port's attention kernels: plain PyTorch versions held to the JAX
-package's functions on the CPU, and (on a CUDA card, marker ``gpu``) each
-hand-written CUDA kernel held to its plain version.
+"""The port's kernels (attention and the int8-weight matmul): plain PyTorch
+versions held to the JAX package's functions on the CPU, and (on a CUDA
+card, marker ``gpu``) each hand-written CUDA kernel held to its plain
+version.
 
 Inputs come from numpy seeds and pass to both frameworks as numpy arrays.
 The JAX package is imported inside the CPU tests only, so the ``gpu`` tests
@@ -11,6 +12,10 @@ also run on a machine that has no JAX::
 Tolerances: float32 plain vs JAX atol 2e-5 / rtol 1e-3 (as
 ``tests/test_kernels.py``); kernel vs plain on the card bf16 atol 2e-2 (one
 bf16 rounding of an O(1) output), float32 atol 1e-4 (summation order only).
+``quant_matmul``, whose outputs grow with K, is held relative to the
+output's largest magnitude: 1e-4 in float32 (summation order, and the
+reference's oracle scales the weights before the sum, the kernel after) and
+1e-2 in bf16 (one bf16 rounding, 2**-7, of the largest output).
 """
 import numpy as np
 import pytest
@@ -23,10 +28,15 @@ from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
-from repro_torch.kernels.quant_matmul import quantize_kv_int8
+from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
+                                              quant_matmul_plain,
+                                              quantize_int8, quantize_kv_int8)
 
 F32 = dict(atol=2e-5, rtol=1e-3)
 CARD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+QMM_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# (M, K, N): ragged M, K and N, M on both sides of the kernel's 8-row split
+QMM_SHAPES = [(16, 64, 32), (5, 100, 40), (24, 96, 130), (9, 33, 48)]
 
 
 @pytest.fixture(scope="module")
@@ -38,9 +48,12 @@ def jx():
     from repro.kernels import ref as jref
     from repro.kernels.decode_attention import decode_attention_pallas
     from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.kernels.quant_matmul import (quant_matmul_pallas,
+                                            quantize_int8)
     return dict(jnp=jnp, ops=jops, ref=jref,
                 decode_pallas=decode_attention_pallas,
-                flash_pallas=flash_attention_pallas)
+                flash_pallas=flash_attention_pallas,
+                qmm_pallas=quant_matmul_pallas, quantize_int8=quantize_int8)
 
 
 def _np(seed, *shape):
@@ -152,6 +165,75 @@ def test_decode_plain_all_masked_row_is_zero(jx):
     np.testing.assert_allclose(got, want, **F32)
 
 
+def test_flash_plain_cross_attention_form_matches_jax(jx):
+    """Cross-attention prefill: non-causal at D = 128, query group 8, with a
+    per-row context liveness mask (one row keeps a single live key)."""
+    b, sq, skv, h, hkv, d = 3, 12, 72, 16, 2, 128
+    q, k, v = _flash_inputs(24, b, sq, skv, h, hkv, d)
+    kv_valid = np.arange(skv)[None] < np.array([[72], [36], [1]])
+    want = jx["ops"]._flash_jnp(q, k, v, causal=False, window=0, q_offset=0,
+                                kv_valid=kv_valid, chunk=32)
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                              kv_valid=_t(kv_valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# --------------------------------------------------------------------------- #
+# int8-weight matmul: quantiser bit-identical, plain version vs JAX
+# --------------------------------------------------------------------------- #
+def _qmm_inputs(seed, m, k, n):
+    return _np(seed, m, k), _np(seed + 1, k, n) * 0.2
+
+
+def _rel_close(got, want, rel):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= rel, f"max |got - want| / max |want| = {err}"
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (100, 40), (7, 130)])
+def test_quantize_int8_bit_identical_to_jax(jx, shape):
+    w = _np(60, *shape) * 0.3
+    w[0, :3] = [0.0, 127.5 / 127.0, -2.5]      # zero and round-half columns
+    jq, js = jx["quantize_int8"](w)
+    tq, ts = quantize_int8(_t(w))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_quant_matmul_plain_matches_pallas_interpret_and_ref(jx, m, k, n):
+    """Plain version and ``ops.quant_matmul`` on the CPU against the Pallas
+    kernel in interpret mode (as ``tests/test_kernels.py`` runs it) and
+    the reference's oracle; the port's oracle against the reference's."""
+    x, w = _qmm_inputs(61, m, k, n)
+    wq, sc = jx["quantize_int8"](w)
+    wq, sc = np.asarray(wq), np.asarray(sc)
+    pallas = jx["qmm_pallas"](x, wq, sc, block_m=8, block_n=128, block_k=32,
+                              interpret=True)
+    jref = jx["ref"].quant_matmul_ref(x, wq, sc)
+    plain = quant_matmul_plain(_t(x), _t(wq), _t(sc))
+    dispatched = ops.quant_matmul(_t(x), _t(wq), _t(sc))
+    assert plain.dtype == torch.float32 and plain.shape == (m, n)
+    torch.testing.assert_close(dispatched, plain, atol=0, rtol=0)
+    for want in (pallas, jref):
+        _rel_close(plain.numpy(), want, QMM_REL[torch.float32])
+    _rel_close(ref.quant_matmul_ref(_t(x), _t(wq), _t(sc)).numpy(), jref,
+               QMM_REL[torch.float32])
+
+
+def test_quant_matmul_plain_keeps_bf16(jx):
+    """bf16 activations: the output is bf16, the product float32 inside."""
+    x, w = _qmm_inputs(62, 5, 100, 40)
+    wq, sc = quantize_int8(_t(w))
+    xb = _t(x).to(torch.bfloat16)
+    got = ops.quant_matmul(xb, wq, sc)
+    want = (xb.float() @ wq.float() * sc).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 # --------------------------------------------------------------------------- #
 # plain versions against the Pallas kernels (interpret mode)
 # --------------------------------------------------------------------------- #
@@ -187,6 +269,9 @@ def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
     ops.decode_attention(q[:, 0], k, v, valid)
     assert (flash_attention_cuda.launches,
             decode_attention_cuda.launches) == before
+    n = quant_matmul_cuda.launches
+    ops.quant_matmul(q[0, :, 0], *quantize_int8(k[0, :, 0].T))
+    assert quant_matmul_cuda.launches == n
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -195,6 +280,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         decode_attention_cuda(q[:, 0], k, v, torch.ones((1, 8), dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        quant_matmul_cuda(q[0, :, 0], *quantize_int8(k[0, :, 0].T))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -348,3 +435,40 @@ def test_paged_kernel_reads_a_layer_of_a_stacked_arena(cuda, int8):
     got = paged_attention_cuda(*args, **kw)
     want = paged_attention_plain(*args, **kw)
     _close(got, want, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES + [
+    (8, 8192, 28672),                         # decode rows, the MLP's up
+    (512, 1024, 4096),                        # prefill rows
+])
+def test_quant_matmul_kernel_matches_plain(cuda, dtype, m, k, n):
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    wq, sc = quantize_int8(torch.randn((k, n), generator=g, device="cuda"))
+    before = quant_matmul_cuda.launches
+    got = quant_matmul_cuda(x, wq, sc)
+    torch.cuda.synchronize()
+    assert quant_matmul_cuda.launches == before + 1 and got.dtype == dtype
+    _rel_close(got.float().cpu(), quant_matmul_plain(x, wq, sc).float().cpu(),
+               QMM_REL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_match_plain_at_the_cross_attention_shapes(cuda,
+                                                                     dtype):
+    """Cross attention of llama-3.2-vision-90b: non-causal flash and decode
+    at D = 128, G = 8 over a 2304-slot context with ragged liveness."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    ctx = torch.tensor([2304, 576, 1152, 1], device="cuda")
+    valid = torch.arange(2304, device="cuda")[None] < ctx[:, None]
+    k, v = (torch.randn((4, 2304, 8, 128), generator=g, device="cuda")
+            .to(dtype) for _ in range(2))
+    q = torch.randn((4, 64, 64, 128), generator=g, device="cuda").to(dtype)
+    _close(flash_attention_cuda(q, k, v, causal=False, kv_valid=valid),
+           flash_attention_plain(q, k, v, causal=False, kv_valid=valid),
+           dtype)
+    _close(decode_attention_cuda(q[:, 0], k, v, valid),
+           decode_attention_plain(q[:, 0], k, v, valid), dtype)

@@ -6,6 +6,7 @@ decode) on ``qwen2-0.5b`` reduced (qkv bias, tied embeddings, G = 4) and
 arena, fp and int8.  Tolerance atol 1e-4: the same float32 arithmetic
 summed in another order.  Also the port's import rules.
 """
+import dataclasses
 import re
 import subprocess
 import sys
@@ -21,7 +22,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
-from repro_torch.configs import get_config, registry
+from repro_torch.configs import AudioConfig, get_config, registry
 from repro_torch.core.kv_cache import SlotKVPool, init_decode_state
 from repro_torch.core.paged_kv import PagedKVPool
 from repro_torch.models import layers, model
@@ -229,12 +230,13 @@ def test_unported_branches_name_their_roadmap_item(pair):
                                positions=torch.zeros((1, 2), dtype=torch.long),
                                cache=cache, page_table=torch.zeros(
                                    (1, 1), dtype=torch.int32))
-    for kind, item in (("moe", "MoE"), ("ssm", "SSM"), ("xattn", "multimodal")):
+    for kind, item in (("moe", "MoE"), ("ssm", "SSM")):
         with pytest.raises(NotImplementedError, match=item):
             layers.init_layer(torch.Generator(), kind, tcfg)
-    with pytest.raises(NotImplementedError, match="multimodal"):
-        model.Model(get_config("qwen3-vl-toy")).init(torch.Generator(),
-                                                     "cpu")
+    audio = dataclasses.replace(tcfg, family="audio", audio=AudioConfig(
+        embed_dim=64, num_frames=16, encoder_layers=2))
+    with pytest.raises(NotImplementedError, match="multimodal \\(audio\\)"):
+        model.Model(audio).init(torch.Generator(), "cpu")
 
 
 # --------------------------------------------------------------------------- #
