@@ -7,12 +7,19 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. environment — torch/CUDA versions, the card's name and power limit, the
    hand-written kernels built from ``src/repro_torch/csrc`` with nvcc for
-   ``sm_90a`` (TF32 off for every float32 product);
+   ``sm_90a`` (TF32 off for every float32 product); ``ptxas`` registers and
+   spills of every ``__global__`` function, and the tensor-core proof: the
+   ``HGMMA`` instructions ``cuobjdump -sass`` finds in each bf16 flash
+   instantiation (none fails the run);
 2. kernels — each CUDA kernel against its plain PyTorch version at the
    serving paths' shapes, in bf16 (atol 2e-2) and float32 (atol 1e-4); the
    paged kernel also over int8 pages with q in either dtype; flash
    non-causal and decode at the cross-attention shape of
-   ``llama-3.2-vision-90b`` (D 128, G 8, a 2304-slot context);
+   ``llama-3.2-vision-90b`` (D 128, G 8, a 2304-slot context); forms that
+   stress the redesigned kernels (flash: G 7 with Sq not a multiple of the
+   18 tokens a packed tile holds, a window with q_positions, D 32 and 128,
+   rows live only in the last KV tile; decode: all-masked rows and splits,
+   a ring with holes, S 1, S 777, G 1 and 16);
    ``quant_matmul`` at that model's MLP shapes (M 8 and 512) and a ragged
    one, relative to the largest output (bf16 1e-2, float32 1e-4);
 3. full-width model — ``qwen2-0.5b`` in float32 with seeded random weights:
@@ -50,10 +57,11 @@ Phases (any failure exits non-zero and prints no result line):
    takes a page table, so the paged kernel's SDPA time is over a dense copy
    gathered beforehand, labelled as such) at the phase-2 serving shapes,
    with CUDA events over rotating input copies larger than the L2 cache,
-   beside the least time the card could take (``bound_ms``).
+   beside the least time the card could take (``bound_ms``) and the
+   kernel/SDPA ratio from the same call; decode's time against its number
+   of splits at both serving shapes.
 
-Phase 1 also prints ``ptxas``'s registers and spills for every compiled
-kernel instantiation.  The last lines are one ``serve`` JSON line, one
+The last lines are one ``serve`` JSON line, one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -97,30 +105,62 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def demangle(build, syms: list) -> list:
+    """``name<template args>`` of each mangled ``__global__`` symbol, by the
+    toolkit's ``cu++filt`` (found beside nvcc), parameters left out."""
+    if not syms:
+        return []
+    filt = Path(build.nvcc_path()).with_name("cu++filt")
+    res = subprocess.run([str(filt), "-p", *syms], capture_output=True,
+                         text=True, timeout=60)
+    names = res.stdout.splitlines()
+    if res.returncode != 0 or len(names) != len(syms):
+        raise RuntimeError(f"cu++filt failed: {res.stderr.strip()[-2000:]}")
+    return [n.strip() for n in names]
+
+
 def ptxas_report(build) -> list:
-    """(kernel<template args>, registers, spill store bytes, spill load
-    bytes) of every compiled instantiation, from the ``-Xptxas -v`` output
-    the build keeps in ``build/<name>.log``."""
+    """(kernel, registers, spill store bytes, spill load bytes) of every
+    compiled ``__global__`` function, templated or not, from the
+    ``-Xptxas -v`` output the build keeps in ``build/<name>.log``."""
     import re
-    names = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "i8", "h": "u8"}
-    out = []
+    syms, out = [], []
     for name in build.KERNELS:
         text = (build.BUILD / f"{name}.log").read_text()
-        entries = re.split(r"Compiling entry function '", text)[1:]
-        for entry in entries:
-            m = re.search(r"\d+([a-z_]+_kernel)I(\w+?)EEvP", entry)
+        for entry in re.split(r"Compiling entry function '", text)[1:]:
+            sym = entry.split("'", 1)[0]
             regs = re.search(r"Used (\d+) registers", entry)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", entry)
-            if not (m and regs and spill):
-                continue
-            tokens = re.finditer(r"13__nv_bfloat16|Li(\d+)E|[fah]",
-                                 m.group(2))
-            targs = [t.group(1) or names[t.group(0)] for t in tokens]
-            out.append((f"{m.group(1)}<{','.join(targs)}>",
-                        int(regs.group(1)), int(spill.group(1)),
+            if regs is None or spill is None:
+                raise AssertionError(f"no ptxas report for {sym}")
+            syms.append(sym)
+            out.append((int(regs.group(1)), int(spill.group(1)),
                         int(spill.group(2))))
-    return out
+    return [(kern, *nums) for kern, nums in zip(demangle(build, syms), out)]
+
+
+def hgmma_count(build, name: str, kernel: str) -> dict:
+    """{instantiation: HGMMA instructions} of the functions named
+    ``kernel`` in the built library of ``name``, from ``cuobjdump -sass``:
+    the proof that they run on the tensor cores."""
+    import re
+    cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
+    res = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()[-2000:]}")
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            cur = fn.group(1)
+            counts.setdefault(cur, 0)
+        elif cur is not None:
+            counts[cur] += len(re.findall(r"\bHGMMA\.", line))
+    return {kern: n for kern, n in zip(demangle(build, list(counts)),
+                                       counts.values())
+            if re.search(rf"(^|::){kernel}<", kern)}
 
 
 def smi() -> str:
@@ -135,8 +175,12 @@ def smi() -> str:
 # --------------------------------------------------------------------------- #
 # shapes of the serving path (qwen2-0.5b: H=14, Hkv=2, D=64; B=8, S=2048)
 # --------------------------------------------------------------------------- #
-def decode_case(torch, dtype, *, b=8, s=2048, h=14, hkv=2, d=64, seed=0):
-    """Ragged per-row lengths and one wrapped (all-valid) row."""
+def decode_case(torch, dtype, *, b=8, s=2048, h=14, hkv=2, d=64, seed=0,
+                mask="ragged"):
+    """``ragged``: per-row lengths, one wrapped (all-valid) row;
+    ``masked``: row 0 all masked, row 1 live on its first 10 keys only (so
+    every later split is all-masked), the others ragged; ``holes``: a
+    wrapped ring with about a third of its cells dead at random."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
     k = torch.randn((b, s, hkv, d), generator=g, device="cuda").to(dtype)
@@ -144,7 +188,27 @@ def decode_case(torch, dtype, *, b=8, s=2048, h=14, hkv=2, d=64, seed=0):
     lengths = torch.randint(1, s + 1, (b,), generator=g, device="cuda")
     lengths[0] = s
     valid = torch.arange(s, device="cuda")[None] < lengths[:, None]
+    if mask == "masked":
+        valid[0] = False
+        valid[1] = torch.arange(s, device="cuda") < 10
+    elif mask == "holes":
+        valid = torch.rand((b, s), generator=g, device="cuda") > 0.35
     return (q, k, v, valid), {}
+
+
+# phase-2 decode forms: (label, decode_case arguments)
+DECODE_FORMS = (("B8 S2048 G7", {}),
+                ("B3 S1000 G7", dict(b=3, s=1000)),
+                ("all-masked rows", dict(b=4, mask="masked")),
+                ("ring with holes", dict(b=4, s=1500, mask="holes")),
+                ("S1", dict(b=4, s=1)),
+                ("S777 G8 D32", dict(b=5, s=777, h=16, hkv=2, d=32)),
+                ("G1", dict(b=4, s=600, h=8, hkv=8)),
+                ("G16 D128", dict(b=2, s=900, h=32, hkv=2, d=128)))
+
+
+FLASH_FORMS = ("engine", "causal_offset", "window", "ragged", "cross",
+               "g7_ragged_tiles", "window_qpos", "d32", "d128", "last_tile")
 
 
 def flash_case(torch, dtype, form, *, seed=0):
@@ -152,32 +216,49 @@ def flash_case(torch, dtype, form, *, seed=0):
     q_positions and kv_valid; ``causal_offset`` / ``window``: the Pallas
     kernel's own modes; ``ragged``: Skv = 1000; ``cross``: the vision
     model's cross-attention prefill, non-causal, 8 rows x 64-token bucket
-    over the 2304-slot context, each row's first 1-4 images live."""
+    over the 2304-slot context, each row's first 1-4 images live.  Forms
+    that stress the bf16 kernel's design: ``g7_ragged_tiles`` (G = 7, Sq =
+    100 not a multiple of the 18 tokens a packed tile holds),
+    ``window_qpos`` (a window with per-row q_positions), ``d32`` /
+    ``d128`` (the other head dims, D 128 at G 8), ``last_tile``
+    (non-causal, rows whose only live keys lie in the last KV tile)."""
     b, sq, skv, h, hkv, d = {"engine": (8, 512, 2048, 14, 2, 64),
                              "causal_offset": (2, 512, 2048, 14, 2, 64),
                              "window": (2, 512, 512, 14, 2, 64),
                              "ragged": (3, 200, 1000, 14, 2, 64),
                              "cross": (CROSS["b"], 64, CROSS["ctx"],
                                        CROSS["h"], CROSS["hkv"],
-                                       CROSS["d"])}[form]
+                                       CROSS["d"]),
+                             "g7_ragged_tiles": (2, 100, 600, 14, 2, 64),
+                             "window_qpos": (4, 256, 1024, 14, 2, 64),
+                             "d32": (2, 70, 300, 8, 2, 32),
+                             "d128": (2, 65, 400, 16, 2, 128),
+                             "last_tile": (3, 40, 300, 14, 2, 64)}[form]
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
     k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
     v = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
-    kw = {"causal": form != "cross"}
+    kw = {"causal": form not in ("cross", "last_tile")}
     if form == "cross":
         kw["kv_valid"] = cross_valid(torch, g, b, skv)
-    elif form == "engine":
+    elif form in ("engine", "window_qpos"):
         start = torch.randint(0, skv - sq + 1, (b,), generator=g,
                               device="cuda")
         kw["q_positions"] = (start[:, None] + torch.arange(
             sq, device="cuda")[None]).to(torch.int32)
         kw["kv_valid"] = torch.arange(skv, device="cuda")[None] < \
             (start + sq)[:, None]
-    elif form in ("causal_offset", "ragged"):
+        if form == "window_qpos":
+            kw["window"] = 200
+    elif form in ("causal_offset", "ragged", "g7_ragged_tiles", "d32",
+                  "d128"):
         kw["q_offset"] = skv - sq
     elif form == "window":
         kw["window"] = 256
+    elif form == "last_tile":
+        idx = torch.arange(skv, device="cuda")
+        kw["kv_valid"] = torch.stack([idx >= skv - 10, idx == skv - 1,
+                                      idx >= 0])
     return (q, k, v), kw
 
 
@@ -250,15 +331,12 @@ def check_kernels(torch, dec, fla, pag, qm):
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        cases = [("decode_attention", "B8 S2048 G7", dec,
-                  decode_case(torch, dtype)),
-                 ("decode_attention", "B3 S1000 G7", dec,
-                  decode_case(torch, dtype, b=3, s=1000)),
-                 ("decode_attention", "cross D128 G8", dec,
-                  cross_decode_case(torch, dtype))]
+        cases = [("decode_attention", what, dec,
+                  decode_case(torch, dtype, **kw)) for what, kw in DECODE_FORMS]
+        cases += [("decode_attention", "cross D128 G8", dec,
+                   cross_decode_case(torch, dtype))]
         cases += [("flash_attention", form, fla, flash_case(torch, dtype, form))
-                  for form in ("engine", "causal_offset", "window", "ragged",
-                               "cross")]
+                  for form in FLASH_FORMS]
         cases += [("paged_attention", "B8 ps16 P128", pag,
                    paged_case(torch, dtype)),
                   ("paged_attention", "int8 pages", pag,
@@ -1019,8 +1097,13 @@ def profile_round(torch, send_all):
     goes and how long the card sits idle.  The profiled round is slower
     than the counted one; only shares are read."""
     from torch.profiler import ProfilerActivity, profile
-    kinds = {"decode_attention": ("decode_attention_kernel",),
-             "flash_attention": ("flash_attention_kernel",),
+    # the split combine kernel (csrc/flash_decoding.cuh) counts as decode:
+    # only the decode kernel launches it
+    kinds = {"decode_attention": ("decode_attention_kernel",
+                                  "decode_attention_mma_kernel",
+                                  "combine_splits_kernel"),
+             "flash_attention": ("flash_attention_kernel",
+                                 "flash_attention_tc_kernel"),
              "paged_attention": ("paged_attention_kernel",),
              "gemm": ("gemm", "xmma", "cutlass", "nvjet"),
              "memcpy_memset": ("Memcpy", "Memset")}
@@ -1060,6 +1143,32 @@ def time_ms(torch, fn, n_sets: int, cycles: int = 2) -> float:
     return start.elapsed_time(end) / (cycles * n_sets)
 
 
+def device_ms(torch, fn, n_sets: int) -> float:
+    """Device ms a call, over two passes through all ``n_sets`` input
+    copies, with the host's launch work hidden: the calls are queued behind a kernel that sleeps longer than the host takes to queue
+    them, so the events around them time the device alone (the sleep grows
+    until that holds)."""
+    for i in range(3):
+        fn(i % n_sets)
+    torch.cuda.synchronize()
+    n, cycles_asleep = 2 * n_sets, 2_000_000
+    while True:
+        asleep, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        asleep.record()
+        torch.cuda._sleep(cycles_asleep)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i % n_sets)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if host_ms < asleep.elapsed_time(start):
+            return start.elapsed_time(end) / n
+        cycles_asleep *= 4
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -1079,9 +1188,18 @@ def time_kernels(torch, dec, fla, pag, qm):
     each row's ``kv_valid`` length, and both do 4·D FLOPs per head for each
     live (query, key) pair.  Q, the output and the masks count whole."""
     import torch.nn.functional as F
-    dtype = torch.bfloat16
-    out = {}
+    out = {"decode_attention": time_decode(torch, dec, F),
+           "flash_attention": time_flash(torch, fla, F),
+           "paged_attention": time_paged(torch, pag, F)}
+    for name, extra in time_cross(torch, dec, fla, F).items():
+        out[name].update(extra)
+    out["quant_matmul"] = time_qmm(torch, qm)
+    return out
 
+
+def time_decode(torch, dec, F):
+    """Decode at the text serving shape (see :func:`time_kernels`)."""
+    dtype = torch.bfloat16
     # decode: q [8,14,64], K/V [8,2048,2,64], ragged lengths
     (q, k, v, _), _ = decode_case(torch, dtype)
     n_sets = max(2, 2 * L2_BYTES // nbytes(k, v) + 1)
@@ -1096,18 +1214,25 @@ def time_kernels(torch, dec, fla, pag, qm):
         flops += 4 * h * d * live
         sdpa.append((sq[:, :, None], sk.transpose(1, 2).contiguous(),
                      sv.transpose(1, 2).contiguous(), sval[:, None, None]))
-    out["decode_attention"] = {
-        "ms": time_ms(torch, lambda i: dec.decode_attention_cuda(*sets[i]),
-                      n_sets),
+    kern = lambda i: dec.decode_attention_cuda(*sets[i])  # noqa: E731
+    lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
+        enable_gqa=True)
+    return {
+        "ms": time_ms(torch, kern, n_sets),
         "plain_ms": time_ms(torch, lambda i: dec.decode_attention_plain(
             *sets[i]), n_sets, cycles=1),
-        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
-            enable_gqa=True), n_sets),
+        "library_ms": time_ms(torch, lib, n_sets),
+        "device_ms": device_ms(torch, kern, n_sets),
+        "library_device_ms": device_ms(torch, lib, n_sets),
         **bound(byts / n_sets, flops / n_sets),
         "shape": f"B{b} S{k.shape[1]} H{h} Hkv{hkv} D{d} bf16, {n_sets} sets",
     }
 
+
+def time_flash(torch, fla, F):
+    """Flash at the text resume-prefill shape (see :func:`time_kernels`)."""
+    dtype = torch.bfloat16
     # flash, engine form: 8 rows x 512-token bucket over a 2048 cache
     (q, k, v), _ = flash_case(torch, dtype, "engine")
     n_sets = max(2, 2 * L2_BYTES // nbytes(q, k, v) + 1)
@@ -1126,23 +1251,22 @@ def time_kernels(torch, dec, fla, pag, qm):
         sdpa.append((sq_.transpose(1, 2).contiguous(),
                      sk.transpose(1, 2).contiguous(),
                      sv.transpose(1, 2).contiguous(), m[:, None]))
-    out["flash_attention"] = {
-        "ms": time_ms(torch, lambda i: fla.flash_attention_cuda(
-            *sets[i][0], **sets[i][1]), n_sets),
+    kern = lambda i: fla.flash_attention_cuda(  # noqa: E731
+        *sets[i][0], **sets[i][1])
+    lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
+        enable_gqa=True)
+    return {
+        "ms": time_ms(torch, kern, n_sets),
         "plain_ms": time_ms(torch, lambda i: fla.flash_attention_plain(
             *sets[i][0], **sets[i][1]), n_sets, cycles=1),
-        "library_ms": time_ms(torch, lambda i: F.scaled_dot_product_attention(
-            sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
-            enable_gqa=True), n_sets),
+        "library_ms": time_ms(torch, lib, n_sets),
+        "device_ms": device_ms(torch, kern, n_sets),
+        "library_device_ms": device_ms(torch, lib, n_sets),
         **bound(byts / n_sets, flops / n_sets),
         "shape": (f"B{b} Sq{sq} Skv{skv} H{h} Hkv{hkv} D{d} bf16 (engine "
                   f"form), {n_sets} sets"),
     }
-    out["paged_attention"] = time_paged(torch, pag, F)
-    for name, extra in time_cross(torch, dec, fla, F).items():
-        out[name].update(extra)
-    out["quant_matmul"] = time_qmm(torch, qm)
-    return out
 
 
 def time_cross(torch, dec, fla, F):
@@ -1177,15 +1301,17 @@ def time_cross(torch, dec, fla, F):
                          v.transpose(1, 2).contiguous(),
                          valid[:, None, None]))
         b = bound(byts / n_sets, flops / n_sets)
+        run = lambda i: kern(*sets[i][0], **sets[i][1])  # noqa: E731
+        lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+            sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
+            enable_gqa=True)
         out[name] = {
-            "cross_ms": time_ms(torch, lambda i: kern(*sets[i][0],
-                                                      **sets[i][1]), n_sets),
+            "cross_ms": time_ms(torch, run, n_sets),
             "cross_plain_ms": time_ms(torch, lambda i: plain(
                 *sets[i][0], **sets[i][1]), n_sets, cycles=1),
-            "cross_library_ms": time_ms(
-                torch, lambda i: F.scaled_dot_product_attention(
-                    sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
-                    enable_gqa=True), n_sets),
+            "cross_library_ms": time_ms(torch, lib, n_sets),
+            "cross_device_ms": device_ms(torch, run, n_sets),
+            "cross_library_device_ms": device_ms(torch, lib, n_sets),
             "cross_bound_ms": b["bound_ms"], "cross_bound_by": b["bound_by"],
             "cross_shape": (f"q {tuple(first[0].shape)} over "
                             f"{tuple(first[1].shape)} bf16, "
@@ -1193,6 +1319,39 @@ def time_cross(torch, dec, fla, F):
                             f"{n_sets} sets"),
         }
         del sets, sdpa
+        torch.cuda.empty_cache()
+    return out
+
+
+def split_sweep(torch, dec) -> dict:
+    """Decode at both serving shapes against its number of splits: 1, two
+    and four blocks per SM (the wrapper's plan is the latter) and the most
+    the 64-key floor allows, through the wrapper's own launch with each
+    count, over rotating sets larger than L2: ms a call and device ms
+    (:func:`device_ms`; both kernels).  Not counted as launches."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, case in (
+            ("text", lambda i: decode_case(torch, torch.bfloat16, seed=i)),
+            ("cross", lambda i: cross_decode_case(torch, torch.bfloat16,
+                                                  seed=i))):
+        first = case(0)[0]
+        n_sets = max(2, 2 * L2_BYTES // nbytes(*first[1:3]) + 1)
+        sets = [case(i)[0] for i in range(n_sets)]
+        b, s, hkv = first[1].shape[:3]
+        most = max(1, s // dec.MIN_SPLIT_KEYS)
+        counts = sorted({1, most, *(min(most, -(-w * sms // (b * hkv)))
+                                    for w in (2, 4))})
+        res = out[label] = {"plan": dec.plan_splits(s, b * hkv, sms)}
+        for n in counts:
+            run = lambda i, n=n: dec._launch(*sets[i], n)  # noqa: E731
+            res[n] = {"ms": time_ms(torch, run, n_sets),
+                      "device_ms": device_ms(torch, run, n_sets)}
+            log(f"  decode_attention {label} splits {n:3d}: "
+                f"{res[n]['ms']:.4f} ms a call, device "
+                f"{res[n]['device_ms']:.4f} ms"
+                f"{' (the plan)' if n == res['plan'] else ''}")
+        del sets
         torch.cuda.empty_cache()
     return out
 
@@ -1359,6 +1518,12 @@ def main() -> int:
     for kern, regs, st, ld in ptxas_report(build):
         log(f"  ptxas {kern}: {regs} registers, spill {st}/{ld} bytes "
             "(stores/loads)")
+    hgmma = hgmma_count(build, "flash_attention", "flash_attention_tc_kernel")
+    for kern, n in sorted(hgmma.items()):
+        log(f"  sass {kern}: {n} HGMMA instructions")
+    if len(hgmma) != 3 or not all(hgmma.values()):
+        raise AssertionError("every bf16 flash instantiation must run on the "
+                             f"tensor cores (HGMMA): {hgmma}")
 
     log("== 2. kernels against their plain versions")
     errs = check_kernels(torch, dec, fla, pag, qm)
@@ -1418,15 +1583,23 @@ def main() -> int:
 
     log("== 5. times at the serving shapes (CUDA events)")
     times = time_kernels(torch, dec, fla, pag, qm)
+    times["decode_attention"]["split_sweep"] = split_sweep(torch, dec)
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
         lib = ("none (SDPA on a gathered dense copy "
                f"{t['sdpa_on_gathered_dense_copy_ms']:.4f} ms)"
                if t["library_ms"] is None else f"{t['library_ms']:.4f} ms")
+        ratio = ("" if t["library_ms"] is None
+                 else f" (kernel/library {t['ms'] / t['library_ms']:.3f})")
         log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, {t.get('library', 'SDPA')} {lib}, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
+            f"{t['plain_ms']:.4f} ms, {t.get('library', 'SDPA')} {lib}"
+            f"{ratio}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on "
+            f"{card}")
+        if "device_ms" in t:
+            log(f"  {name:17s} device alone: kernel {t['device_ms']:.4f} ms, "
+                f"SDPA {t['library_device_ms']:.4f} ms (kernel/SDPA "
+                f"{t['device_ms'] / t['library_device_ms']:.3f})")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1436,15 +1609,19 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: v for k, v in t.items()
                if k.startswith(("sdpa_on", "int8_pages", "cross_", "shapes",
-                                "library"))},
+                                "library", "split_sweep", "device_ms"))},
             **({"media_round_launches": {"dense": media_launches[name],
                                          "paged": media_paged_launches[name]}}
                if name != "quant_matmul" else {})})
         if "cross_ms" in t:
             log(f"  {name:17s} cross {t['cross_shape']}: kernel "
                 f"{t['cross_ms']:.4f} ms, plain {t['cross_plain_ms']:.4f} "
-                f"ms, SDPA {t['cross_library_ms']:.4f} ms, bound "
-                f"{t['cross_bound_ms']:.4f} ms ({t['cross_bound_by']})")
+                f"ms, SDPA {t['cross_library_ms']:.4f} ms (kernel/SDPA "
+                f"{t['cross_ms'] / t['cross_library_ms']:.3f}), bound "
+                f"{t['cross_bound_ms']:.4f} ms ({t['cross_bound_by']}); "
+                f"device alone: kernel {t['cross_device_ms']:.4f} ms, SDPA "
+                f"{t['cross_library_device_ms']:.4f} ms (kernel/SDPA "
+                f"{t['cross_device_ms'] / t['cross_library_device_ms']:.3f})")
     serve = {"dense": dense, "paged": paged, "paged_int8": int8_round,
              "media_dense": media_dense, "media_paged": media_paged,
              "card": card, "smoke_s": time.perf_counter() - t_start}

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers, so one
 ``nvcc`` call takes seconds, not minutes) and is compiled for Hopper
 (``sm_90a``) into ``repro_torch/build/lib<name>-<hash>.so`` beside the
 package's own sources on first use, then loaded with :mod:`ctypes`.  The file
-name carries a hash of the source, so an edited kernel is rebuilt and a stale
-library is never loaded.  ``build/`` is listed in ``.gitignore``.
+name carries a hash of the source and of the ``csrc`` headers it includes,
+so an edited kernel or header is rebuilt and a stale library is never
+loaded.  ``build/`` is listed in ``.gitignore``.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 (``ctypes.c_void_p``: a plain ``c_int`` would cut a 64-bit pointer) and
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +32,7 @@ _PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point and argument types of each kernel library
 SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
-                         [_PTR] * 5 + [_INT] * 6 + [_LL] * 7 + [_PTR]),
+                         [_PTR] * 6 + [_INT] * 7 + [_LL] * 7 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
     "paged_attention": ("paged_attention_launch",
@@ -42,6 +44,7 @@ CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -59,10 +62,27 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes with
+    ``#include "..."``, transitively, in first-seen order."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())]
+    return found
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:12]}.so"
+    """The library's path, named by a hash of its source, every header the
+    source includes and the compiler flags."""
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:

@@ -14,6 +14,12 @@ live key are outside the contract.
 on anything it does not take; :func:`flash_attention_plain` is the torch
 form of the reference's ``_flash_jnp`` and serves CPU tensors, the tests,
 and the on-card comparison in ``chip_smoke.py``.
+
+bfloat16 runs on the tensor cores (``wgmma``, K/V by TMA) with the query
+heads of one kv head packed into the rows of a tile; float32 runs on the
+CUDA cores.  :func:`packed_rows` and :func:`tile_range` mirror the bf16
+kernel's row packing and tile skipping so the CPU tests can hold them to
+:func:`live_mask`.
 """
 from __future__ import annotations
 
@@ -26,6 +32,33 @@ from repro_torch.kernels.decode_attention import HEAD_DIMS, check_device
 from repro_torch.kernels.ref import NEG_INF
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 128     # packed (token, head) rows of a bf16 CTA
+TILE_KEYS = 64      # keys of a KV tile
+
+
+def packed_rows(g: int) -> list:
+    """The bf16 kernel's packed tile for query group ``g``: row ``r`` holds
+    (token ``r // g``, head ``r % g``) of the tile's tokens and the kv
+    head's query heads, for ``r < (TILE_ROWS // g) * g``; the rows past
+    that are padding (None)."""
+    if not 1 <= g <= TILE_ROWS:
+        raise ValueError(f"query group {g} not in 1..{TILE_ROWS}")
+    used = (TILE_ROWS // g) * g
+    return [(r // g, r % g) if r < used else None for r in range(TILE_ROWS)]
+
+
+def tile_range(tile_qpos, skv: int, *, causal: bool, window: int) -> range:
+    """The KV tiles the kernel visits for a CTA whose query tokens sit at
+    ``tile_qpos``: every tile up to the one holding the largest position
+    (causal), from the one holding the smallest position's first windowed
+    key (window); all tiles otherwise."""
+    qmin, qmax = int(min(tile_qpos)), int(max(tile_qpos))
+    kt0, kt1 = 0, -(-skv // TILE_KEYS)
+    if causal:
+        kt1 = min(kt1, 0 if qmax < 0 else qmax // TILE_KEYS + 1)
+    if window > 0 and qmin - window + 1 > 0:
+        kt0 = (qmin - window + 1) // TILE_KEYS
+    return range(kt0, max(kt0, kt1))
 
 
 def live_mask(qpos: torch.Tensor, skv: int, *, causal: bool, window: int,
@@ -104,6 +137,9 @@ def _check(q, k, v, q_positions, kv_valid) -> None:
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported (want one of "
                          f"{HEAD_DIMS})")
+    if q.dtype == torch.bfloat16 and h // hkv > TILE_ROWS:
+        raise ValueError(f"query group {h // hkv} exceeds the bf16 kernel's "
+                         f"{TILE_ROWS}-row tile")
     if q_positions is not None and (q_positions.dtype != torch.int32
                                     or q_positions.shape != (b, sq)
                                     or not q_positions.is_contiguous()):

@@ -10,22 +10,33 @@ also run on a machine that has no JAX::
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py
 
 Tolerances: float32 plain vs JAX atol 2e-5 / rtol 1e-3 (as
-``tests/test_kernels.py``); kernel vs plain on the card bf16 atol 2e-2 (one
+``tests/test_kernels.py``), the split-S mirror of the decode kernel vs JAX
+atol 1e-5 (summation order only); kernel vs plain on the card bf16 atol 2e-2 (one
 bf16 rounding of an O(1) output), float32 atol 1e-4 (summation order only).
 ``quant_matmul``, whose outputs grow with K, is held relative to the
 output's largest magnitude: 1e-4 in float32 (summation order, and the
 reference's oracle scales the weights before the sum, the kernel after) and
 1e-2 in bf16 (one bf16 rounding, 2**-7, of the largest output).
 """
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build, ops, ref
-from repro_torch.kernels.decode_attention import (decode_attention_cuda,
-                                                  decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
-                                                 flash_attention_plain)
+from repro_torch.kernels.decode_attention import (MIN_SPLIT_KEYS,
+                                                  decode_attention_cuda,
+                                                  decode_attention_plain,
+                                                  decode_attention_split_plain,
+                                                  plan_splits, split_bounds)
+from repro_torch.kernels.flash_attention import (TILE_KEYS, TILE_ROWS,
+                                                 flash_attention_cuda,
+                                                 flash_attention_plain,
+                                                 live_mask, packed_rows,
+                                                 tile_range)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
@@ -179,6 +190,119 @@ def test_flash_plain_cross_attention_form_matches_jax(jx):
 
 
 # --------------------------------------------------------------------------- #
+# the decode kernel's split-S algorithm and its plan of splits
+# --------------------------------------------------------------------------- #
+def _decode_mask(kind, b, s):
+    """``masked``: row 0 all masked, row 1 live on its first 5 keys only
+    (every later split all-masked); ``ring``: a wrapped ring with random
+    dead cells; ``ragged``: per-row lengths with one full row."""
+    rng = np.random.default_rng(37)
+    if kind == "ring":
+        return rng.random((b, s)) > 0.35
+    lengths = rng.integers(1, s + 1, size=b)
+    lengths[0] = s
+    valid = np.arange(s)[None] < lengths[:, None]
+    if kind == "masked":
+        valid[0] = False
+        valid[1] = np.arange(s) < 5
+    return valid
+
+
+@pytest.mark.parametrize("mask", ["masked", "ring", "ragged"])
+@pytest.mark.parametrize("splits", ["one", "three", "every key"])
+def test_decode_split_plain_matches_jax(jx, mask, splits):
+    """Partials and then the combine, in the kernel's order, against the
+    reference's one-contraction ``_decode_jnp`` and its oracle."""
+    b, s, h, hkv, d = 4, 70, 14, 2, 32
+    q, kc, vc = _np(70, b, h, d), _np(71, b, s, hkv, d), _np(72, b, s, hkv, d)
+    valid = _decode_mask(mask, b, s)
+    n = {"one": 1, "three": 3, "every key": s}[splits]
+    got = decode_attention_split_plain(_t(q), _t(kc), _t(vc), _t(valid),
+                                       n).numpy()
+    for want in (jx["ops"]._decode_jnp(q, kc, vc, valid),
+                 jx["ref"].decode_attention_ref(q, kc, vc, valid)):
+        want = np.asarray(want)
+        if mask == "masked":                  # the reference's oracle gives
+            want = want.copy()                # a uniform mean there; the
+            want[0] = 0.0                     # contract (and _decode_jnp) 0
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    if mask == "masked":
+        assert not got[0].any()
+
+
+@pytest.mark.parametrize("s,bh", [(2048, 16), (2304, 64), (1000, 6),
+                                  (777, 10), (63, 16), (1, 4), (64, 1),
+                                  (100000, 512)])
+def test_plan_splits_covers_every_key_once(s, bh):
+    n = plan_splits(s, bh, 132)
+    bounds = split_bounds(s, n)
+    owner = np.zeros(s, int)
+    for lo, hi in bounds:
+        owner[lo:hi] += 1
+        assert hi - lo >= min(MIN_SPLIT_KEYS, s)
+    assert (owner == 1).all()
+    assert n == 1 or n * bh >= 2 * 132 or n == s // MIN_SPLIT_KEYS
+
+
+@pytest.mark.parametrize("shape", ["text", "cross"])
+def test_plan_splits_fills_the_card_at_the_serving_shapes(shape):
+    """Text decode (B8 Hkv2, S2048) and cross decode (B8 Hkv8, 2304 slots)
+    on a 132-SM H100: at least two blocks per SM."""
+    s, bh = {"text": (2048, 16), "cross": (2304, 64)}[shape]
+    assert plan_splits(s, bh, 132) * bh >= 264
+
+
+# --------------------------------------------------------------------------- #
+# the bf16 flash kernel's row packing and tile skipping, mirrored
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("g", [1, 7, 8])
+def test_flash_packed_rows_are_a_bijection(g):
+    rows = packed_rows(g)
+    tokens = TILE_ROWS // g
+    used = [rc for rc in rows if rc is not None]
+    assert len(rows) == TILE_ROWS and len(used) == tokens * g
+    assert sorted(used) == [(t, h) for t in range(tokens) for h in range(g)]
+    assert all(rc is None for rc in rows[tokens * g:])
+
+
+def _flash_form(form):
+    """(qpos [B, Sq], kv_valid [B, Skv] or None, causal, window, G)."""
+    b, sq, skv = 3, 50, 300
+    if form == "engine":
+        qpos, kv_valid = _engine_rows(80, b, sq, skv)
+        return qpos, kv_valid, True, 0, 7
+    if form == "window":
+        qpos, kv_valid = _engine_rows(81, b, sq, skv)
+        return qpos, kv_valid, True, 70, 7
+    qpos = np.zeros((b, sq), np.int32)                 # cross: non-causal
+    kv_valid = np.arange(skv)[None] < np.array([[300], [130], [1]])
+    return qpos, kv_valid, False, 0, 8
+
+
+@pytest.mark.parametrize("form", ["engine", "window", "cross"])
+def test_flash_tile_skip_never_drops_a_live_pair(form):
+    """Every (query, key) pair that ``live_mask`` holds live lies in a KV
+    tile the kernel visits for the query's packed CTA."""
+    qpos, kv_valid, causal, window, g = _flash_form(form)
+    b, sq = qpos.shape
+    skv = kv_valid.shape[1]
+    mask = live_mask(_t(qpos), skv, causal=causal, window=window,
+                     kv_valid=_t(kv_valid)).numpy()
+    tpb = TILE_ROWS // g
+    visited_any = False
+    for row in range(b):
+        for t0 in range(0, sq, tpb):
+            tiles = tile_range(qpos[row, t0:t0 + tpb], skv, causal=causal,
+                               window=window)
+            seen = np.zeros(skv, bool)
+            for kt in tiles:
+                seen[kt * TILE_KEYS:(kt + 1) * TILE_KEYS] = True
+            assert not mask[row, t0:t0 + tpb][:, ~seen].any()
+            visited_any |= len(tiles) < -(-skv // TILE_KEYS)
+    assert visited_any or not causal          # causal forms do skip tiles
+
+
+# --------------------------------------------------------------------------- #
 # int8-weight matmul: quantiser bit-identical, plain version vs JAX
 # --------------------------------------------------------------------------- #
 def _qmm_inputs(seed, m, k, n):
@@ -293,6 +417,60 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+def test_lib_path_hashes_the_included_headers(monkeypatch, tmp_path):
+    """An edited header gives the library another name: no stale load."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n#include <stdint.h>\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "h.cuh"]
+    before = build._lib_path("k")
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert build._lib_path("k") != before
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ptxas_report_names_plain_and_templated_kernels(tmp_path):
+    """The register report lists every ``__global__`` function, templated
+    or not, from the build's ``-Xptxas -v`` log, named by the toolkit's
+    ``cu++filt`` (a stand-in here that knows the three symbols)."""
+    cs = _chip_smoke()
+    syms = {
+        "_ZN12_GLOBAL__N_123decode_attention_kernelI13__nv_bfloat16Li128ELi8"
+        "EEEvPKT_S4_":
+            "<unnamed>::decode_attention_kernel<__nv_bfloat16, (int)128, "
+            "(int)8>",
+        "_ZN14flash_decoding21combine_splits_kernelIfEEvPKfPT_iiii":
+            "flash_decoding::combine_splits_kernel<float>",
+        "_Z12plain_kernelPfi": "plain_kernel"}
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{sym}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {st} bytes spill stores, {ld} bytes "
+        f"spill loads\nptxas info    : Used {regs} registers\n"
+        for sym, (regs, st, ld) in zip(syms, [(72, 0, 0), (20, 8, 4),
+                                              (8, 0, 0)]))
+    (tmp_path / "k.log").write_text(log)
+    filt = tmp_path / "cu++filt"
+    filt.write_text(f"#!{sys.executable}\nimport sys\n"
+                    f"assert sys.argv[1] == '-p'\nnames = {syms!r}\n"
+                    "print('\\n'.join(names[a] for a in sys.argv[2:]))\n")
+    filt.chmod(0o755)
+    fake = type("B", (), {"KERNELS": ("k",), "BUILD": tmp_path,
+                          "nvcc_path": staticmethod(
+                              lambda: str(tmp_path / "nvcc"))})
+    assert cs.ptxas_report(fake) == [
+        ("<unnamed>::decode_attention_kernel<__nv_bfloat16, (int)128, "
+         "(int)8>", 72, 0, 0),
+        ("flash_decoding::combine_splits_kernel<float>", 20, 8, 4),
+        ("plain_kernel", 8, 0, 0)]
+
+
 # --------------------------------------------------------------------------- #
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------- #
@@ -330,6 +508,32 @@ def test_decode_kernel_matches_plain(cuda, dtype, b, s, h, hkv, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["masked", "ring", "s1", "s777", "g1",
+                                  "g16"])
+def test_decode_kernel_split_edge_cases(cuda, dtype, form):
+    """All-masked rows and splits, a wrapped ring with holes, S = 1, S not
+    a multiple of the split, G = 1 and 16."""
+    b, s, h, hkv, d = {"masked": (4, 2048, 14, 2, 64),
+                       "ring": (4, 1500, 14, 2, 64),
+                       "s1": (4, 1, 14, 2, 64),
+                       "s777": (5, 777, 16, 2, 32),
+                       "g1": (4, 600, 8, 8, 64),
+                       "g16": (2, 900, 32, 2, 128)}[form]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn((b, h, d), generator=g, device=cuda).to(dtype)
+    kc = torch.randn((b, s, hkv, d), generator=g, device=cuda).to(dtype)
+    vc = torch.randn((b, s, hkv, d), generator=g, device=cuda).to(dtype)
+    valid = _t(_decode_mask("ring" if form == "ring" else
+                            "masked" if form == "masked" else "ragged",
+                            b, s)).to(cuda)
+    got = decode_attention_cuda(q, kc, vc, valid)
+    torch.cuda.synchronize()
+    _close(got, decode_attention_plain(q, kc, vc, valid), dtype)
+    assert not got[~valid.any(1)].any()
+
+
+@pytest.mark.gpu
 def test_decode_kernel_reads_a_layer_of_a_stacked_cache(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     stacked = torch.randn((3, 4, 512, 2, 64), generator=g, device=cuda)
@@ -347,10 +551,15 @@ def test_decode_kernel_reads_a_layer_of_a_stacked_cache(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("form", ["engine", "causal_offset", "window",
-                                  "ragged", "d32", "d128", "noncausal"])
+                                  "ragged", "d32", "d128", "noncausal",
+                                  "g7_ragged_tiles", "window_qpos",
+                                  "last_tile"])
 def test_flash_kernel_matches_plain(cuda, dtype, form):
     b, sq, skv, h, hkv, d = {
         "engine": (4, 512, 2048, 14, 2, 64),
+        "g7_ragged_tiles": (2, 100, 600, 14, 2, 64),   # Sq % 18 != 0
+        "window_qpos": (3, 256, 1024, 14, 2, 64),
+        "last_tile": (3, 40, 300, 14, 2, 64),
         "causal_offset": (2, 256, 1024, 14, 2, 64),
         "window": (2, 512, 512, 14, 2, 64),
         "ragged": (3, 100, 1000, 14, 2, 64),
@@ -364,10 +573,17 @@ def test_flash_kernel_matches_plain(cuda, dtype, form):
     v = torch.randn((b, skv, hkv, d), generator=g, device=cuda).to(dtype)
     kw = dict(causal=form != "noncausal", window=256 if form == "window" else 0,
               q_offset=skv - sq if form in ("causal_offset", "ragged") else 0)
-    if form == "engine":
+    if form in ("engine", "window_qpos"):
         qpos, kv_valid = _engine_rows(3, b, sq, skv)
         kw = dict(causal=True, q_positions=_t(qpos).to(cuda),
-                  kv_valid=_t(kv_valid).to(cuda))
+                  kv_valid=_t(kv_valid).to(cuda),
+                  window=200 if form == "window_qpos" else 0)
+    elif form == "g7_ragged_tiles":
+        kw = dict(causal=True, q_offset=skv - sq)
+    elif form == "last_tile":                 # only keys of the last tile
+        idx = torch.arange(skv, device=cuda)
+        kw = dict(causal=False, kv_valid=torch.stack(
+            [idx >= skv - 10, idx == skv - 1, idx >= 0]))
     got = flash_attention_cuda(q, k, v, **kw)
     torch.cuda.synchronize()
     _close(got, flash_attention_plain(q, k, v, **kw), dtype)
@@ -470,5 +686,6 @@ def test_attention_kernels_match_plain_at_the_cross_attention_shapes(cuda,
     _close(flash_attention_cuda(q, k, v, causal=False, kv_valid=valid),
            flash_attention_plain(q, k, v, causal=False, kv_valid=valid),
            dtype)
-    _close(decode_attention_cuda(q[:, 0], k, v, valid),
-           decode_attention_plain(q[:, 0], k, v, valid), dtype)
+    q0 = q[:, 0].contiguous()                 # the wrapper takes q [B,H,D]
+    _close(decode_attention_cuda(q0, k, v, valid),            # contiguous
+           decode_attention_plain(q0, k, v, valid), dtype)
