@@ -9,19 +9,25 @@ Phases (any failure exits non-zero and prints no result line):
    hand-written kernels built from ``src/repro_torch/csrc`` with nvcc for
    ``sm_90a`` (TF32 off for every float32 product); ``ptxas`` registers and
    spills of every ``__global__`` function, and the tensor-core proof: the
-   ``HGMMA`` instructions ``cuobjdump -sass`` finds in each bf16 flash
-   instantiation (none fails the run);
+   ``HGMMA`` / ``HMMA`` instructions ``cuobjdump -sass`` finds in each bf16
+   instantiation of flash, decode, paged and ``quant_matmul`` (none fails
+   the run);
 2. kernels — each CUDA kernel against its plain PyTorch version at the
    serving paths' shapes, in bf16 (atol 2e-2) and float32 (atol 1e-4); the
-   paged kernel also over int8 pages with q in either dtype; flash
+   paged kernel over fp and int8 pages with q in either dtype, also a row
+   with one live cell, a row with all splits but one empty, G 1 and 16 at
+   D 32, 64 and 128, pages of 4 and 32, a stacked arena and the vision
+   model's self-attention shape, and with 1, 3 and the planned number of
+   splits; flash
    non-causal and decode at the cross-attention shape of
    ``llama-3.2-vision-90b`` (D 128, G 8, a 2304-slot context); forms that
    stress the redesigned kernels (flash: G 7 with Sq not a multiple of the
    18 tokens a packed tile holds, a window with q_positions, D 32 and 128,
    rows live only in the last KV tile; decode: all-masked rows and splits,
    a ring with holes, S 1, S 777, G 1 and 16);
-   ``quant_matmul`` at that model's MLP shapes (M 8 and 512) and a ragged
-   one, relative to the largest output (bf16 1e-2, float32 1e-4);
+   ``quant_matmul`` at that model's MLP shapes (M 8 and 512), M 12 and
+   ragged ones, and with 1, 3 and the planned splits of K, relative to the
+   largest output (bf16 1e-2, float32 1e-4);
 3. full-width model — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (max |Δlogit| <= 1e-3, argmax
@@ -58,8 +64,9 @@ Phases (any failure exits non-zero and prints no result line):
    gathered beforehand, labelled as such) at the phase-2 serving shapes,
    with CUDA events over rotating input copies larger than the L2 cache,
    beside the least time the card could take (``bound_ms``) and the
-   kernel/SDPA ratio from the same call; decode's time against its number
-   of splits at both serving shapes.
+   kernel/SDPA ratio from the same call, each also device alone (the host's
+   launch work hidden); decode's and paged's time against their number
+   of splits.
 
 The last lines are one ``serve`` JSON line, one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
@@ -140,10 +147,11 @@ def ptxas_report(build) -> list:
     return [(kern, *nums) for kern, nums in zip(demangle(build, syms), out)]
 
 
-def hgmma_count(build, name: str, kernel: str) -> dict:
-    """{instantiation: HGMMA instructions} of the functions named
+def mma_count(build, name: str, kernel: str) -> dict:
+    """{instantiation: tensor-core instructions} of the functions named
     ``kernel`` in the built library of ``name``, from ``cuobjdump -sass``:
-    the proof that they run on the tensor cores."""
+    ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) together, the proof that
+    they run on the tensor cores."""
     import re
     cuobjdump = Path(build.nvcc_path()).with_name("cuobjdump")
     res = subprocess.run([str(cuobjdump), "-sass", str(build._lib_path(name))],
@@ -157,10 +165,33 @@ def hgmma_count(build, name: str, kernel: str) -> dict:
             cur = fn.group(1)
             counts.setdefault(cur, 0)
         elif cur is not None:
-            counts[cur] += len(re.findall(r"\bHGMMA\.", line))
+            counts[cur] += len(re.findall(r"\bH(?:G)?MMA\.", line))
     return {kern: n for kern, n in zip(demangle(build, list(counts)),
                                        counts.values())
             if re.search(rf"(^|::){kernel}<", kern)}
+
+
+# (library, kernel, bf16 instantiations): every one must hold tensor-core
+# instructions (flash: HGMMA; decode, paged, quant_matmul: HMMA)
+TENSOR_CORE_KERNELS = (
+    ("flash_attention", "flash_attention_tc_kernel", 3),
+    ("decode_attention", "decode_attention_mma_kernel", 3),
+    ("paged_attention", "paged_attention_mma_kernel", 6),
+    ("quant_matmul", "qmm_mma_kernel", 2))
+
+
+def check_tensor_cores(build) -> dict:
+    """Phase 1's proof that every bf16 instantiation of the four kernels
+    runs on the tensor cores; returns {kernel name: {instantiation: n}}."""
+    out = {}
+    for lib, kernel, want in TENSOR_CORE_KERNELS:
+        counts = out[lib] = mma_count(build, lib, kernel)
+        for kern, n in sorted(counts.items()):
+            log(f"  sass {kern}: {n} HGMMA/HMMA instructions")
+        if len(counts) != want or not all(counts.values()):
+            raise AssertionError(f"every bf16 {kernel} instantiation must run "
+                                 f"on the tensor cores: {counts}")
+    return out
 
 
 def smi() -> str:
@@ -293,10 +324,13 @@ def qmm_case(torch, qm, dtype, m, k, n, *, seed=0):
 
 
 def paged_case(torch, dtype, *, int8=False, b=8, ps=16, p=128, h=14, hkv=2,
-               d=64, seed=0):
+               d=64, seed=0, short=None, stacked=0):
     """The serving arena: ``reserved + b * p`` pages (reserved as the pool
     reserves them), ragged positions, rows 0 and 1 sharing their first four
-    pages, row 2 wrapped, every entry past a row's pages at page 0."""
+    pages, row 2 wrapped, every entry past a row's pages at page 0.
+    ``short``: row 3's position (``0``: one live cell); ``stacked``: the
+    pages are layer 1 of an ``[N, stacked, ps, Hkv, D]`` arena (a view whose
+    page stride is not its page size)."""
     from repro_torch.core.paged_kv import PagedKVPool
     from repro_torch.kernels.quant_matmul import quantize_kv_int8
     n = PagedKVPool.full_capacity(b, ps * p, ps)
@@ -304,11 +338,19 @@ def paged_case(torch, dtype, *, int8=False, b=8, ps=16, p=128, h=14, hkv=2,
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
     kw, kv = {}, []
+    lead = (stacked,) if stacked else ()
     for name in ("k", "v"):
-        x = torch.randn((n, ps, hkv, d), generator=g, device="cuda")
+        x = torch.randn((n, *lead, ps, hkv, d), generator=g, device="cuda")
+        sc = None
         if int8:
-            x, kw[f"{name}_scale"] = quantize_kv_int8(x)
-        kv.append(x if int8 else x.to(dtype))
+            x, sc = quantize_kv_int8(x)
+        else:
+            x = x.to(dtype)
+        if stacked:
+            x, sc = x[:, 1], None if sc is None else sc[:, 1]
+        if sc is not None:
+            kw[f"{name}_scale"] = sc
+        kv.append(x)
     pos = torch.randint(4 * ps, p * ps, (b,), generator=g, device="cuda")
     pos[2] = p * ps + 37
     table = torch.zeros((b, p), dtype=torch.int32, device="cuda")
@@ -317,7 +359,22 @@ def paged_case(torch, dtype, *, int8=False, b=8, ps=16, p=128, h=14, hkv=2,
         live = p if row == 2 else int(pos[row]) // ps + 1
         table[row, :live] = perm[row * p:row * p + live].int()
     table[1, :4] = table[0, :4]
+    if short is not None:
+        pos[3] = short
     return (q, kv[0], kv[1], table, pos.int()), kw
+
+
+# phase-2 paged forms, each on fp and int8 pages: (label, paged_case
+# arguments)
+PAGED_FORMS = (("B8 ps16 P128", {}),
+               ("one live cell", dict(b=4, short=0)),
+               ("one split live", dict(b=4, short=19)),
+               ("G1 D32 ps4", dict(b=4, ps=4, p=40, h=8, hkv=8, d=32)),
+               ("G16 D64 ps32", dict(b=4, ps=32, p=10, h=16, hkv=1, d=64)),
+               ("G16 D128", dict(b=3, p=20, h=32, hkv=2, d=128)),
+               ("G1 D128", dict(b=3, p=20, h=16, hkv=16, d=128)),
+               ("stacked arena", dict(b=4, stacked=3)),
+               ("4e H64 Hkv8 D128", dict(h=64, hkv=8, d=128)))
 
 
 def max_err(torch, a, b) -> float:
@@ -337,15 +394,17 @@ def check_kernels(torch, dec, fla, pag, qm):
                    cross_decode_case(torch, dtype))]
         cases += [("flash_attention", form, fla, flash_case(torch, dtype, form))
                   for form in FLASH_FORMS]
-        cases += [("paged_attention", "B8 ps16 P128", pag,
-                   paged_case(torch, dtype)),
-                  ("paged_attention", "int8 pages", pag,
-                   paged_case(torch, dtype, int8=True, seed=1))]
+        cases += [("paged_attention", f"{what}{' int8' if int8 else ''}",
+                   pag, paged_case(torch, dtype, int8=int8, seed=int(int8),
+                                   **kw))
+                  for what, kw in PAGED_FORMS for int8 in (False, True)]
         cases += [("quant_matmul", f"{m}x{k}x{n}", qm,
                    qmm_case(torch, qm, dtype, m, k, n))
                   for m in (8, 512) for k, n in MLP_SHAPES]
-        cases += [("quant_matmul", "77x1000x1000", qm,
-                   qmm_case(torch, qm, dtype, 77, 1000, 1000))]
+        cases += [("quant_matmul", f"{m}x{k}x{n}", qm,
+                   qmm_case(torch, qm, dtype, m, k, n))
+                  for m, k, n in ((12, 4096, 4096), (77, 1000, 1040),
+                                  (77, 1000, 1000))]
         for name, what, mod, (args, kw) in cases:
             kern = getattr(mod, f"{name}_cuda")
             plain = getattr(mod, f"{name}_plain")
@@ -369,8 +428,44 @@ def check_kernels(torch, dec, fla, pag, qm):
                 errs[name] = max(errs.get(name, 0.0), err)
             del got, want
         del cases
+        check_split_counts(torch, pag, qm, dtype)
         torch.cuda.empty_cache()
     return errs
+
+
+def check_split_counts(torch, pag, qm, dtype):
+    """The paged kernel (fp and int8 pages) with 1, 3 and the planned
+    number of splits, and the bf16 ``quant_matmul`` with 1, 3 and the
+    planned splits of K, each against the plain version."""
+    dname = str(dtype).split(".")[-1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for int8 in (False, True):
+        args, kw = paged_case(torch, dtype, int8=int8, seed=7)
+        q, k, table = args[0], args[1], args[3]
+        plan = pag.plan_splits(table.shape[1] * k.shape[1],
+                               q.shape[0] * k.shape[2], sms)
+        want = pag.paged_attention_plain(*args, **kw)
+        for n in (1, 3, plan):
+            err = max_err(torch, pag._launch(*args, kw.get("k_scale"),
+                                             kw.get("v_scale"), n), want)
+            log(f"  paged_attention   {dname:8s} {n:3d} splits"
+                f"{' int8' if int8 else ''}{' (plan)' if n == plan else ''}: "
+                f"max|kernel-plain| {err:.3e} (tol {TOL[dname]:g})")
+            if err > TOL[dname]:
+                raise AssertionError(f"paged {n} splits: error {err}")
+    if dtype != torch.bfloat16:
+        return
+    (x, w_q, sc), _ = qmm_case(torch, qm, dtype, 8, 28672, 8192)
+    want = qm.quant_matmul_plain(x, w_q, sc).float()
+    plan = qm.planned_splits(x, w_q)
+    for n in (1, 3, plan):
+        rel = max_err(torch, qm._launch(x, w_q, sc, n), want) / \
+            want.abs().max().item()
+        log(f"  quant_matmul      {dname:8s} 8x28672x8192 {n:3d} K splits"
+            f"{' (plan)' if n == plan else ''}: max|Δ|/max|plain| {rel:.3e} "
+            f"(tol {QMM_REL[dname]:g})")
+        if rel > QMM_REL[dname]:
+            raise AssertionError(f"quant_matmul {n} K splits: error {rel}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1097,14 +1192,16 @@ def profile_round(torch, send_all):
     goes and how long the card sits idle.  The profiled round is slower
     than the counted one; only shares are read."""
     from torch.profiler import ProfilerActivity, profile
-    # the split combine kernel (csrc/flash_decoding.cuh) counts as decode:
-    # only the decode kernel launches it
+    # the split combine (csrc/flash_decoding.cuh) is launched by decode
+    # and by paged; its Caller template argument names which
     kinds = {"decode_attention": ("decode_attention_kernel",
                                   "decode_attention_mma_kernel",
-                                  "combine_splits_kernel"),
+                                  "DecodeCaller"),
              "flash_attention": ("flash_attention_kernel",
                                  "flash_attention_tc_kernel"),
-             "paged_attention": ("paged_attention_kernel",),
+             "paged_attention": ("paged_attention_kernel",
+                                 "paged_attention_mma_kernel",
+                                 "PagedCaller"),
              "gemm": ("gemm", "xmma", "cutlass", "nvjet"),
              "memcpy_memset": ("Memcpy", "Memset")}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1356,6 +1453,30 @@ def split_sweep(torch, dec) -> dict:
     return out
 
 
+def paged_split_sweep(torch, pag, sets) -> dict:
+    """The paged kernel at the serving arena (bf16 pages) against its
+    number of splits: 1, two and four blocks per SM (the wrapper's plan is
+    the latter) and the most the 64-cell floor allows, through the
+    wrapper's own launch with each count: ms a call and device ms.  Not
+    counted as launches."""
+    from repro_torch.kernels.decode_attention import MIN_SPLIT_KEYS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    q, k, _, table, _ = sets[0][0]
+    s, bh = table.shape[1] * k.shape[1], q.shape[0] * k.shape[2]
+    most = max(1, s // MIN_SPLIT_KEYS)
+    res = {"plan": pag.plan_splits(s, bh, sms)}
+    for n in sorted({1, most, *(min(most, -(-w * sms // bh))
+                                for w in (2, 4))}):
+        run = lambda i, n=n: pag._launch(  # noqa: E731
+            *sets[i][0], None, None, n)
+        res[n] = {"ms": time_ms(torch, run, len(sets)),
+                  "device_ms": device_ms(torch, run, len(sets))}
+        log(f"  paged_attention text splits {n:3d}: {res[n]['ms']:.4f} ms a "
+            f"call, device {res[n]['device_ms']:.4f} ms"
+            f"{' (the plan)' if n == res['plan'] else ''}")
+    return res
+
+
 def time_qmm(torch, qm):
     """The int8 kernel at the vision model's MLP shapes (bf16 x), its plain
     version, and one PyTorch call computing the same product
@@ -1383,21 +1504,25 @@ def time_qmm(torch, qm):
                 library, lib_name = (lambda i: sets[i][0] @ (
                     sets[i][1].to(torch.bfloat16) * sets[i][2].to(
                         torch.bfloat16))), "dequantise + torch.matmul (2 calls)"
+            kern = lambda i: qm.quant_matmul_cuda(*sets[i])  # noqa: E731
             row = {
-                "ms": time_ms(torch, lambda i: qm.quant_matmul_cuda(*sets[i]),
-                              n_sets),
+                "ms": time_ms(torch, kern, n_sets),
+                "device_ms": device_ms(torch, kern, n_sets),
                 "plain_ms": time_ms(torch, lambda i: qm.quant_matmul_plain(
                     *sets[i]), n_sets, cycles=1),
                 "library_ms": time_ms(torch, library, n_sets),
+                "library_device_ms": device_ms(torch, library, n_sets),
                 "library": lib_name,
                 **bound(nbytes(x, w_q, sc) + m * n * x.element_size(),
                         2 * m * k * n),
             }
             shapes[f"{m}x{k}x{n}"] = row
             log(f"  quant_matmul {m}x{k}x{n} bf16: kernel {row['ms']:.4f} "
-                f"ms, plain {row['plain_ms']:.4f} ms, {lib_name} "
-                f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
-                f"ms ({row['bound_by']})")
+                f"ms (device alone {row['device_ms']:.4f}), plain "
+                f"{row['plain_ms']:.4f} ms, {lib_name} "
+                f"{row['library_ms']:.4f} ms (device alone "
+                f"{row['library_device_ms']:.4f}), bound "
+                f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             del sets, lib_sets
             torch.cuda.empty_cache()
     main = dict(shapes[f"8x{MLP_SHAPES[0][0]}x{MLP_SHAPES[0][1]}"])
@@ -1449,23 +1574,31 @@ def time_paged(torch, pag, F):
         gv = v[table.long()].reshape(q.shape[0], s, *v.shape[2:])
         sdpa.append((q[:, :, None], gk.transpose(1, 2).contiguous(),
                      gv.transpose(1, 2).contiguous(), valid[:, None, None]))
+    kern = lambda i: pag.paged_attention_cuda(  # noqa: E731
+        *sets[i][0], **sets[i][1])
+    lib = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
+        enable_gqa=True)
     out = {
-        "ms": time_ms(torch, lambda i: pag.paged_attention_cuda(
-            *sets[i][0], **sets[i][1]), n_sets),
+        "ms": time_ms(torch, kern, n_sets),
+        "device_ms": device_ms(torch, kern, n_sets),
         "plain_ms": time_ms(torch, lambda i: pag.paged_attention_plain(
             *sets[i][0], **sets[i][1]), n_sets, cycles=1),
         "library_ms": None,
-        "sdpa_on_gathered_dense_copy_ms": time_ms(
-            torch, lambda i: F.scaled_dot_product_attention(
-                sdpa[i][0], sdpa[i][1], sdpa[i][2], attn_mask=sdpa[i][3],
-                enable_gqa=True), n_sets),
+        "sdpa_on_gathered_dense_copy_ms": time_ms(torch, lib, n_sets),
+        "sdpa_on_gathered_dense_copy_device_ms": device_ms(torch, lib,
+                                                            n_sets),
         **bound_of(sets),
     }
     del sdpa
     int8_sets = sets_of(True)
-    out["int8_pages_ms"] = time_ms(torch, lambda i: pag.paged_attention_cuda(
-        *int8_sets[i][0], **int8_sets[i][1]), len(int8_sets))
+    int8_kern = lambda i: pag.paged_attention_cuda(  # noqa: E731
+        *int8_sets[i][0], **int8_sets[i][1])
+    out["int8_pages_ms"] = time_ms(torch, int8_kern, len(int8_sets))
+    out["int8_pages_device_ms"] = device_ms(torch, int8_kern, len(int8_sets))
     out["int8_pages_bound_ms"] = bound_of(int8_sets)["bound_ms"]
+    del int8_sets
+    out["split_sweep"] = paged_split_sweep(torch, pag, sets)
     q, k = sets[0][0][0], sets[0][0][1]
     out["shape"] = (f"B{q.shape[0]} ps{k.shape[1]} P{sets[0][0][3].shape[1]} "
                     f"N{k.shape[0]} H{q.shape[1]} Hkv{k.shape[2]} "
@@ -1518,12 +1651,7 @@ def main() -> int:
     for kern, regs, st, ld in ptxas_report(build):
         log(f"  ptxas {kern}: {regs} registers, spill {st}/{ld} bytes "
             "(stores/loads)")
-    hgmma = hgmma_count(build, "flash_attention", "flash_attention_tc_kernel")
-    for kern, n in sorted(hgmma.items()):
-        log(f"  sass {kern}: {n} HGMMA instructions")
-    if len(hgmma) != 3 or not all(hgmma.values()):
-        raise AssertionError("every bf16 flash instantiation must run on the "
-                             f"tensor cores (HGMMA): {hgmma}")
+    mma = check_tensor_cores(build)
 
     log("== 2. kernels against their plain versions")
     errs = check_kernels(torch, dec, fla, pag, qm)
@@ -1552,6 +1680,9 @@ def main() -> int:
     require_launches(paged_launches, paged, layers,
                      decode_kernel="paged_attention",
                      unused="decode_attention")
+    if paged["profiled_round"]["decode_attention_share"] != 0:
+        raise AssertionError("the paged round's profile credits device time "
+                             "to decode_attention, which it never launches")
     check_paged_serving(stats)
     paged["kv_pages"], paged["prefix_cache"] = (stats["kv_pages"],
                                                 stats["prefix_cache"])
@@ -1596,10 +1727,11 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, {t.get('library', 'SDPA')} {lib}"
             f"{ratio}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on "
             f"{card}")
-        if "device_ms" in t:
-            log(f"  {name:17s} device alone: kernel {t['device_ms']:.4f} ms, "
-                f"SDPA {t['library_device_ms']:.4f} ms (kernel/SDPA "
-                f"{t['device_ms'] / t['library_device_ms']:.3f})")
+        lib_dev = t.get("library_device_ms",
+                        t.get("sdpa_on_gathered_dense_copy_device_ms"))
+        log(f"  {name:17s} device alone: kernel {t['device_ms']:.4f} ms, "
+            f"{t.get('library', 'SDPA')} {lib_dev:.4f} ms (kernel/library "
+            f"{t['device_ms'] / lib_dev:.3f})")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -1607,6 +1739,7 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "tensor_core_instructions": mma.get(name),
             **{k: v for k, v in t.items()
                if k.startswith(("sdpa_on", "int8_pages", "cross_", "shapes",
                                 "library", "split_sweep", "device_ms"))},

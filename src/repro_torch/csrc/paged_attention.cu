@@ -1,4 +1,5 @@
-// One-token GQA decode attention through a page table, for Hopper.
+// One-token GQA decode attention through a page table, for Hopper, as
+// split-pages flash-decoding.
 //
 // Replaces the reference package's Pallas TPU kernel
 // src/repro/kernels/paged_attention.py: paged_attention_pallas (body
@@ -7,280 +8,363 @@
 // logical cell i at page page_table[b, i / ps], offset i % ps; cell i is live
 // iff i <= pos[b], or every cell once pos[b] >= P*ps (a wrapped ring).  Scale
 // 1/sqrt(D), f32 accumulation, softmax denominator clamped at 1e-30, output
-// in q's dtype.  Int8 pages carry f32 scales [N, ps, Hkv] and are dequantised
-// in registers right after the load.
+// in q's dtype.  Int8 pages carry f32 scales [N, ps, Hkv].
 //
 // What bounds it: the live K and V bytes, once per decode step per layer
 // (2 * live cells * Hkv * D * sizeof(KV), plus 4-byte scales for int8); the
 // arithmetic is ~G*D FMAs per key, far below the card's compute rate.  The
-// design therefore streams the live pages only:
-//  * one block per (kv head, batch row); its G = H/Hkv query rows stay in
-//    registers, so K/V are read once for the whole query group;
-//  * the row's live page ids (pos / ps + 1 of them, or all P once wrapped)
-//    are staged in shared memory once per block; the per-key address is then
-//    smem_pt[i / ps] * page_stride + (i % ps) * row_stride;
-//  * dead cells past pos are never loaded nor counted, so table entries past
-//    a slot's allocation (which point at reserved page 0, holding foreign
-//    values) are never read;
-//  * each key row is read by LPK lanes with vector loads of EPL elements
-//    (16 bytes for f32 and bf16; 8 bytes of int8 -- EPL stays 8 so the G
-//    query rows and accumulators per lane fit in registers), each lane
-//    group keeps its own online-softmax state (m, l, acc);
-//  * lane groups merge by shuffles, warps through shared memory, once.
-// Not yet done (later work): splitting the pages across blocks
-// (flash-decoding) to fill all SMs when B*Hkv is small, and cp.async / TMA
-// pipelining of the page loads.
+// first version (one block per (kv head, row): 16 blocks at the text shape,
+// a dependent online-softmax update per key, plain loads) was held back by
+// latency, not bytes.  The design is the dense decode kernel's
+// (decode_attention.cu), applied to the page table:
+//  * grid (n_splits, Hkv, B), n_splits planned by the wrapper from the
+//    table's width P*ps and B*Hkv (kernels/decode_attention.py:
+//    plan_splits, four blocks per SM).  The wrapper never reads positions:
+//    each block reads pos[b], counts its row's live cells n (pos + 1, or
+//    P*ps once wrapped) and takes its balanced share of the row's
+//    ceil(n / 32) tiles, [i*nt/n_splits, (i+1)*nt/n_splits), so each live
+//    cell falls in exactly one split and a split past a short row reads
+//    nothing and writes m = -1e30, l = 0.  The splits' partials are merged
+//    by flash_decoding.cuh's combine (tagged PagedCaller); with one split
+//    the kernel writes the output itself;
+//  * the split's page ids are staged in shared memory once; 32-key tiles
+//    are gathered through them with cp.async (16-byte copies) into a
+//    double buffer of padded rows: key s comes from page pt[s / ps], row
+//    s % ps.  Cells past the split's end are zero-filled without a read,
+//    so table entries past a row's allocation (reserved page 0, foreign
+//    values) are never read.  Int8 pages keep 1 byte an element in shared
+//    memory, their per-key scales staged beside the tile;
+//  * bf16 q, bf16 or int8 pages: both products on the tensor cores
+//    (paged_attention_mma_kernel: mma.sync m16n8k16, the G <= 16 rows in
+//    one m16 tile, P in registers split into hi + lo bf16 parts) through
+//    flash_decoding::mma_tile_update, the dense decode kernel's own tile
+//    body.  Int8 rows are widened to bf16 as the fragments are formed
+//    (exact); the score is sk * (q . k_int8) / sqrt(D) and sv is folded
+//    into P before the hi/lo split;
+//  * float32 q, float32 or int8 pages: the CUDA cores
+//    (paged_attention_kernel, flash_decoding::f32_tile_update: a whole
+//    tile scored before its one max), as tensor cores would not hold
+//    float32 to its 1e-4 parity.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "flash_decoding.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;
-constexpr int kUnroll = 4;   // keys per lane group per loop trip
+using flash_decoding::kThreads;
+using flash_decoding::kTK;
+using flash_decoding::TileRow;
 
-// N consecutive elements to float, with 16-byte (8-byte for int8) loads
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float* out) {
-#pragma unroll
-  for (int i = 0; i < N; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(p + i);
-    out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
-  }
+// A block's view of its row and kv head in the arena: K/V (and the int8
+// scales) at kv head kvh of page 0, strides in elements, and the split's
+// page ids staged in shared memory (pt[0] is the row's page p_lo).
+template <typename KV>
+struct PagedRows {
+  const KV* k;
+  const KV* v;
+  const float* ks;
+  const float* vs;
+  const int32_t* pt;
+  int p_lo, ps;
+  long long k_sn, k_ss, v_sn, v_ss, ks_sn, ks_ss, vs_sn, vs_ss;
+};
+
+// Cells [c_begin, c_end) of split `split` of a row whose query is at `pos`
+// in a table of `total` cells: whole 32-key tiles of the row's live cells,
+// balanced over the splits (the wrapper's Python mirror:
+// kernels/paged_attention.py: split_cells).
+__device__ __forceinline__ void split_cells(int pos, int total, int split,
+                                            int n_splits, int& c_begin,
+                                            int& c_end) {
+  const int n = pos >= total ? total : max(pos + 1, 0);
+  const int nt = (n + kTK - 1) / kTK;
+  c_begin = min(n, (int)((long long)split * nt / n_splits) * kTK);
+  c_end = min(n, (int)((long long)(split + 1) * nt / n_splits) * kTK);
 }
 
-template <int N>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-#pragma unroll
-  for (int i = 0; i < N; i += 8) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      out[i + 2 * j] = f.x;
-      out[i + 2 * j + 1] = f.y;
-    }
-  }
+// The split's page ids into shared memory; returns the first page's index.
+__device__ __forceinline__ int stage_pages(int32_t* pt_s,
+                                           const int32_t* page_table,
+                                           long long pt_sb, int b,
+                                           int c_begin, int c_end, int ps) {
+  const int p_lo = c_begin / ps;
+  const int count = c_end > c_begin ? (c_end - 1) / ps - p_lo + 1 : 0;
+  for (int i = threadIdx.x; i < count; i += kThreads)
+    pt_s[i] = page_table[b * pt_sb + p_lo + i];
+  return p_lo;
 }
 
-template <int N>
-__device__ __forceinline__ void load_vec(const int8_t* p, float* out) {
-  static_assert(N == 8, "int8 rows are read 8 bytes per lane");
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = static_cast<float>(c[i]);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename KV> struct Lanes { static constexpr int EPL = 16 / sizeof(KV); };
-template <> struct Lanes<int8_t> { static constexpr int EPL = 8; };
-
-// T: q/out type; KV: page storage type (T, or int8 with scales)
-template <typename T, typename KV, int D, int MAXG>
-__global__ void __launch_bounds__(kWarps * 32)
-paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                       const KV* __restrict__ v,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ vs,
-                       const int32_t* __restrict__ page_table,
-                       const int32_t* __restrict__ positions,
-                       T* __restrict__ out, int H, int P, int ps, int G,
-                       long long k_sn, long long k_ss, long long k_sh,
-                       long long v_sn, long long v_ss, long long v_sh,
-                       long long ks_sn, long long ks_ss, long long ks_sh,
-                       long long vs_sn, long long vs_ss, long long vs_sh,
-                       long long pt_sb, float scale) {
-  constexpr bool kInt8 = sizeof(KV) == 1;
-  constexpr int EPL = Lanes<KV>::EPL;  // elements per lane
-  constexpr int LPK = D / EPL;         // lanes per key row
-  constexpr int KPW = 32 / LPK;        // key rows a warp reads at once
-  static_assert(LPK >= 1 && LPK <= 32 && 32 % LPK == 0, "bad D");
-
-  extern __shared__ float smem[];      // [kWarps][G][D + 2], then page ids
-  int32_t* pt = reinterpret_cast<int32_t*>(smem + kWarps * G * (D + 2));
-
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int grp = lane / LPK;
-  const int sub = lane % LPK;
-  const unsigned gmask =
-      LPK == 32 ? 0xffffffffu : (((1u << LPK) - 1u) << (grp * LPK));
-
-  // live cells of this row and the pages that hold them
-  const int pos = positions[b];
-  const int total = P * ps;
-  const int n_cells = pos >= total ? total : pos + 1;
-  const int n_pages = (n_cells + ps - 1) / ps;
-  for (int i = threadIdx.x; i < n_pages; i += blockDim.x)
-    pt[i] = page_table[b * pt_sb + i];
-  __syncthreads();
-
-  float qr[MAXG][EPL];
-  float m[MAXG], l[MAXG], acc[MAXG][EPL];
-#pragma unroll
-  for (int g = 0; g < MAXG; ++g) {
-    m[g] = kNegInf;
-    l[g] = 0.f;
-#pragma unroll
-    for (int e = 0; e < EPL; ++e) { acc[g][e] = 0.f; qr[g][e] = 0.f; }
-    if (g < G)
-      load_vec<EPL>(q + ((long long)b * H + kvh * G + g) * D + sub * EPL, qr[g]);
-  }
-
-  const KV* kb = k + kvh * k_sh + sub * EPL;
-  const KV* vb = v + kvh * v_sh + sub * EPL;
-  const int stride = kWarps * KPW * kUnroll;
-
-  for (int s0 = (warp * KPW + grp) * kUnroll; s0 < n_cells; s0 += stride) {
-    float kr[kUnroll][EPL], vr[kUnroll][EPL];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int s = s0 + u;
-      if (s < n_cells) {
-        const long long page = pt[s / ps];
-        const int off = s % ps;
-        load_vec<EPL>(kb + page * k_sn + off * k_ss, kr[u]);
-        load_vec<EPL>(vb + page * v_sn + off * v_ss, vr[u]);
-        if constexpr (kInt8) {
-          const float sk = ks[page * ks_sn + off * ks_ss + kvh * ks_sh];
-          const float sv = vs[page * vs_sn + off * vs_ss + kvh * vs_sh];
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) { kr[u][e] *= sk; vr[u][e] *= sv; }
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (s0 + u >= n_cells) continue;   // uniform across the lane group
-      float dot[MAXG];
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        float acc_d = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc_d += qr[g][e] * kr[u][e];
-        dot[g] = acc_d;
-      }
-#pragma unroll
-      for (int off = LPK / 2; off > 0; off /= 2) {
-#pragma unroll
-        for (int g = 0; g < MAXG; ++g)
-          dot[g] += __shfl_xor_sync(gmask, dot[g], off);
-      }
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) continue;
-        const float s = dot[g] * scale;
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        l[g] = l[g] * alpha + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[g][e] = acc[g][e] * alpha + p * vr[u][e];
-        m[g] = m_new;
+// Keys s0 .. s0 + kTK - 1 of the split (ending at s_end) into one tile
+// buffer: K/V rows through the page table, zero-filled without a read past
+// s_end, their liveness and (kScaled) their scales beside them; one
+// cp.async group.
+template <typename KV, int D, bool kScaled>
+__device__ __forceinline__ void load_paged_tile(const PagedRows<KV>& r,
+                                                KV* kt, KV* vt, float* kst,
+                                                float* vst, uint8_t* live_t,
+                                                int s0, int s_end) {
+  constexpr int EPC = TileRow<KV>::kEpc;
+  constexpr int CPR = D / EPC;
+  constexpr int PITCH = TileRow<KV>::template pitch<D>();
+  for (int idx = threadIdx.x; idx < kTK * CPR; idx += kThreads) {
+    const int row = idx / CPR, c = idx % CPR;
+    const int s = s0 + row;
+    const bool ok = s < s_end;
+    const long long page = ok ? r.pt[s / r.ps - r.p_lo] : 0;
+    const long long off = ok ? s % r.ps : 0;
+    ptx::cp_async16(kt + row * PITCH + c * EPC,
+                               r.k + page * r.k_sn + off * r.k_ss + c * EPC,
+                               ok);
+    ptx::cp_async16(vt + row * PITCH + c * EPC,
+                               r.v + page * r.v_sn + off * r.v_ss + c * EPC,
+                               ok);
+    if (c == 0) {
+      live_t[row] = ok;
+      if (kScaled) {
+        ptx::cp_async4(kst + row,
+                                  r.ks + page * r.ks_sn + off * r.ks_ss, ok);
+        ptx::cp_async4(vst + row,
+                                  r.vs + page * r.vs_sn + off * r.vs_ss, ok);
       }
     }
   }
-
-  // merge the KPW lane groups of this warp
-#pragma unroll
-  for (int off = LPK; off < 32; off *= 2) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      const float m_o = __shfl_xor_sync(0xffffffffu, m[g], off);
-      const float l_o = __shfl_xor_sync(0xffffffffu, l[g], off);
-      const float m_new = fmaxf(m[g], m_o);
-      const float a = expf(m[g] - m_new);
-      const float c = expf(m_o - m_new);
-      l[g] = l[g] * a + l_o * c;
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        const float acc_o = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
-        acc[g][e] = acc[g][e] * a + acc_o * c;
-      }
-      m[g] = m_new;
-    }
-  }
-
-  // merge the warps through shared memory
-  if (grp == 0) {
-#pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g >= G) continue;
-      float* row = smem + (warp * G + g) * (D + 2);
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) row[sub * EPL + e] = acc[g][e];
-      if (sub == 0) { row[D] = m[g]; row[D + 1] = l[g]; }
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < G * D; idx += blockDim.x) {
-    const int g = idx / D, d = idx % D;
-    float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, smem[(w * G + g) * (D + 2) + D]);
-    float num = 0.f, den = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* row = smem + (w * G + g) * (D + 2);
-      const float c = expf(row[D] - mx);
-      num += row[d] * c;
-      den += row[D + 1] * c;
-    }
-    store(out + ((long long)b * H + kvh * G + g) * D + d, num / fmaxf(den, 1e-30f));
-  }
+  ptx::cp_async_commit();
 }
 
 struct Args {
   const void *q, *k, *v, *ks, *vs, *pt, *pos;
   void* out;
-  int B, H, Hkv, P, ps;
+  float* part;
+  int B, H, Hkv, P, ps, n_splits;
   long long k_sn, k_ss, k_sh, v_sn, v_ss, v_sh;
   long long ks_sn, ks_ss, ks_sh, vs_sn, vs_ss, vs_sh, pt_sb;
 };
 
-template <typename T, typename KV, int D, int MAXG>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int G = a.H / a.Hkv;
-  const size_t smem = (size_t)kWarps * G * (D + 2) * sizeof(float)
-                      + (size_t)a.P * sizeof(int32_t);
-  auto kern = paged_attention_kernel<T, KV, D, MAXG>;
+template <typename KV>
+__device__ __forceinline__ PagedRows<KV> rows_of(const Args& a,
+                                                 const int32_t* pt_s,
+                                                 int p_lo, int kvh) {
+  constexpr bool kInt8 = sizeof(KV) == 1;
+  return PagedRows<KV>{
+      static_cast<const KV*>(a.k) + kvh * a.k_sh,
+      static_cast<const KV*>(a.v) + kvh * a.v_sh,
+      kInt8 ? static_cast<const float*>(a.ks) + kvh * a.ks_sh : nullptr,
+      kInt8 ? static_cast<const float*>(a.vs) + kvh * a.vs_sh : nullptr,
+      pt_s, p_lo, a.ps, a.k_sn, a.k_ss, a.v_sn, a.v_ss, a.ks_sn, a.ks_ss,
+      a.vs_sn, a.vs_ss};
+}
+
+// ---- bf16 q, bf16 or int8 pages: tensor cores ----
+template <typename KV, int D>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_mma_kernel(const Args a, float scale_log2) {
+  constexpr bool kInt8 = sizeof(KV) == 1;
+  using Tile = typename std::conditional<kInt8, flash_decoding::Int8Tile<D>,
+                                         flash_decoding::Bf16Tile<D>>::type;
+  constexpr int PITCH = Tile::PITCH;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  KV* kt = reinterpret_cast<KV*>(smem);                 // [2][kTK][PITCH]
+  KV* vt = kt + 2 * kTK * PITCH;                        // [2][kTK][PITCH]
+  float* kst = reinterpret_cast<float*>(vt + 2 * kTK * PITCH);  // [2][kTK]
+  float* vst = kst + 2 * kTK;                           // [2][kTK]
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(vst + 2 * kTK);  // [2][kTK]
+  int32_t* pt_s = reinterpret_cast<int32_t*>(live_s + 2 * kTK); // [P]
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv, lane = threadIdx.x % 32;
+  int c_begin, c_end;
+  split_cells(static_cast<const int32_t*>(a.pos)[b], a.P * a.ps, split,
+              a.n_splits, c_begin, c_end);
+  const int p_lo = stage_pages(pt_s, static_cast<const int32_t*>(a.pt),
+                               a.pt_sb, b, c_begin, c_end, a.ps);
+  const PagedRows<KV> rows = rows_of<KV>(a, pt_s, p_lo, kvh);
+  const int ntile = (c_end - c_begin + kTK - 1) / kTK;
+
+  uint32_t qa[D / 16][4];
+  flash_decoding::load_q_frags<D>(
+      qa, static_cast<const __nv_bfloat16*>(a.q) +
+              ((long long)b * a.H + (long long)kvh * G) * D,
+      G, lane);
+  __syncthreads();   // the page ids
+
+  auto load_tile = [&](int buf, int s0) {
+    load_paged_tile<KV, D, kInt8>(rows, kt + buf * kTK * PITCH,
+                                  vt + buf * kTK * PITCH, kst + buf * kTK,
+                                  vst + buf * kTK, live_s + buf * kTK, s0,
+                                  c_end);
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[D / 32][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 32; ++nb)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[nb][i] = 0.f;
+
+  if (ntile > 0) load_tile(0, c_begin);
+  for (int t = 0; t < ntile; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntile) load_tile(buf ^ 1, c_begin + (t + 1) * kTK);
+    if (t + 1 < ntile)
+      ptx::cp_async_wait<1>();
+    else
+      ptx::cp_async_wait<0>();
+    __syncthreads();   // tile t visible (every tile of a split has a live key)
+    const Tile tile{kt + buf * kTK * PITCH, vt + buf * kTK * PITCH};
+    flash_decoding::mma_tile_update<D, kInt8>(
+        qa, tile, live_s + buf * kTK, kst + buf * kTK, vst + buf * kTK,
+        scale_log2, m, l, o);
+    __syncthreads();   // the buffer is refilled two tiles on
+  }
+  flash_decoding::mma_store<D>(m, l, o, static_cast<__nv_bfloat16*>(a.out),
+                               a.part, b, kvh, split, a.Hkv, a.n_splits, a.H,
+                               G);
+}
+
+// ---- float32 q, float32 or int8 pages: CUDA cores ----
+template <typename KV, int D, int MAXG>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const Args a, float scale) {
+  constexpr bool kInt8 = sizeof(KV) == 1;
+  using Shape = flash_decoding::F32Shape<D, MAXG>;
+  constexpr int PITCH = TileRow<KV>::template pitch<D>();
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  KV* kt = reinterpret_cast<KV*>(smem);                 // [2][kTK][PITCH]
+  KV* vt = kt + 2 * kTK * PITCH;                        // [2][kTK][PITCH]
+  float* qs = reinterpret_cast<float*>(vt + 2 * kTK * PITCH);   // [G][D]
+  float* ps = qs + MAXG * D;                            // [G][kTK]
+  float* row_a = ps + MAXG * kTK;                       // [G]
+  float* row_l = row_a + MAXG;                          // [G]
+  float* kst = row_l + MAXG;                            // [2][kTK]
+  float* vst = kst + 2 * kTK;                           // [2][kTK]
+  uint8_t* live_s = reinterpret_cast<uint8_t*>(vst + 2 * kTK);  // [2][kTK]
+  int32_t* pt_s = reinterpret_cast<int32_t*>(live_s + 2 * kTK); // [P]
+
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.Hkv, tid = threadIdx.x;
+  int c_begin, c_end;
+  split_cells(static_cast<const int32_t*>(a.pos)[b], a.P * a.ps, split,
+              a.n_splits, c_begin, c_end);
+  const int p_lo = stage_pages(pt_s, static_cast<const int32_t*>(a.pt),
+                               a.pt_sb, b, c_begin, c_end, a.ps);
+  const PagedRows<KV> rows = rows_of<KV>(a, pt_s, p_lo, kvh);
+  const int ntile = (c_end - c_begin + kTK - 1) / kTK;
+
+  // the kv head's G query rows
+  const float* qb = static_cast<const float*>(a.q) +
+                    ((long long)b * a.H + (long long)kvh * G) * D;
+  for (int idx = tid * 4; idx < G * D; idx += kThreads * 4)
+    *reinterpret_cast<float4*>(qs + idx) =
+        *reinterpret_cast<const float4*>(qb + idx);
+  __syncthreads();   // the page ids
+
+  auto load_tile = [&](int buf, int s0) {
+    load_paged_tile<KV, D, kInt8>(rows, kt + buf * kTK * PITCH,
+                                  vt + buf * kTK * PITCH, kst + buf * kTK,
+                                  vst + buf * kTK, live_s + buf * kTK, s0,
+                                  c_end);
+  };
+
+  float m_r[Shape::SG], l_r[Shape::SG], acc[Shape::GPT][2];
+#pragma unroll
+  for (int j = 0; j < Shape::SG; ++j) { m_r[j] = -INFINITY; l_r[j] = 0.f; }
+#pragma unroll
+  for (int j = 0; j < Shape::GPT; ++j) acc[j][0] = acc[j][1] = 0.f;
+
+  if (ntile > 0) load_tile(0, c_begin);
+  for (int t = 0; t < ntile; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < ntile) load_tile(buf ^ 1, c_begin + (t + 1) * kTK);
+    if (t + 1 < ntile)
+      ptx::cp_async_wait<1>();
+    else
+      ptx::cp_async_wait<0>();
+    __syncthreads();   // tile t (and, the first time, q) visible
+    flash_decoding::f32_tile_update<D, MAXG, KV, kInt8>(
+        kt + buf * kTK * PITCH, vt + buf * kTK * PITCH, live_s + buf * kTK,
+        kst + buf * kTK, vst + buf * kTK, qs, ps, row_a, G, scale, m_r, l_r,
+        acc);
+  }
+  flash_decoding::f32_store<D, MAXG, float>(
+      m_r, l_r, acc, row_a, row_l, static_cast<float*>(a.out), a.part, b, kvh,
+      split, a.Hkv, a.n_splits, a.H, G);
+}
+
+// shared memory of both kernels: the double-buffered tiles, the f32
+// kernel's q rows and softmax scratch (MAXG rows), the scales, the
+// liveness and the page ids
+template <typename KV, int D>
+size_t smem_bytes(int maxg, int P) {
+  return 4 * (size_t)kTK * TileRow<KV>::template pitch<D>() * sizeof(KV) +
+         sizeof(float) * ((size_t)maxg * D + maxg * kTK + 2 * maxg) +
+         sizeof(float) * 4 * kTK + 2 * kTK + sizeof(int32_t) * (size_t)P;
+}
+
+template <typename Kern>
+cudaError_t launch_kernel(Kern kern, size_t smem, const Args& a, float scale,
+                          cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  kern<<<dim3(a.Hkv, a.B), kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const KV*>(a.k),
-      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
-      static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.pt),
-      static_cast<const int32_t*>(a.pos), static_cast<T*>(a.out), a.H, a.P,
-      a.ps, G, a.k_sn, a.k_ss, a.k_sh, a.v_sn, a.v_ss, a.v_sh, a.ks_sn,
-      a.ks_ss, a.ks_sh, a.vs_sn, a.vs_ss, a.vs_sh, a.pt_sb,
-      1.0f / sqrtf((float)D));
+  kern<<<dim3(a.n_splits, a.Hkv, a.B), kThreads, smem, stream>>>(a, scale);
   return cudaGetLastError();
 }
 
-template <typename T, typename KV, int D>
+template <typename KV, int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  if (a.H / a.Hkv > 16) return cudaErrorInvalidValue;
+  cudaError_t err = launch_kernel(paged_attention_mma_kernel<KV, D>,
+                                  smem_bytes<KV, D>(0, a.P), a,
+                                  1.4426950408889634f / sqrtf((float)D),
+                                  stream);
+  if (err != cudaSuccess || a.n_splits == 1) return err;
+  return flash_decoding::launch_combine<flash_decoding::PagedCaller>(
+      a.part, static_cast<__nv_bfloat16*>(a.out), a.B, a.H, a.Hkv,
+      a.n_splits, D, stream);
+}
+
+template <typename KV, int D, int MAXG>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  cudaError_t err = launch_kernel(paged_attention_kernel<KV, D, MAXG>,
+                                  smem_bytes<KV, D>(MAXG, a.P), a,
+                                  1.0f / sqrtf((float)D), stream);
+  if (err != cudaSuccess || a.n_splits == 1) return err;
+  return flash_decoding::launch_combine<flash_decoding::PagedCaller>(
+      a.part, static_cast<float*>(a.out), a.B, a.H, a.Hkv, a.n_splits, D,
+      stream);
+}
+
+template <typename KV, int D>
 cudaError_t by_group(const Args& a, cudaStream_t stream) {
   const int G = a.H / a.Hkv;
-  if (G <= 4) return launch<T, KV, D, 4>(a, stream);
-  if (G <= 8) return launch<T, KV, D, 8>(a, stream);
-  if (G <= 16) return launch<T, KV, D, 16>(a, stream);
+  if (G <= 4) return launch_f32<KV, D, 4>(a, stream);
+  if (G <= 8) return launch_f32<KV, D, 8>(a, stream);
+  if (G <= 16) return launch_f32<KV, D, 16>(a, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T, typename KV>
+// float32 q (kBf16Q false) with float32 or int8 pages; bf16 q with bf16 or
+// int8 pages
+template <bool kBf16Q, typename KV>
 cudaError_t by_dim(int D, const Args& a, cudaStream_t stream) {
-  if (D == 32) return by_group<T, KV, 32>(a, stream);
-  if (D == 64) return by_group<T, KV, 64>(a, stream);
-  if (D == 128) return by_group<T, KV, 128>(a, stream);
+  if constexpr (kBf16Q) {
+    if (D == 32) return launch_mma<KV, 32>(a, stream);
+    if (D == 64) return launch_mma<KV, 64>(a, stream);
+    if (D == 128) return launch_mma<KV, 128>(a, stream);
+  } else {
+    if (D == 32) return by_group<KV, 32>(a, stream);
+    if (D == 64) return by_group<KV, 64>(a, stream);
+    if (D == 128) return by_group<KV, 128>(a, stream);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -292,26 +376,30 @@ extern "C" {
 // q's dtype (ks/vs unused), 1 = int8 pages with float32 scales ks/vs.
 // Strides are in elements; the head_dim axis of q, k, v and out is
 // contiguous, q and out are [B, H, D], page_table [B, P] and positions [B]
-// are int32.
+// are int32.  part is a float32 scratch buffer of B*Hkv*n_splits*G*(D+2)
+// elements (unused, may be null, when n_splits == 1).
 int paged_attention_launch(const void* q, const void* k, const void* v,
                            const void* ks, const void* vs,
                            const void* page_table, const void* positions,
-                           void* out, int B, int H, int Hkv, int P, int ps,
-                           int D, int dtype, int kv_int8, long long k_sn,
-                           long long k_ss, long long k_sh, long long v_sn,
-                           long long v_ss, long long v_sh, long long ks_sn,
-                           long long ks_ss, long long ks_sh, long long vs_sn,
-                           long long vs_ss, long long vs_sh, long long pt_sb,
-                           void* stream) {
+                           void* out, void* part, int B, int H, int Hkv,
+                           int P, int ps, int D, int dtype, int kv_int8,
+                           int n_splits, long long k_sn, long long k_ss,
+                           long long k_sh, long long v_sn, long long v_ss,
+                           long long v_sh, long long ks_sn, long long ks_ss,
+                           long long ks_sh, long long vs_sn, long long vs_ss,
+                           long long vs_sh, long long pt_sb, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Args a{q, k, v, ks, vs, page_table, positions, out, B, H, Hkv, P, ps,
-               k_sn, k_ss, k_sh, v_sn, v_ss, v_sh, ks_sn, ks_ss, ks_sh,
-               vs_sn, vs_ss, vs_sh, pt_sb};
-  if (dtype == 0 && !kv_int8) return (int)by_dim<float, float>(D, a, st);
-  if (dtype == 0 && kv_int8) return (int)by_dim<float, int8_t>(D, a, st);
+  if (n_splits < 1 || (n_splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, ks, vs, page_table, positions, out,
+               static_cast<float*>(part), B, H, Hkv, P, ps, n_splits, k_sn,
+               k_ss, k_sh, v_sn, v_ss, v_sh, ks_sn, ks_ss, ks_sh, vs_sn,
+               vs_ss, vs_sh, pt_sb};
+  if (dtype == 0 && !kv_int8) return (int)by_dim<false, float>(D, a, st);
+  if (dtype == 0 && kv_int8) return (int)by_dim<false, int8_t>(D, a, st);
   if (dtype == 1 && !kv_int8)
-    return (int)by_dim<__nv_bfloat16, __nv_bfloat16>(D, a, st);
-  if (dtype == 1 && kv_int8) return (int)by_dim<__nv_bfloat16, int8_t>(D, a, st);
+    return (int)by_dim<true, __nv_bfloat16>(D, a, st);
+  if (dtype == 1 && kv_int8) return (int)by_dim<true, int8_t>(D, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

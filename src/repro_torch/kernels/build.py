@@ -36,8 +36,8 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
     "paged_attention": ("paged_attention_launch",
-                        [_PTR] * 8 + [_INT] * 8 + [_LL] * 13 + [_PTR]),
-    "quant_matmul": ("quant_matmul_launch", [_PTR] * 4 + [_INT] * 5 + [_PTR]),
+                        [_PTR] * 9 + [_INT] * 9 + [_LL] * 13 + [_PTR]),
+    "quant_matmul": ("quant_matmul_launch", [_PTR] * 5 + [_INT] * 6 + [_PTR]),
 }
 KERNELS = tuple(SIGNATURES)
 CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env

@@ -117,6 +117,14 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    if device.index not in _SM_COUNT:
+        _SM_COUNT[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device.index]
+
+
 def check_device(tensors, what: str) -> None:
     """Raise unless every tensor lies on the current CUDA device (the
     kernels launch there, on PyTorch's current stream)."""
@@ -169,12 +177,8 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     of a stacked ``[L, B, S, Hkv, D]`` cache) as long as head_dim is
     contiguous."""
     _check(q, k_cache, v_cache, kv_valid)
-    dev = q.device.index
-    if dev not in _SM_COUNT:
-        _SM_COUNT[dev] = torch.cuda.get_device_properties(
-            q.device).multi_processor_count
     out = _launch(q, k_cache, v_cache, kv_valid, plan_splits(
-        k_cache.shape[1], q.shape[0] * k_cache.shape[2], _SM_COUNT[dev]))
+        k_cache.shape[1], q.shape[0] * k_cache.shape[2], sm_count(q.device)))
     decode_attention_cuda.launches += 1
     return out
 

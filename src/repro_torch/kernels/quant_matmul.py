@@ -14,19 +14,28 @@ design.  No model of either package calls it: its one entry point is
 anything it does not take; :func:`quant_matmul_plain` computes the kernel's
 arithmetic (sum first, then scale) in torch and serves CPU tensors, the
 tests, and the on-card comparison in ``chip_smoke.py``.
+:func:`tensor_core_tile` asks the library which tensor-core tile (if any)
+takes the inputs, :func:`plan_k_splits` is the wrapper's split of K on that
+tile, and :func:`quant_matmul_split_plain` mirrors that split-K arithmetic
+for the CPU tests (nothing on a serving path calls it).
 :func:`quantize_kv_int8` is the int8 KV pages' quantiser
 (:class:`repro_torch.core.paged_kv.PagedKVPool`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.decode_attention import check_device
+from repro_torch.kernels.decode_attention import check_device, sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCKS_PER_SM = 8        # the grid a decode plan aims at (the K-split
+                         # sweep on the H100, PERF.md)
+MIN_SPLIT_STEPS = 4      # the fewest BK steps a split of K holds
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -63,6 +72,79 @@ def quant_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
     return ((x.float() @ w_q.float()) * scales.float()[None, :]).to(x.dtype)
 
 
+def plan_k_splits(m: int, k: int, n: int, sm_count: int,
+                  tile: Tuple[int, int, int, int]) -> int:
+    """Splits of K for the tensor-core kernel on ``tile`` (BM, BN, BK,
+    bytes-bound: :func:`tensor_core_tile`).  The bytes-bound decode tile
+    splits until the grid holds :data:`BLOCKS_PER_SM` blocks per SM; the
+    prefill tile only until the output tiles and splits fill every SM
+    once.  No split holds fewer than :data:`MIN_SPLIT_STEPS` K steps (one
+    split when K is shorter)."""
+    bm, bn, bk, bytes_bound = tile
+    tiles = -(-m // bm) * -(-n // bn)
+    target = (BLOCKS_PER_SM if bytes_bound else 1) * sm_count
+    want = -(-target // tiles)
+    return max(1, min(want, -(-k // bk) // MIN_SPLIT_STEPS))
+
+
+def k_split_bounds(k: int, n_splits: int, bk: int) -> list:
+    """The kernel's K rows of each split: whole BK steps, balanced,
+    ``[i*T//n * bk, (i+1)*T//n * bk)`` of ``T = ceil(k / bk)`` steps, cut
+    at ``k``."""
+    steps = -(-k // bk)
+    return [(min(k, i * steps // n_splits * bk),
+             min(k, (i + 1) * steps // n_splits * bk))
+            for i in range(n_splits)]
+
+
+def quant_matmul_split_plain(x: torch.Tensor, w_q: torch.Tensor,
+                             scales: torch.Tensor, n_splits: int,
+                             bk: int) -> torch.Tensor:
+    """The tensor-core kernel's split-K arithmetic in torch: each split's
+    K rows (:func:`k_split_bounds` on K steps of ``bk``, the tile's BK)
+    summed in float32, the partials added in split order, then the scales
+    once."""
+    total = torch.zeros((x.shape[0], w_q.shape[1]))
+    for lo, hi in k_split_bounds(x.shape[1], n_splits, bk):
+        total = total + x[:, lo:hi].float() @ w_q[lo:hi].float()
+    return (total * scales.float()[None, :]).to(x.dtype)
+
+
+def _vec(w_q: torch.Tensor) -> int:
+    """1 when the rows of ``w_q`` are whole 16-byte chunks, 16-byte
+    aligned."""
+    return int(w_q.shape[1] % 16 == 0 and w_q.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _tile(m: int, k: int, dtype: int, vec: int,
+          x_aligned: int) -> Optional[Tuple[int, int, int, int]]:
+    _, lib = build.load("quant_matmul")
+    fn = lib.quant_matmul_tile
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    tile = (ctypes.c_int * 4)()
+    return tuple(tile) if fn(m, k, dtype, vec, x_aligned, tile) else None
+
+
+def tensor_core_tile(x: torch.Tensor, w_q: torch.Tensor
+                     ) -> Optional[Tuple[int, int, int, int]]:
+    """(BM, BN, BK, bytes-bound) of the tensor-core tile the library takes
+    for these inputs, or None when they take the CUDA cores.  The library
+    alone makes the choice (``quant_matmul.cu`` ``choose``); the answer is
+    cached by what it depends on."""
+    return _tile(x.shape[0], x.shape[1], _DTYPES[x.dtype], _vec(w_q),
+                 int(x.data_ptr() % 16 == 0))
+
+
+def planned_splits(x: torch.Tensor, w_q: torch.Tensor) -> int:
+    """The wrapper's splits of K for these inputs: :func:`plan_k_splits`
+    on the library's tile, 1 on the CUDA cores."""
+    tile = tensor_core_tile(x, w_q)
+    return 1 if tile is None else plan_k_splits(
+        x.shape[0], x.shape[1], w_q.shape[1], sm_count(x.device), tile)
+
+
 def _check(x, w_q, scales) -> None:
     check_device((x, w_q, scales), "quant_matmul_cuda")
     if x.dtype not in _DTYPES:
@@ -87,20 +169,35 @@ def _check(x, w_q, scales) -> None:
 def quant_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
                       scales: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream: ``[M, N]`` in
-    x's dtype.  Rows of ``w_q`` are read 16 bytes at a time when ``N`` is a
-    multiple of 16 and ``w_q`` is 16-byte aligned, element by element
-    otherwise."""
+    x's dtype.  bf16 x takes the tensor cores where
+    :func:`tensor_core_tile` finds a tile, with K split by
+    :func:`planned_splits` (and the splits' sum as a second kernel);
+    everything else the CUDA cores, rows of ``w_q`` read 16 bytes at a
+    time when ``N`` is a multiple of 16 and ``w_q`` is 16-byte aligned,
+    element by element otherwise."""
     _check(x, w_q, scales)
+    out = _launch(x, w_q, scales, planned_splits(x, w_q))
+    quant_matmul_cuda.launches += 1
+    return out
+
+
+def _launch(x: torch.Tensor, w_q: torch.Tensor, scales: torch.Tensor,
+            n_splits: int) -> torch.Tensor:
+    """The C entry point on checked inputs with ``n_splits`` splits of K
+    (tensor-core path only; 1 elsewhere).  The card tests also call it with
+    other counts."""
     launch, lib = build.load("quant_matmul")
     m, k = x.shape
     n = w_q.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    vec = int(n % 16 == 0 and w_q.data_ptr() % 16 == 0)
+    part = None if n_splits == 1 else torch.empty(
+        (n_splits, m, n), dtype=torch.float32, device=x.device)
+    vec = _vec(w_q)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     code = launch(x.data_ptr(), w_q.data_ptr(), scales.data_ptr(),
-                  out.data_ptr(), m, k, n, _DTYPES[x.dtype], vec, stream)
+                  out.data_ptr(), None if part is None else part.data_ptr(),
+                  m, k, n, _DTYPES[x.dtype], vec, n_splits, stream)
     build.check(lib, code, "quant_matmul")
-    quant_matmul_cuda.launches += 1
     return out
 
 

@@ -16,7 +16,9 @@ bf16 rounding of an O(1) output), float32 atol 1e-4 (summation order only).
 ``quant_matmul``, whose outputs grow with K, is held relative to the
 output's largest magnitude: 1e-4 in float32 (summation order, and the
 reference's oracle scales the weights before the sum, the kernel after) and
-1e-2 in bf16 (one bf16 rounding, 2**-7, of the largest output).
+1e-2 in bf16 (one bf16 rounding, 2**-7, of the largest output); the
+split-K mirror with bf16-valued inputs in float32 is held at 1e-5 (its
+products are exact, only the order of the sums differs).
 """
 import importlib.util
 import sys
@@ -37,10 +39,14 @@ from repro_torch.kernels.flash_attention import (TILE_KEYS, TILE_ROWS,
                                                  flash_attention_plain,
                                                  live_mask, packed_rows,
                                                  tile_range)
+from repro_torch.kernels import paged_attention as pag
+from repro_torch.kernels import quant_matmul as qmm
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
-from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
+from repro_torch.kernels.quant_matmul import (k_split_bounds, plan_k_splits,
+                                              quant_matmul_cuda,
                                               quant_matmul_plain,
+                                              quant_matmul_split_plain,
                                               quantize_int8, quantize_kv_int8)
 
 F32 = dict(atol=2e-5, rtol=1e-3)
@@ -347,6 +353,76 @@ def test_quant_matmul_plain_matches_pallas_interpret_and_ref(jx, m, k, n):
                QMM_REL[torch.float32])
 
 
+# (M, K, N) of the split-K mirror: decode rows and prefill rows, ragged K
+# (not a multiple of the K step) and N
+QMM_SPLIT_SHAPES = [(8, 640, 48), (16, 1000, 64), (13, 520, 32),
+                    (40, 400, 48)]
+# the planner's input for M <= 16 and M > 16: (BM, BN, BK, bytes-bound) as
+# the library reports them (quant_matmul_tile; the card test
+# test_quant_matmul_tiles_are_the_libraries checks these against it)
+QMM_TILES = {"decode": (16, 128, 64, 1), "prefill": (128, 128, 32, 0)}
+
+
+def _qmm_tile(m):
+    return QMM_TILES["decode" if m <= 16 else "prefill"]
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SPLIT_SHAPES)
+@pytest.mark.parametrize("splits", ["one", "planned", "most"])
+def test_quant_matmul_split_plain_matches_pallas_interpret_and_ref(
+        jx, m, k, n, splits):
+    """bf16-valued x: the tensor-core kernel's split-K arithmetic (K cut by
+    the plan on whole K steps, float32 partials, the scales once) against
+    the Pallas kernel in interpret mode and the reference's oracle, in
+    float32 (summation order only) and with bf16 x and output (one bf16
+    rounding)."""
+    jnp = jx["jnp"]
+    x, w = _qmm_inputs(63, m, k, n)
+    x = _t(x).to(torch.bfloat16).float().numpy()     # bf16-representable
+    wq, sc = (np.asarray(a) for a in jx["quantize_int8"](w))
+    bk = _qmm_tile(m)[2]
+    n_splits = {"one": 1, "planned": plan_k_splits(m, k, n, 132,
+                                                   _qmm_tile(m)),
+                "most": -(-k // bk)}[splits]
+    assert splits == "one" or n_splits > 1
+    got = quant_matmul_split_plain(_t(x), _t(wq), _t(sc), n_splits, bk)
+    for want in (jx["qmm_pallas"](x, wq, sc, block_m=8, block_n=128,
+                                  block_k=32, interpret=True),
+                 jx["ref"].quant_matmul_ref(x, wq, sc)):
+        _rel_close(got.numpy(), want, 1e-5)
+    got16 = quant_matmul_split_plain(_t(x).to(torch.bfloat16), _t(wq),
+                                     _t(sc), n_splits, bk)
+    assert got16.dtype == torch.bfloat16
+    want16 = jx["qmm_pallas"](jnp.asarray(x, jnp.bfloat16), wq, sc,
+                              block_m=8, block_n=128, block_k=32,
+                              interpret=True)
+    _rel_close(got16.float().numpy(), np.asarray(want16, np.float32),
+               QMM_REL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8192, 28672), (8, 28672, 8192),
+                                   (512, 8192, 28672), (512, 28672, 8192),
+                                   (77, 1000, 1040), (12, 1024, 4096),
+                                   (16, 64, 32), (1, 8, 16)])
+def test_k_split_plan_covers_every_k_row_once(m, k, n):
+    """The plan at the serving and test shapes on a 132-SM H100: whole K
+    steps, each K row in exactly one split, no split shorter than the
+    minimum (unless K is), and decode rows filling the card."""
+    n_splits = plan_k_splits(m, k, n, 132, _qmm_tile(m))
+    bm, bn, bk, bytes_bound = _qmm_tile(m)
+    owner = np.zeros(k, int)
+    for lo, hi in k_split_bounds(k, n_splits, bk):
+        assert lo % bk == 0 and (hi % bk == 0 or hi == k)
+        owner[lo:hi] += 1
+        assert n_splits == 1 or -(-(hi - lo) // bk) >= qmm.MIN_SPLIT_STEPS
+    assert (owner == 1).all()
+    tiles = -(-m // bm) * -(-n // bn)
+    if (m, k, n) in ((8, 8192, 28672), (8, 28672, 8192)):
+        assert tiles * n_splits >= qmm.BLOCKS_PER_SM * 132
+    if not bytes_bound and tiles >= 132:
+        assert n_splits == 1
+
+
 def test_quant_matmul_plain_keeps_bf16(jx):
     """bf16 activations: the output is bf16, the product float32 inside."""
     x, w = _qmm_inputs(62, 5, 100, 40)
@@ -630,7 +706,10 @@ def _paged_case(device, dtype, *, b=8, ps=16, p=128, reserved=1, h=14,
 @pytest.mark.parametrize("ps,p,h,hkv,d", [
     (16, 128, 14, 2, 64),                     # the main path's shape
     (16, 8, 14, 2, 64), (4, 20, 8, 2, 32), (32, 6, 16, 1, 128),
-    (8, 10, 4, 4, 64)])
+    (8, 10, 4, 4, 64),
+    # G 1 and 16 at each head dim, pages of 4 and 32
+    (4, 40, 8, 8, 32), (4, 30, 32, 2, 32), (16, 12, 8, 8, 64),
+    (32, 10, 16, 1, 64), (16, 20, 16, 16, 128)])
 def test_paged_kernel_matches_plain(cuda, kv, ps, p, h, hkv, d):
     int8 = kv.startswith("int8")
     dtype = getattr(torch, kv.split("-")[-1])
@@ -639,6 +718,52 @@ def test_paged_kernel_matches_plain(cuda, kv, ps, p, h, hkv, d):
     got = paged_attention_cuda(*args, **kw)
     torch.cuda.synchronize()
     _close(got, paged_attention_plain(*args, **kw), dtype)
+
+
+PAGED_KV = ["float32", "bfloat16", "int8-q-float32", "int8-q-bfloat16"]
+
+
+def _paged_kv(kv):
+    """(q dtype, int8 pages) of a ``PAGED_KV`` label."""
+    return getattr(torch, kv.split("-")[-1]), kv.startswith("int8")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", PAGED_KV)
+@pytest.mark.parametrize("form", ["one live cell", "one split live",
+                                  "stacked"])
+def test_paged_kernel_split_edge_cases(cuda, kv, form):
+    """A row with one live cell; a row whose every split but one is empty
+    (20 live cells under the plan's splits); a layer of a stacked arena."""
+    dtype, int8 = _paged_kv(kv)
+    args, kw = _paged_case(cuda, dtype, b=4, int8=int8,
+                           stacked=3 if form == "stacked" else 0)
+    pos = args[4]
+    if form == "one live cell":
+        pos[3] = 0
+    elif form == "one split live":
+        pos[3] = 19
+    got = paged_attention_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, paged_attention_plain(*args, **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", PAGED_KV)
+def test_paged_launch_split_counts_agree(cuda, kv):
+    """One split (the kernel writes the output), three, and the plan's
+    count (partials and the combine) give the same result."""
+    dtype, int8 = _paged_kv(kv)
+    args, kw = _paged_case(cuda, dtype, int8=int8)
+    q, k = args[0], args[1]
+    planned = pag.plan_splits(args[3].shape[1] * k.shape[1],
+                              q.shape[0] * k.shape[2], pag.sm_count(q.device))
+    assert planned > 3
+    want = paged_attention_plain(*args, **kw)
+    for n in (1, 3, planned):
+        got = pag._launch(*args, kw.get("k_scale"), kw.get("v_scale"), n)
+        torch.cuda.synchronize()
+        _close(got, want, dtype)
 
 
 @pytest.mark.gpu
@@ -657,6 +782,10 @@ def test_paged_kernel_reads_a_layer_of_a_stacked_arena(cuda, int8):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", QMM_SHAPES + [
     (8, 8192, 28672),                         # decode rows, the MLP's up
+    (8, 28672, 8192),                         # the down one (split-K)
+    (12, 1024, 4096),                         # M 9-16: the decode tile
+    (77, 1000, 1040),                         # ragged M, K and N tiles
+    (13, 256, 1000),                          # N % 16 != 0: CUDA cores
     (512, 1024, 4096),                        # prefill rows
 ])
 def test_quant_matmul_kernel_matches_plain(cuda, dtype, m, k, n):
@@ -669,6 +798,39 @@ def test_quant_matmul_kernel_matches_plain(cuda, dtype, m, k, n):
     assert quant_matmul_cuda.launches == before + 1 and got.dtype == dtype
     _rel_close(got.float().cpu(), quant_matmul_plain(x, wq, sc).float().cpu(),
                QMM_REL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 100])
+def test_quant_matmul_split_counts_agree(cuda, m):
+    """bf16 on the tensor cores with one split, three and the plan's."""
+    g = torch.Generator(device="cuda").manual_seed(m)
+    x = torch.randn((m, 4096), generator=g, device="cuda").to(torch.bfloat16)
+    wq, sc = quantize_int8(torch.randn((4096, 1024), generator=g,
+                                       device="cuda"))
+    want = quant_matmul_plain(x, wq, sc).float().cpu()
+    for n in (1, 3, qmm.planned_splits(x, wq)):
+        got = qmm._launch(x, wq, sc, n)
+        torch.cuda.synchronize()
+        _rel_close(got.float().cpu(), want, QMM_REL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_quant_matmul_tiles_are_the_libraries(cuda):
+    """The library's tile choice: the tiles the CPU tests plan on for
+    bf16 decode and prefill rows, and the CUDA cores for float32, a ragged
+    N and an unaligned x."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    wq, _ = quantize_int8(torch.randn((256, 1024), generator=g,
+                                      device="cuda"))
+    for m in (1, 16, 17, 512):
+        x = torch.randn((m, 256), generator=g, device="cuda")
+        assert qmm.tensor_core_tile(x.to(torch.bfloat16), wq) == _qmm_tile(m)
+        assert qmm.tensor_core_tile(x, wq) is None
+    x = torch.randn((8, 257), generator=g, device="cuda").to(torch.bfloat16)
+    assert qmm.tensor_core_tile(x[:, 1:].contiguous(), wq[:, :1000]
+                                .contiguous()) is None
+    assert qmm.tensor_core_tile(x.view(-1)[1:2049].view(8, 256), wq) is None
 
 
 @pytest.mark.gpu

@@ -39,7 +39,10 @@ from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import Request, SamplingParams
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.paged_attention import paged_attention_plain
+from repro_torch.kernels.decode_attention import TILE_KEYS
+from repro_torch.kernels.paged_attention import (paged_attention_plain,
+                                                 paged_attention_split_plain,
+                                                 split_cells)
 from repro_torch.kernels.quant_matmul import quantize_kv_int8
 from repro_torch.models import model as tmodel
 from repro_torch.models.convert import params_from_jax
@@ -81,6 +84,53 @@ def test_paged_plain_matches_jax(int8, ps, p, h, hkv, d):
     np.testing.assert_allclose(_np(tref.paged_attention_ref(*args, **kw)),
                                np.asarray(jref.paged_attention_ref(
                                    *jargs, **jkw)), **F32)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("form", ["one split", "three splits", "many splits",
+                                  "short row"])
+def test_paged_split_plain_matches_jax(int8, form):
+    """The kernel's split-pages algorithm (live cells cut on tile
+    boundaries, 32-cell tiles scored whole, int8 scales folded into the
+    score and into P, splits merged in index order) against the
+    reference's oracle and its Pallas kernel in interpret mode.  Every case
+    has a wrapped row (2) and rows sharing prefix pages (0, 1); ``short
+    row`` leaves row 3 a single live cell, so all its splits but one are
+    empty."""
+    args, kw = _paged_case("cpu", torch.float32, b=4, ps=8, p=12, h=14,
+                           hkv=2, d=32, int8=int8, seed=5)
+    q, k, v, table, pos = args
+    if form == "short row":
+        pos[3] = 0
+    assert int(pos[2]) >= table.shape[1] * k.shape[1]
+    assert bool((table[0, :4] == table[1, :4]).all())
+    n = {"one split": 1, "three splits": 3, "many splits": 40,
+         "short row": 8}[form]
+    got = _np(paged_attention_split_plain(*args, n, **kw))
+    jargs = [_np(a) for a in args]
+    jkw = {name: _np(t) for name, t in kw.items()}
+    np.testing.assert_allclose(got, np.asarray(
+        jref.paged_attention_ref(*jargs, **jkw)), **F32)
+    np.testing.assert_allclose(got, np.asarray(paged_attention_pallas(
+        *jargs, **jkw, interpret=True)), **F32)
+
+
+@pytest.mark.parametrize("total", [16, 96, 2048])
+@pytest.mark.parametrize("n_splits", [1, 3, 32, 200])
+def test_paged_split_cells_cover_each_live_cell_once(total, n_splits):
+    """Each live cell of every row (position 0, mid-table, the last cell,
+    wrapped) falls in exactly one split, on tile boundaries, and no split
+    reaches a dead cell."""
+    for pos in sorted({0, 1, 31, 32, total // 2, total - 1, total,
+                       total + 37}):
+        live = total if pos >= total else pos + 1
+        owner = np.zeros(total, int)
+        for i in range(n_splits):
+            lo, hi = split_cells(pos, total, i, n_splits)
+            assert lo % TILE_KEYS == 0 and lo <= hi <= live
+            assert hi == lo or hi == live or hi % TILE_KEYS == 0
+            owner[lo:hi] += 1
+        assert (owner[:live] == 1).all() and not owner[live:].any()
 
 
 def test_quantize_kv_int8_bit_identical():
