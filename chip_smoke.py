@@ -27,8 +27,13 @@ Phases (any failure exits non-zero and prints no result line):
    a ring with holes, S 1, S 777, G 1 and 16);
    ``quant_matmul`` at that model's MLP shapes (M 8 and 512), M 12 and
    ragged ones, and with 1, 3 and the planned splits of K, relative to the
-   largest output (bf16 1e-2, float32 1e-4);
-3. full-width model — ``qwen2-0.5b`` in float32 with seeded random weights:
+   largest output (bf16 1e-2, float32 1e-4); the attention shapes of
+   ``deepseek-moe-16b`` (H 16, Hkv 16: G 1), ``glm4-9b`` (G 16) and
+   ``yi-34b`` (G 7), all at D 128, for all three attention kernels (flash
+   in the engine form over a 2048 ring, decode at S 2048, paged at 16-token
+   pages, 128 a row, fp and int8), and flash with a 256 window over a
+   256-slot ring with rows past the window's reach (no live key);
+3. full-width models — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (max |Δlogit| <= 1e-3, argmax
    agreement), over the dense ring and over a paged arena, and the paged
@@ -37,7 +42,16 @@ Phases (any failure exits non-zero and prints no result line):
    1 gated cross-attn, gates set to 0.5) in float32 with images: prefill,
    the same prefill with the cross KV injected (content-cache hit), 8
    decode steps, kernels against plain (the same limits), fresh against
-   cross-cached logits, and a different image moving the logits;
+   cross-cached logits, and a different image moving the logits; then, each
+   in float32 at published widths and freed before the next, like
+   ``qwen2-0.5b`` (dense and paged, kernels vs plain): ``deepseek-moe-16b``
+   at 3 layers (the dense layer 0 and 2 stacked MoE layers, capacity
+   factor 1.25, one row a repeated phrase), printing the (token, expert)
+   pairs capacity dropped in prefill (counted here beside the model call;
+   a prefill that drops none fails the run); ``codeqwen1.5-7b``,
+   ``glm4-9b`` and ``yi-34b`` at 2 layers; ``glm4-9b`` again with a 256
+   window over a 256-slot ring, a 600-token prompt in 256-token resume
+   chunks;
 4. serving — ``qwen2-0.5b`` in bf16 behind EngineClient + OpenAIServer +
    ApiServer on 127.0.0.1, with the prefix cache on: 12 concurrent chat /
    completion requests (one streamed, one chunked over 512 prompt tokens,
@@ -55,9 +69,19 @@ Phases (any failure exits non-zero and prints no result line):
    on the dense ring (4d) and on the paged arena (4e, cross-KV page leases,
    tokens equal to 4d's); 4f — ``ops.quant_matmul``, the int8 kernel's
    entry point (no model calls it), as a SwiGLU MLP of that model's widths
-   on int8 weights at decode and prefill rows.  Every finish_reason and
-   usage is checked, and each round's launch counters are zeroed just
-   before it and read just after;
+   on int8 weights at decode and prefill rows; 4g — ``deepseek-moe-16b`` at
+   full depth (28 layers) in bf16, the text mix on the dense ring and the
+   text mix plus the shared-prompt chats on paged fp pages (prefix-cache
+   hits, copy-on-write, no full copy, no page pinned), the decode kernel
+   (dense) or the paged kernel (paged) 28 times per decode step and flash
+   28 times per prefill wave, the other decode kernel never; tokens/s,
+   peak memory, the device busy share of a profiled dense round (reading
+   a profile of ~100k kernels takes about a minute, so the paged round is
+   not profiled), and, from the engine alone serving 6 of the prompts with
+   the host's operators traced, the shares of device time of the expert
+   products and of the dispatch's index, sort and scatter kernels.  Every
+   finish_reason and usage is checked, and each round's launch counters
+   are zeroed just before it and read just after;
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -65,8 +89,9 @@ Phases (any failure exits non-zero and prints no result line):
    with CUDA events over rotating input copies larger than the L2 cache,
    beside the least time the card could take (``bound_ms``) and the
    kernel/SDPA ratio from the same call, each also device alone (the host's
-   launch work hidden); decode's and paged's time against their number
-   of splits.
+   launch work hidden), and again at ``deepseek-moe-16b``'s shapes (the
+   ``moe_*`` columns); decode's and paged's time against their number of
+   splits.
 
 The last lines are one ``serve`` JSON line, one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
@@ -101,6 +126,8 @@ REPLACES = {
 # quant_matmul outputs grow with K: held relative to the largest output
 QMM_REL = {"bfloat16": 1e-2, "float32": 1e-4}
 VISION = "llama-3.2-vision-90b"
+MOE = "deepseek-moe-16b"
+DENSE_FAMILY = ("codeqwen1.5-7b", "glm4-9b", "yi-34b")
 CROSS = dict(b=8, ctx=2304, h=64, hkv=8, d=128)      # 576 tokens x 4 images
 MLP_SHAPES = ((8192, 28672), (28672, 8192))           # (K, N) of up / down
 GATE = 0.5
@@ -108,7 +135,14 @@ KERNEL_NAMES = tuple(REPLACES)
 L2_BYTES = 50 * 2**20
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase header (``== ...``) also gets the seconds
+    since the script started."""
+    if msg.startswith("== "):
+        msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -235,11 +269,18 @@ DECODE_FORMS = (("B8 S2048 G7", {}),
                 ("S1", dict(b=4, s=1)),
                 ("S777 G8 D32", dict(b=5, s=777, h=16, hkv=2, d=32)),
                 ("G1", dict(b=4, s=600, h=8, hkv=8)),
-                ("G16 D128", dict(b=2, s=900, h=32, hkv=2, d=128)))
+                ("G16 D128", dict(b=2, s=900, h=32, hkv=2, d=128)),
+                ("deepseek G1 D128", dict(h=16, hkv=16, d=128)),
+                ("glm4 G16 D128", dict(h=32, hkv=2, d=128)),
+                ("yi G7 D128", dict(h=56, hkv=8, d=128)))
 
 
 FLASH_FORMS = ("engine", "causal_offset", "window", "ragged", "cross",
-               "g7_ragged_tiles", "window_qpos", "d32", "d128", "last_tile")
+               "g7_ragged_tiles", "window_qpos", "d32", "d128", "last_tile",
+               "deepseek_engine", "glm4_engine", "yi_engine",
+               "glm4_window_ring")
+# (H, Hkv) at D 128 of the MoE model and the dense family's serving paths
+FAMILY_HEADS = {"deepseek": (16, 16), "glm4": (32, 2), "yi": (56, 8)}
 
 
 def flash_case(torch, dtype, form, *, seed=0):
@@ -252,8 +293,16 @@ def flash_case(torch, dtype, form, *, seed=0):
     100 not a multiple of the 18 tokens a packed tile holds),
     ``window_qpos`` (a window with per-row q_positions), ``d32`` /
     ``d128`` (the other head dims, D 128 at G 8), ``last_tile``
-    (non-causal, rows whose only live keys lie in the last KV tile)."""
-    b, sq, skv, h, hkv, d = {"engine": (8, 512, 2048, 14, 2, 64),
+    (non-causal, rows whose only live keys lie in the last KV tile).
+    ``<model>_engine``: the engine form at ``FAMILY_HEADS`` (G 1, 16 and 7
+    at D 128); ``glm4_window_ring``: a 256 window over a 256-slot ring, rows
+    resuming at 0, 256 and 512 (the last past the window's reach: no live
+    key, the mean of V)."""
+    family = {f"{m}_engine": (8, 512, 2048, *hh, 128)
+              for m, hh in FAMILY_HEADS.items()}
+    family["glm4_window_ring"] = (3, 256, 256, *FAMILY_HEADS["glm4"], 128)
+    b, sq, skv, h, hkv, d = {**family,
+                             "engine": (8, 512, 2048, 14, 2, 64),
                              "causal_offset": (2, 512, 2048, 14, 2, 64),
                              "window": (2, 512, 512, 14, 2, 64),
                              "ragged": (3, 200, 1000, 14, 2, 64),
@@ -272,7 +321,11 @@ def flash_case(torch, dtype, form, *, seed=0):
     kw = {"causal": form not in ("cross", "last_tile")}
     if form == "cross":
         kw["kv_valid"] = cross_valid(torch, g, b, skv)
-    elif form in ("engine", "window_qpos"):
+    elif form == "glm4_window_ring":
+        kw["q_positions"] = (torch.tensor([[0], [256], [512]], device="cuda")
+                             + torch.arange(sq, device="cuda")).int()
+        kw["window"] = 256
+    elif form in ("engine", "window_qpos") or form.endswith("_engine"):
         start = torch.randint(0, skv - sq + 1, (b,), generator=g,
                               device="cuda")
         kw["q_positions"] = (start[:, None] + torch.arange(
@@ -374,7 +427,10 @@ PAGED_FORMS = (("B8 ps16 P128", {}),
                ("G16 D128", dict(b=3, p=20, h=32, hkv=2, d=128)),
                ("G1 D128", dict(b=3, p=20, h=16, hkv=16, d=128)),
                ("stacked arena", dict(b=4, stacked=3)),
-               ("4e H64 Hkv8 D128", dict(h=64, hkv=8, d=128)))
+               ("4e H64 Hkv8 D128", dict(h=64, hkv=8, d=128)),
+               ("deepseek G1 D128", dict(h=16, hkv=16, d=128)),
+               ("glm4 G16 D128", dict(h=32, hkv=2, d=128)),
+               ("yi G7 D128", dict(h=56, hkv=8, d=128)))
 
 
 def max_err(torch, a, b) -> float:
@@ -486,34 +542,92 @@ def plain_attention(ops):
          ops.paged_attention) = saved
 
 
-def check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
-                slice_cache_row):
-    cfg = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
-    model = Model(cfg)
+def phrase_prompt(torch, g, vocab, s, period=6):
+    """``s`` tokens repeating one ``period``-token phrase (a templated
+    prompt): its tokens crowd the same experts of an MoE layer."""
+    phrase = torch.randint(0, vocab, (period,), generator=g, device="cuda")
+    return phrase.repeat(-(-s // period))[:s]
+
+
+def count_drops(torch, layers, p, x, cfg, seq_valid) -> int:
+    """Pairs of live tokens that capacity drops in one MoE call, by the
+    routing arithmetic recomputed here: ``cap`` over the call's ``B * S``,
+    softmax top-k over the float32 router, and each expert keeping its
+    first ``cap`` live pairs, so it drops ``max(0, pairs - cap)``."""
+    m = cfg.moe
+    t = x.shape[0] * x.shape[1]
+    cap = max(8, math.ceil(t * m.experts_per_token / m.num_experts
+                           * m.capacity_factor))
+    flat = layers.rmsnorm(x, p["ln"], cfg.rms_eps).reshape(t, -1)
+    idx = torch.topk(torch.softmax(flat.float() @ p["router"], -1),
+                     m.experts_per_token).indices
+    live = idx if seq_valid is None else idx[seq_valid.reshape(t)]
+    load = torch.bincount(live.reshape(-1), minlength=m.num_experts)
+    return int((load - cap).clamp_min(0).sum())
+
+
+@contextmanager
+def counting_drops(torch, layers, counter: list):
+    """Wrap ``layers.apply_moe``: each call's dropped pairs
+    (:func:`count_drops`, on the call's own inputs) go to ``counter``."""
+    inner = layers.apply_moe
+
+    def counted(p, x, cfg, seq_valid=None):
+        counter.append(count_drops(torch, layers, p, x, cfg, seq_valid))
+        return inner(p, x, cfg, seq_valid=seq_valid)
+
+    layers.apply_moe = counted
+    try:
+        yield counter
+    finally:
+        layers.apply_moe = inner
+
+
+def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
+                chunk=None, window=None, phrase_row=False):
+    """``cfg`` in float32 with seeded random weights: a resume-prefill of 2
+    rows of ``lengths`` tokens (in ``chunk``-token resume chunks, or one
+    call), then 8 decode steps, through the kernels and through the plain
+    versions, over the dense ring and over a 16-token-page arena; the paged
+    run also against the dense one through the kernels.  ``phrase_row``:
+    row 1 repeats one phrase (:func:`phrase_prompt`).  For an MoE model,
+    returns the pairs that capacity dropped in the kernels' dense prefill
+    (:func:`count_drops`)."""
+    torch_ops, layers = ns.ops, ns.layers
+    model = ns.Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    b, s, cache_len = 2, 300, 512
+    b, s = len(lengths), max(lengths)
+    chunk = chunk or s
+    padded = -(-s // chunk) * chunk
     g = torch.Generator(device="cuda").manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+    tokens = torch.randint(0, cfg.vocab_size, (b, padded), generator=g,
                            device="cuda")
-    lengths = torch.tensor([s, 257], device="cuda")
-    seq_valid = torch.arange(s, device="cuda")[None] < lengths[:, None]
-    positions = torch.arange(s, device="cuda")[None].expand(b, s)
+    if phrase_row:
+        tokens[1] = phrase_prompt(torch, g, cfg.vocab_size, padded)
+    lengths = torch.tensor(lengths, device="cuda")
+    if int(lengths.min()) <= padded - chunk:
+        raise ValueError("every row must end in the last prefill chunk")
 
     def run(feed, paged):
         """Prefill, then 8 decode steps fed ``feed`` (or, with None, the
         path's own greedy tokens, which are returned): over the dense ring,
         or (``paged``) with the prefilled rows committed to a 16-token-page
         arena and every decode step read through its page table."""
-        cache = init_cache(cfg, b, cache_len, device="cuda")
-        out = model.apply(params, tokens, mode="prefill", positions=positions,
-                          cache=cache, resume=True, seq_valid=seq_valid)
-        logits = [out.logits[torch.arange(b, device="cuda"), lengths - 1]]
+        cache = ns.init_cache(cfg, b, cache_len, device="cuda")
+        for c0 in range(0, padded, chunk):
+            pos = (c0 + torch.arange(chunk, device="cuda"))[None].expand(
+                b, chunk)
+            out = model.apply(params, tokens[:, c0:c0 + chunk], mode="prefill",
+                              positions=pos, cache=cache, resume=True,
+                              seq_valid=pos < lengths[:, None], window=window,
+                              last_idx=(lengths - 1 - c0).clamp(0, chunk - 1))
+        logits = [out.logits[:, 0]]
         kw = {}
         if paged:
-            pool = PagedKVPool(cfg, b, cache_len, page_size=16,
-                               dtype=torch.float32, device="cuda")
+            pool = ns.PagedKVPool(cfg, b, cache_len, page_size=16,
+                                  dtype=torch.float32, device="cuda")
             slots = [pool.allocate() for _ in range(b)]
-            pool.insert_many(slots, [slice_cache_row(cache, i)
+            pool.insert_many(slots, [ns.slice_cache_row(cache, i)
                                      for i in range(b)],
                              consumed=lengths.tolist())
             cache = pool.cache
@@ -528,17 +642,24 @@ def check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
                 assert pool.ensure_decode_capacity(
                     dict(zip(slots, pos.tolist())), 1)
             out = model.apply(params, tok[:, None], mode="decode",
-                              positions=pos[:, None], cache=cache, **kw)
+                              positions=pos[:, None], cache=cache,
+                              window=window, **kw)
             logits.append(out.logits[:, 0])
             pos = pos + 1
         return torch.stack(logits), toks
 
-    log(f"  qwen2-0.5b float32, {cfg.num_layers} layers: prefill {b}x{s} + "
-        f"8 decode steps")
+    kinds = cfg.layer_kinds()
+    log(f"  {cfg.name} float32, {cfg.num_layers} layers "
+        f"{'+'.join(kinds)} (published widths): prefill {b}x"
+        f"{lengths.tolist()}{f' in {chunk}-token chunks' if chunk < s else ''}"
+        f"{f', window {window}' if window else ''} over a {cache_len}-slot "
+        f"ring + 8 decode steps")
+    drops = []
     with torch.no_grad():
-        kern, fed = run(None, paged=False)
+        with counting_drops(torch, layers, drops):
+            kern, fed = run(None, paged=False)
         paged, _ = run(fed, paged=True)
-        with plain_attention(ops):
+        with plain_attention(torch_ops):
             plain, _ = run(fed, paged=False)
             paged_plain, _ = run(fed, paged=True)
     torch.cuda.synchronize()
@@ -546,7 +667,10 @@ def check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
     compare(torch, "paged, kernels vs plain", paged, paged_plain)
     compare(torch, "paged vs dense, both through the kernels", paged, kern)
     del params
+    gc.collect()
     torch.cuda.empty_cache()
+    n_prefill = len(range(0, padded, chunk)) * kinds.count("moe")
+    return sum(drops[:n_prefill]) if "moe" in kinds else None
 
 
 def vision_config(get_config, layers, dtype):
@@ -722,15 +846,19 @@ def serve_requests():
     return out
 
 
+def prompt_text(kind, body) -> str:
+    """The text the server tokenizes for one body (the chat template of
+    ``serving/api.py``)."""
+    if kind == "chat":
+        return "".join(f"<|{m['role']}|>{m['content']}"
+                       for m in body["messages"]) + "<|assistant|>"
+    return body["prompt"]
+
+
 def check_response(kind, body, resp, tok) -> int:
     """Check finish_reason and usage of one response; returns its
     completion tokens."""
-    if kind == "chat":
-        prompt = "".join(f"<|{m['role']}|>{m['content']}"
-                         for m in body["messages"]) + "<|assistant|>"
-    else:
-        prompt = body["prompt"]
-    want_prompt = len(tok.encode(prompt))
+    want_prompt = len(tok.encode(prompt_text(kind, body)))
     if body.get("stream"):
         finishes = [c["choices"][0]["finish_reason"] for c in resp
                     if c["choices"] and c["choices"][0]["finish_reason"]]
@@ -772,18 +900,25 @@ def shared_prompt_chats():
 
 def check_serving(torch, get_config, InferenceEngine, EngineClient,
                   OpenAIServer, ApiServer, wrappers, *, bodies, rounds=2,
-                  profile=True, **engine_kw):
-    """Serve ``bodies`` ``rounds`` times (the first takes the first-call
-    costs; the last is the counted one) and once more under the profiler.
-    ``wrappers`` maps each kernel's name to its CUDA wrapper, whose
-    ``launches`` count is zeroed just before the counted round and read
-    just after.  Returns (launches, serve record, /stats after the counted
-    round, engine layers)."""
-    engine = InferenceEngine(get_config("qwen2-0.5b"), device="cuda",
+                  profile=True, arch="qwen2-0.5b", profile_ops=False,
+                  params=None, **engine_kw):
+    """Serve ``arch`` (bf16, published widths, seeded random weights) and
+    ``bodies`` ``rounds`` times (the first takes the first-call costs; the
+    last is the counted one) and once more under the profiler
+    (``profile_ops``: then the engine alone once more, see
+    :func:`profile_moe_ops`).  ``wrappers`` maps each kernel's name to its
+    CUDA wrapper, whose ``launches`` count is zeroed just before the
+    counted round and read just after.  ``params``: the model's weights,
+    made by the engine from its seed when None.  Returns (launches, serve
+    record, /stats after the counted round, engine layers)."""
+    t0 = time.perf_counter()
+    engine = InferenceEngine(get_config(arch), params, device="cuda",
                              max_batch=8, cache_len=2048, prefill_chunk=512,
                              seed=0, **engine_kw)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     client = EngineClient(engine)
-    server = ApiServer(OpenAIServer(client, "qwen2-0.5b"), host="127.0.0.1",
+    server = ApiServer(OpenAIServer(client, arch), host="127.0.0.1",
                        port=0)
     server.start()
     tok = engine.tokenizer
@@ -834,17 +969,22 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
     finally:
         server.stop()
         client.stop()
+    if profile_ops:
+        prof["engine_alone"] = profile_moe_ops(torch, engine, bodies[:6])
     stats = {k: after[k] - before[k] for k in
              ("retired", "aborted", "prefill_waves", "device_steps")}
     if stats["retired"] != len(bodies) or stats["aborted"]:
         raise AssertionError(f"engine counters disagree: {stats}")
     layers = engine.cfg.num_layers
     log(f"  {len(bodies)} requests finished with correct usage: {done} "
-        f"completion tokens in {wall:.3f} s (first round {cold_wall} s), "
+        f"completion tokens in {wall:.3f} s ({done / wall:.1f} tokens/s, "
+        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; first "
+        f"round {cold_wall} s), "
         f"{stats['prefill_waves']} prefill waves, "
         f"{stats['device_steps']} decode steps, launches {launches} "
         f"({layers} per decode step / prefill wave)")
-    serve = {"requests": len(bodies), "completion_tokens": done,
+    serve = {"arch": arch, "layers": layers, "init_s": init_s,
+             "requests": len(bodies), "completion_tokens": done,
              "wall_s": wall, "tokens_per_s": done / wall,
              "first_round_wall_s": cold_wall,
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -1185,6 +1325,56 @@ def check_quant_entry(torch, ops, qm, get_config):
     return launches
 
 
+# the host operators whose device time makes an MoE layer's parts: the
+# expert products (torch.bmm, which nothing else on the serving path
+# calls) and the dispatch and combine (top-k, one-hot, cumsum, and the
+# indexed reads and writes, which the KV cells' reads and writes share)
+MOE_OPS = {"expert_bmm": ("aten::bmm",),
+           "index_sort_scatter": ("aten::topk", "aten::one_hot",
+                                  "aten::cumsum", "aten::index",
+                                  "aten::index_put_")}
+
+
+def profile_moe_ops(torch, engine, bodies) -> dict:
+    """The engine alone, in this thread, serving the prompts of ``bodies``
+    greedily (their ``max_tokens``) under ``torch.profiler`` with the
+    host's operators traced: the device time launched under each of
+    ``MOE_OPS`` as a share of all device time.  (The profiler traces the
+    host operators of its own thread, and the served rounds run the
+    engine on the client's loop thread.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.request import Request, SamplingParams
+    tok = engine.tokenizer
+    reqs = [Request(prompt_tokens=tok.encode(prompt_text(kind, body)),
+                    sampling=SamplingParams(max_tokens=body["max_tokens"]))
+            for kind, body in bodies]
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.generate(reqs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    device_us, op_us = 0.0, {k: 0.0 for k in MOE_OPS}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            device_us += ev.self_device_time_total
+        part = next((k for k, names in MOE_OPS.items() if ev.key in names),
+                    None)
+        if part is not None:
+            op_us[part] += ev.device_time_total
+    if device_us <= 0 or op_us["expert_bmm"] <= 0:
+        raise RuntimeError(f"the engine-alone profile recorded {device_us} "
+                           f"us of device time, {op_us} under MOE_OPS")
+    out = {"wall_s": wall, "device_busy_share": device_us / 1e6 / wall,
+           "completion_tokens": sum(len(r.output_tokens) for r in reqs),
+           **{f"{k}_share_of_device": v / device_us
+              for k, v in op_us.items()}}
+    log("  engine alone, host operators traced: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
 def profile_round(torch, send_all):
     """One more round of the same mix under ``torch.profiler`` (device
     activity only), its responses checked like the other rounds': device
@@ -1290,17 +1480,29 @@ def time_kernels(torch, dec, fla, pag, qm):
            "paged_attention": time_paged(torch, pag, F)}
     for name, extra in time_cross(torch, dec, fla, F).items():
         out[name].update(extra)
+    # the MoE model's attention (H 16, Hkv 16, D 128) as moe_* columns
+    h, hkv = FAMILY_HEADS["deepseek"]
+    moe = {"decode_attention": time_decode(torch, dec, F, h=h, hkv=hkv,
+                                           d=128),
+           "flash_attention": time_flash(torch, fla, F,
+                                         form="deepseek_engine"),
+           "paged_attention": time_paged(torch, pag, F, extras=False, h=h,
+                                         hkv=hkv, d=128)}
+    for name, t in moe.items():
+        out[name].update({f"moe_{k}": v for k, v in t.items()})
     out["quant_matmul"] = time_qmm(torch, qm)
     return out
 
 
-def time_decode(torch, dec, F):
-    """Decode at the text serving shape (see :func:`time_kernels`)."""
+def time_decode(torch, dec, F, **shape):
+    """Decode at a serving shape, the text one unless ``shape`` gives
+    :func:`decode_case` others (see :func:`time_kernels`)."""
     dtype = torch.bfloat16
     # decode: q [8,14,64], K/V [8,2048,2,64], ragged lengths
-    (q, k, v, _), _ = decode_case(torch, dtype)
+    (q, k, v, _), _ = decode_case(torch, dtype, **shape)
     n_sets = max(2, 2 * L2_BYTES // nbytes(k, v) + 1)
-    sets = [decode_case(torch, dtype, seed=i)[0] for i in range(n_sets)]
+    sets = [decode_case(torch, dtype, seed=i, **shape)[0]
+            for i in range(n_sets)]
     b, h, d = q.shape
     hkv = k.shape[2]
     byts = flops = 0
@@ -1327,13 +1529,14 @@ def time_decode(torch, dec, F):
     }
 
 
-def time_flash(torch, fla, F):
-    """Flash at the text resume-prefill shape (see :func:`time_kernels`)."""
+def time_flash(torch, fla, F, form="engine"):
+    """Flash at a resume-prefill shape, the text one unless ``form`` names
+    another engine form of :func:`flash_case` (see :func:`time_kernels`)."""
     dtype = torch.bfloat16
     # flash, engine form: 8 rows x 512-token bucket over a 2048 cache
-    (q, k, v), _ = flash_case(torch, dtype, "engine")
+    (q, k, v), _ = flash_case(torch, dtype, form)
     n_sets = max(2, 2 * L2_BYTES // nbytes(q, k, v) + 1)
-    sets = [flash_case(torch, dtype, "engine", seed=i) for i in range(n_sets)]
+    sets = [flash_case(torch, dtype, form, seed=i) for i in range(n_sets)]
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     byts = flops = 0
@@ -1532,11 +1735,12 @@ def time_qmm(torch, qm):
     return main
 
 
-def time_paged(torch, pag, F):
-    """The paged kernel at the serving arena (bf16 pages; int8 pages as an
-    extra column).  ``bound_ms`` counts each row's live cells only (K and V
-    rows, plus their 4-byte scales for int8), the live page-table entries,
-    positions, q and the output.  No PyTorch call takes a page table, so
+def time_paged(torch, pag, F, extras=True, **shape):
+    """The paged kernel at the serving arena (bf16 pages; with ``extras``,
+    int8 pages and the split sweep as extra columns), the text shape unless
+    ``shape`` gives :func:`paged_case` others.  ``bound_ms`` counts each
+    row's live cells only (K and V rows, plus their 4-byte scales for
+    int8), the live page-table entries, positions, q and the output.  No PyTorch call takes a page table, so
     ``library_ms`` is null; SDPA over a dense copy gathered beforehand (the
     gather untimed) is recorded beside it, labelled as such."""
     def live_cells(table, pos, ps):
@@ -1544,10 +1748,10 @@ def time_paged(torch, pag, F):
         return [total if int(x) >= total else int(x) + 1 for x in pos]
 
     def sets_of(int8):
-        args, kw = paged_case(torch, torch.bfloat16, int8=int8)
+        args, kw = paged_case(torch, torch.bfloat16, int8=int8, **shape)
         per = nbytes(args[1], args[2], *kw.values())
         n_sets = max(2, 2 * L2_BYTES // per + 1)
-        return [paged_case(torch, torch.bfloat16, int8=int8, seed=i)
+        return [paged_case(torch, torch.bfloat16, int8=int8, seed=i, **shape)
                 for i in range(n_sets)]
 
     def bound_of(sets):
@@ -1591,14 +1795,16 @@ def time_paged(torch, pag, F):
         **bound_of(sets),
     }
     del sdpa
-    int8_sets = sets_of(True)
-    int8_kern = lambda i: pag.paged_attention_cuda(  # noqa: E731
-        *int8_sets[i][0], **int8_sets[i][1])
-    out["int8_pages_ms"] = time_ms(torch, int8_kern, len(int8_sets))
-    out["int8_pages_device_ms"] = device_ms(torch, int8_kern, len(int8_sets))
-    out["int8_pages_bound_ms"] = bound_of(int8_sets)["bound_ms"]
-    del int8_sets
-    out["split_sweep"] = paged_split_sweep(torch, pag, sets)
+    if extras:
+        int8_sets = sets_of(True)
+        int8_kern = lambda i: pag.paged_attention_cuda(  # noqa: E731
+            *int8_sets[i][0], **int8_sets[i][1])
+        out["int8_pages_ms"] = time_ms(torch, int8_kern, len(int8_sets))
+        out["int8_pages_device_ms"] = device_ms(torch, int8_kern,
+                                                len(int8_sets))
+        out["int8_pages_bound_ms"] = bound_of(int8_sets)["bound_ms"]
+        del int8_sets
+        out["split_sweep"] = paged_split_sweep(torch, pag, sets)
     q, k = sets[0][0][0], sets[0][0][1]
     out["shape"] = (f"B{q.shape[0]} ps{k.shape[1]} P{sets[0][0][3].shape[1]} "
                     f"N{k.shape[0]} H{q.shape[1]} Hkv{k.shape[2]} "
@@ -1625,7 +1831,8 @@ def main() -> int:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.core.kv_cache import slice_cache_row
     from repro_torch.core.paged_kv import PagedKVPool
-    from repro_torch.models.model import Model, init_cache
+    from repro_torch.models import layers
+    from repro_torch.models.model import Model, init_cache, tree_leaves
     from repro_torch.serving.api import OpenAIServer
     from repro_torch.serving.client import EngineClient
     from repro_torch.serving import media
@@ -1657,9 +1864,26 @@ def main() -> int:
     errs = check_kernels(torch, dec, fla, pag, qm)
 
     log("== 3. full-width models, float32, kernels vs plain versions")
-    check_model(torch, ops, get_config, Model, init_cache, PagedKVPool,
-                slice_cache_row)
+    ns3 = types.SimpleNamespace(ops=ops, layers=layers, Model=Model,
+                                init_cache=init_cache, PagedKVPool=PagedKVPool,
+                                slice_cache_row=slice_cache_row)
+
+    def f32(name, **kw):
+        return dataclasses.replace(get_config(name), dtype="float32", **kw)
+
+    check_model(torch, ns3, f32("qwen2-0.5b"))
     check_vision_model(torch, ops, get_config, Model, init_cache)
+    moe3 = f32(MOE, num_layers=3)
+    drops = check_model(torch, ns3, moe3, phrase_row=True)
+    log(f"  {MOE} prefill: capacity factor {moe3.moe.capacity_factor} "
+        f"dropped {drops} (token, expert) pairs over its 2 MoE layers")
+    if not drops:
+        raise AssertionError("the MoE prefill dropped no pair: the capacity "
+                             "path did not run")
+    for name in DENSE_FAMILY:
+        check_model(torch, ns3, f32(name, num_layers=2))
+    check_model(torch, ns3, f32("glm4-9b", num_layers=2), lengths=(600, 517),
+                cache_len=256, chunk=256, window=256)
 
     wrappers = {"decode_attention": dec.decode_attention_cuda,
                 "flash_attention": fla.flash_attention_cuda,
@@ -1706,6 +1930,34 @@ def main() -> int:
         torch, ns, wrappers, layout="paged", want_tokens=cold_tokens)
     log("== 4f. ops.quant_matmul (the int8 kernel's entry point)")
     qmm_launches = check_quant_entry(torch, ops, qm, get_config)
+    log(f"== 4g. serving {MOE} (28 layers, bf16) over HTTP, dense KV, then "
+        "paged KV (fp pages)")
+    t0 = time.perf_counter()
+    moe_params = Model(get_config(MOE)).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    moe_init_s = time.perf_counter() - t0
+    log(f"  {MOE}: {sum(t.numel() for t in tree_leaves(moe_params)) / 1e9:.2f}"
+        f" B parameters drawn in {moe_init_s:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    moe_dense_launches, moe_dense, _, moe_layers = check_serving(
+        *serving, bodies=serve_requests(), arch=MOE, params=moe_params,
+        profile_ops=True)
+    require_launches(moe_dense_launches, moe_dense, moe_layers,
+                     decode_kernel="decode_attention",
+                     unused="paged_attention")
+    moe_paged_launches, moe_paged, moe_stats, _ = check_serving(
+        *serving, bodies=serve_requests() + shared_prompt_chats(), arch=MOE,
+        params=moe_params, profile=False, kv_layout="paged", kv_page_size=16)
+    require_launches(moe_paged_launches, moe_paged, moe_layers,
+                     decode_kernel="paged_attention",
+                     unused="decode_attention")
+    check_paged_serving(moe_stats)
+    moe_paged["kv_pages"], moe_paged["prefix_cache"] = (
+        moe_stats["kv_pages"], moe_stats["prefix_cache"])
+    del moe_params
+    gc.collect()
+    torch.cuda.empty_cache()
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
                 "flash_attention": paged_launches["flash_attention"],
@@ -1741,11 +1993,27 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tensor_core_instructions": mma.get(name),
             **{k: v for k, v in t.items()
-               if k.startswith(("sdpa_on", "int8_pages", "cross_", "shapes",
+               if k.startswith(("sdpa_on", "int8_pages", "cross_", "moe_",
+                                "shapes",
                                 "library", "split_sweep", "device_ms"))},
             **({"media_round_launches": {"dense": media_launches[name],
-                                         "paged": media_paged_launches[name]}}
+                                         "paged": media_paged_launches[name]},
+                "moe_round_launches": {"dense": moe_dense_launches[name],
+                                       "paged": moe_paged_launches[name]}}
                if name != "quant_matmul" else {})})
+        if "moe_ms" in t:
+            lib = (t["moe_library_ms"]
+                   or t["moe_sdpa_on_gathered_dense_copy_ms"])
+            lib_dev = t.get("moe_library_device_ms",
+                            t.get("moe_sdpa_on_gathered_dense_copy_device_ms"))
+            log(f"  {name:17s} {MOE} {t['moe_shape']}: kernel "
+                f"{t['moe_ms']:.4f} ms, plain {t['moe_plain_ms']:.4f} ms, "
+                f"SDPA{'' if t['moe_library_ms'] else ' on a gathered copy'} "
+                f"{lib:.4f} ms (kernel/SDPA {t['moe_ms'] / lib:.3f}), bound "
+                f"{t['moe_bound_ms']:.4f} ms ({t['moe_bound_by']}); device "
+                f"alone: kernel {t['moe_device_ms']:.4f} ms, SDPA "
+                f"{lib_dev:.4f} ms (kernel/SDPA "
+                f"{t['moe_device_ms'] / lib_dev:.3f})")
         if "cross_ms" in t:
             log(f"  {name:17s} cross {t['cross_shape']}: kernel "
                 f"{t['cross_ms']:.4f} ms, plain {t['cross_plain_ms']:.4f} "
@@ -1757,6 +2025,8 @@ def main() -> int:
                 f"{t['cross_device_ms'] / t['cross_library_device_ms']:.3f})")
     serve = {"dense": dense, "paged": paged, "paged_int8": int8_round,
              "media_dense": media_dense, "media_paged": media_paged,
+             "moe_dense": moe_dense, "moe_paged": moe_paged,
+             "moe_init_s": moe_init_s,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": kernels, "card": card}))

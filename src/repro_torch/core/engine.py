@@ -1,10 +1,10 @@
 """The inference engine of the port: continuous batching over a dense ring
 KV cache or a paged arena with copy-on-write prefix sharing, with a
 device-resident K-step decode block, a chunked, batched prefill pipeline,
-the text prefix cache (paper Alg.2) and, for vision models, batched encode
-waves with in-flight dedup and the content cache (paper Alg.3) — the
-reference package's ``core/engine.py`` less what the port queue still
-holds, in eager PyTorch.
+the text prefix cache (paper Alg.2) for dense and MoE models and, for
+vision models, batched encode waves with in-flight dedup and the content
+cache (paper Alg.3) — the reference package's ``core/engine.py`` less what
+the port queue still holds, in eager PyTorch.
 
 Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 

@@ -9,8 +9,9 @@
 // kpos is live for a query at position qpos iff
 //     kpos < Skv && kv_valid[kpos] && (kpos <= qpos if causal)
 //                && (kpos > qpos - window if window > 0).
-// Masked keys contribute exactly 0.  A row with no live key at all (never
-// produced by the engine) is outside the contract; here it yields 0.
+// Masked keys contribute exactly 0.  A row with no live key at all yields 0
+// here; the wrapper (kernels/flash_attention.py) replaces it with the mean
+// of V, the reference's value (the sliding-window prefill makes such rows).
 //
 // What bounds it: at prefill widths the 4*D multiply-adds per live
 // (query, key) pair, i.e. operations, not bytes.  Two kernels, chosen by

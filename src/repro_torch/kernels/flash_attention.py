@@ -7,8 +7,12 @@ Replaces the reference's Pallas TPU kernel ``flash_attention_pallas``
 per-row ``q_positions [B, Sq]`` and per-key ``kv_valid [B, Skv]`` — so the
 engine's resume prefill runs the kernel too.  A key at cache index ``kpos``
 is live for a query at ``qpos`` iff ``kpos < Skv & kv_valid &
-(kpos <= qpos if causal) & (kpos > qpos - window if window)``.  Rows with no
-live key are outside the contract.
+(kpos <= qpos if causal) & (kpos > qpos - window if window)``.  A row with
+no live key takes the mean of V over every key, as the reference's
+``_flash_jnp`` gives it (all its scores sit at the same floor): the engine's
+sliding-window prefill makes such rows once a query passes ``Skv + window -
+2`` over the ring.  The kernel yields 0 there and :func:`flash_attention_cuda`
+puts the mean in (:func:`fill_dead_rows`).
 
 :func:`flash_attention_cuda` launches the kernel on CUDA tensors and raises
 on anything it does not take; :func:`flash_attention_plain` is the torch
@@ -77,6 +81,37 @@ def live_mask(qpos: torch.Tensor, skv: int, *, causal: bool, window: int,
     if window > 0:
         mask = mask & (kpos[None, None, :] > qpos[:, :, None] - window)
     return mask
+
+
+def dead_rows(qpos: torch.Tensor, skv: int, *, causal: bool, window: int,
+              kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, Sq] True where the query at ``qpos [B, Sq]`` has no live key
+    (:func:`live_mask` all False), counted from each row's live index range
+    ``[qpos - window + 1, qpos]`` (``[0, Skv)`` clipped) and, with
+    ``kv_valid``, its prefix sums."""
+    lo = (qpos - window + 1).clamp_min(0) if window > 0 else \
+        torch.zeros_like(qpos)
+    hi = qpos.clamp(max=skv - 1) if causal else torch.full_like(qpos, skv - 1)
+    end = (hi + 1).clamp_min(0)
+    if kv_valid is None:
+        return end - lo <= 0
+    cs = torch.nn.functional.pad(kv_valid.int().cumsum(1), (1, 0))
+    return (cs.gather(1, end.clamp(max=skv).long())
+            - cs.gather(1, lo.clamp(max=skv).long())) <= 0
+
+
+def fill_dead_rows(out: torch.Tensor, v: torch.Tensor, qpos: torch.Tensor,
+                   *, causal: bool, window: int,
+                   kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out [B, Sq, H, D]`` with each row that has no live key
+    (:func:`dead_rows`) set to the mean of its kv head's V over every key,
+    in float32 then ``out``'s dtype: what the plain version gives there."""
+    h, hkv = out.shape[2], v.shape[2]
+    dead = dead_rows(qpos, v.shape[1], causal=causal, window=window,
+                     kv_valid=kv_valid)
+    mean = v.float().mean(1).repeat_interleave(h // hkv, dim=1)     # [B,H,D]
+    return torch.where(dead[:, :, None, None], mean[:, None].to(out.dtype),
+                       out)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -185,6 +220,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         int(q_offset), *k.stride()[:3], *v.stride()[:3], stream)
     build.check(lib, code, "flash_attention")
     flash_attention_cuda.launches += 1
+    if window > 0:
+        # without a window every engine row sees a key (key 0 under causal)
+        # or an all-zero context (a text row of a vision model), where the
+        # kernel's 0 is the mean
+        qpos = q_positions if q_positions is not None else (
+            q_offset + torch.arange(sq, device=q.device))[None].expand(b, sq)
+        out = fill_dead_rows(out, v, qpos, causal=causal, window=window,
+                             kv_valid=kv_valid)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Layer library of the port: the dense-attention and vision
+"""Layer library of the port: the dense-attention, MoE and vision
 cross-attention subset of the reference's ``models/layers.py``.
 
 Pure functions over dict params.  Weights keep the reference's ``[in, out]``
@@ -14,6 +14,11 @@ leaves without transposing.  Each block runs one of the reference's modes:
                   ring cache, or (with a ``page_table``) over one layer of
                   the paged arena of :mod:`repro_torch.core.paged_kv`, fp
                   or int8.
+
+An ``moe`` layer replaces the MLP with the reference's GShard-style
+capacity routing (:func:`apply_moe`): softmax top-k over a float32 router,
+a fixed number of slots per expert, pairs past it dropped, shared experts
+beside the routed ones.
 
 A gated cross-attention layer (kind ``xattn``, the VLM image layers)
 attends to the projected image context: a fresh prefill projects it to
@@ -313,19 +318,120 @@ def apply_cross_attn(
 
 
 # --------------------------------------------------------------------------- #
+# Mixture of Experts (GShard-style capacity routing)
+# --------------------------------------------------------------------------- #
+# params kept in float32 whatever ``cfg.dtype`` (the reference's router)
+FLOAT32_PARAMS = frozenset({"router"})
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    m = cfg.moe
+    d, e = cfg.d_model, m.num_experts
+    f = m.expert_d_ff or cfg.d_ff
+    dt = dtype_of(cfg.dtype)
+    p = {
+        "ln": torch.ones((d,), dtype=dt, device=gen.device),
+        "router": _dense_init(gen, (d, e), torch.float32),
+        "we_gate": _dense_init(gen, (e, d, f), dt, fan_in=d),
+        "we_up": _dense_init(gen, (e, d, f), dt, fan_in=d),
+        "we_down": _dense_init(gen, (e, f, d), dt, fan_in=f),
+    }
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, f * m.num_shared_experts, dt)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, t: int) -> int:
+    """Slots per expert for a call of ``t`` tokens (the static ``B * S``):
+    every pair in no-drop mode (``capacity_factor <= 0``), else the
+    reference's ``max(8, ceil(t * k / e * capacity_factor))`` in Python
+    floats."""
+    m = cfg.moe
+    if m.capacity_factor <= 0:
+        return t * m.experts_per_token
+    return max(8, int(math.ceil(t * m.experts_per_token / m.num_experts
+                                * m.capacity_factor)))
+
+
+def moe_route(p: Params, flat: torch.Tensor, cfg: ModelConfig,
+              seq_valid: Optional[torch.Tensor] = None):
+    """Routing of ``flat [T, D]`` (normed tokens): softmax over the float32
+    router, top-k gates renormalised (floor 1e-9), and each (token, choice)
+    pair's slot in the ``[E * cap + 1]`` dispatch buffer — its expert times
+    ``cap`` plus its rank among the expert's earlier pairs (token-major),
+    or the trash slot ``E * cap`` when that rank reaches ``cap`` or the
+    token is padding (``seq_valid [T]`` False; padding takes no rank).
+    Returns (gates [T, k], slot [T * k], cap, aux), ``aux`` the
+    Switch-style load-balance loss from each token's first choice."""
+    m = cfg.moe
+    t = flat.shape[0]
+    e, k = m.num_experts, m.experts_per_token
+    cap = moe_capacity(cfg, t)
+    probs = torch.softmax(flat.float() @ p["router"], dim=-1)           # [T,E]
+    gates, idx = torch.topk(probs, k, dim=-1)                           # [T,k]
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    frac = F.one_hot(idx[:, 0], e).float().mean(0)
+    aux = e * torch.sum(frac * probs.mean(0)) * m.load_balance_coef
+    onehot = F.one_hot(idx, e).reshape(t * k, e)
+    keep = None
+    if seq_valid is not None:
+        keep = seq_valid.reshape(t).repeat_interleave(k)                # [T*k]
+        onehot = onehot * keep[:, None]
+    pos = torch.cumsum(onehot, dim=0) - onehot
+    my_pos = torch.sum(pos * onehot, dim=-1)                            # [T*k]
+    kept = my_pos < cap if keep is None else (my_pos < cap) & keep
+    slot = torch.where(kept, idx.reshape(t * k) * cap + my_pos, e * cap)
+    return gates, slot, cap, aux
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              seq_valid: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (x + y, aux_load_balance_loss), the reference's
+    ``apply_moe``: tokens are scattered into ``[E, cap, D]`` expert
+    buffers (dropped pairs into a trash row that never reaches an
+    expert), the experts' SwiGLU products run as batched matrix products
+    over every expert's ``cap`` rows, and each token sums its k outputs
+    times their gates in the output dtype, plus the shared experts'
+    MLP."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = m.num_experts, m.experts_per_token
+    flat = rmsnorm(x, p["ln"], cfg.rms_eps).reshape(t, d)
+    gates, slot, cap, aux = moe_route(
+        p, flat, cfg, None if seq_valid is None else seq_valid.reshape(t))
+    buf = flat.new_zeros((e * cap + 1, d))
+    buf[slot] = flat.repeat_interleave(k, dim=0)
+    hbuf = buf[:-1].reshape(e, cap, d)
+    h2 = F.silu(torch.bmm(hbuf, p["we_gate"])) * torch.bmm(hbuf, p["we_up"])
+    o = torch.bmm(h2, p["we_down"]).reshape(e * cap, d)
+    obuf = torch.cat([o, o.new_zeros((1, d))])
+    y = obuf[slot] * gates.reshape(t * k, 1).to(o.dtype)
+    y = y.reshape(t, k, d).sum(dim=1)
+    if "shared" in p:
+        y = y + apply_mlp(p["shared"], flat)
+    return x + y.reshape(b, s, d), aux
+
+
+# --------------------------------------------------------------------------- #
 # composed layers (one per ModelConfig.layer_kinds entry)
 # --------------------------------------------------------------------------- #
 def _check_kind(kind: str, cfg: ModelConfig) -> None:
     if cfg.audio is not None:
         raise not_ported("the audio encoder-decoder family",
                          "multimodal (audio)")
-    if kind in ("attn", "xattn"):
+    if kind in ("attn", "xattn", "moe"):
         return
-    item = {"moe": "MoE", "ssm": "SSM", "ssm_moe": "SSM"}.get(kind, kind)
+    item = {"ssm": "SSM", "ssm_moe": "SSM"}.get(kind, kind)
     raise not_ported(f"layer kind {kind!r}", item)
 
 
-def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
+def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, *,
+               d_ff: Optional[int] = None) -> Params:
+    """One layer's params; ``d_ff`` overrides the MLP width (an MoE model's
+    dense layers, ``models/model.py:_layer_dff``).  An ``moe`` layer's MoE
+    block takes the place of the MLP."""
     _check_kind(kind, cfg)
     dt = dtype_of(cfg.dtype)
     if kind == "xattn":
@@ -333,9 +439,11 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig) -> Params:
                      "xgate_ffn": torch.zeros((), dtype=dt, device=gen.device)}
     else:
         p = {"attn": init_attn(gen, cfg)}
-    if cfg.d_ff > 0:
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg)
+    elif cfg.d_ff > 0:
         p["ffn_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
-        p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dt)
+        p["ffn"] = init_mlp(gen, cfg.d_model, d_ff or cfg.d_ff, dt)
     return p
 
 
@@ -358,7 +466,8 @@ def apply_layer(
     ctx_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (x, cache); the cache is updated in place.  An ``xattn``
-    layer's MLP output is gated like its attention (``tanh`` in float32)."""
+    layer's MLP output is gated like its attention (``tanh`` in float32).
+    An ``moe`` layer's load-balance loss is dropped (serving only)."""
     _check_kind(kind, cfg)
     if kind == "xattn":
         x, c = apply_cross_attn(p["cross"], x, cfg=cfg, mode=mode,
@@ -370,7 +479,9 @@ def apply_layer(
                                window=window, resume=resume,
                                seq_valid=seq_valid, slot_active=slot_active,
                                page_table=page_table)
-    if "ffn" in p:
+    if "moe" in p:
+        x, _ = apply_moe(p["moe"], x, cfg, seq_valid=seq_valid)
+    elif "ffn" in p:
         out = apply_mlp(p["ffn"], rmsnorm(x, p["ffn_ln"], cfg.rms_eps))
         x = x + (_gate(p["xgate_ffn"], out) if kind == "xattn" else out)
     return x, c

@@ -1,5 +1,5 @@
 """Model builder of the port: the reference's ``models/model.py`` for the
-dense-attention and vision (gated cross-attention) families.
+dense-attention, MoE and vision (gated cross-attention) families.
 
 A model is a dict of params plus ``apply`` in three modes (``train``,
 ``prefill``, ``decode``).  ``ModelConfig.layer_kinds()`` is factored into
@@ -40,6 +40,14 @@ def find_pattern(kinds: Tuple[str, ...]) -> Tuple[Tuple[str, ...], Tuple[str, ..
                     best, best_cost = (kinds[:plen], rest[:pat], m // pat), cost
                 break
     return best
+
+
+def _layer_dff(cfg: ModelConfig, kind: str) -> Optional[int]:
+    """The MLP width of an ``attn`` layer in an MoE model (its dense
+    layers, e.g. deepseek's layer 0); None keeps ``cfg.d_ff``."""
+    if cfg.moe and kind == "attn" and cfg.moe.dense_d_ff:
+        return cfg.moe.dense_d_ff
+    return None
 
 
 def tree_map(fn: Callable[[torch.Tensor], Any], tree: Any) -> Any:
@@ -93,11 +101,13 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = layers._dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dt)
-        params["prefix_layers"] = [layers.init_layer(generator, kind, cfg)
-                                   for kind in prefix]
+        params["prefix_layers"] = [
+            layers.init_layer(generator, kind, cfg, d_ff=_layer_dff(cfg, kind))
+            for kind in prefix]
         block: Dict[str, Params] = {}
         for i, kind in enumerate(pattern):
-            reps = [layers.init_layer(generator, kind, cfg)
+            reps = [layers.init_layer(generator, kind, cfg,
+                                      d_ff=_layer_dff(cfg, kind))
                     for _ in range(repeats)]
             block[f"pos{i}"] = _stack(reps)
         params["block"] = block
@@ -172,9 +182,12 @@ class Model:
 
 
 def _stack(trees):
+    """Stack same-shaped trees leaf by leaf on a new leading axis.  Each
+    leaf leaves its source dicts once stacked, so building a stacked
+    block holds about one copy of it at a time, not two."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(first)}
     return torch.stack(trees)
 
 
@@ -183,8 +196,9 @@ def _stack(trees):
 # --------------------------------------------------------------------------- #
 def _layer_cache(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
                  cache_len: int, ctx_len: int, dtype, device) -> Params:
-    """A self-attention layer's ring ``k``/``v``; an ``xattn`` layer's
-    cross KV ``xk``/``xv`` over the ``ctx_len`` media context."""
+    """A self-attention (``attn`` or ``moe``) layer's ring ``k``/``v``; an
+    ``xattn`` layer's cross KV ``xk``/``xv`` over the ``ctx_len`` media
+    context."""
     layers._check_kind(kind, cfg)
     names, length = (("xk", "xv"), ctx_len) if kind == "xattn" else \
         (("k", "v"), cache_len)

@@ -2,7 +2,9 @@
 CPU, given the same weights (bridged from one JAX init): greedy tokens must
 be identical — with ``prefill_chunk`` 0 and 32, with more requests than
 ``max_batch``, with stop tokens, ``max_tokens`` and an abort — and logprobs
-close (atol 1e-4, float32).  Both engines run with the same arguments,
+close (atol 1e-4, float32); and greedy tokens of the paper's dense
+stand-ins ``gemma3-4b-toy`` (sliding window, prompt longer than the ring)
+and ``llama-3.2-1b-toy``.  Both engines run with the same arguments,
 the prefix cache on; the reference's speculative wave filling (outside the
 port so far; it changes no greedy token) is off.  Also the sampler: the keep-set semantics against the
 reference's, and the stateless per-token stream.
@@ -80,6 +82,50 @@ def test_greedy_tokens_match_reference(weights, prefill_chunk):
     te.generate(tr)
     _same_outcome(jr, tr)
     assert te.scheduler.stats.peak_batch == 2
+    assert all(r.finish_reason is FinishReason.LENGTH for r in tr)
+
+
+@pytest.fixture(scope="module")
+def family_weights():
+    """Bridged weights of the paper's dense stand-ins, made on first use."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            jcfg, tcfg = jax_get_config(name), get_config(name)
+            jp = build_model(jcfg).init(jax.random.PRNGKey(0))
+            made[name] = (jcfg, tcfg, jp, params_from_jax(
+                jax.tree.map(np.asarray, jp), tcfg, "cpu"))
+        return made[name]
+
+    return get
+
+
+@pytest.mark.parametrize("arch,cache_len,prefill_chunk", [
+    ("gemma3-4b-toy", 256, 0), ("gemma3-4b-toy", 256, 128),
+    ("llama-3.2-1b-toy", 128, 32)])
+def test_dense_family_greedy_tokens_match_reference(family_weights, arch,
+                                                    cache_len, prefill_chunk):
+    """``gemma3-4b-toy`` (a 256-token sliding window over a 256-slot ring)
+    with a 600-token prompt, which both engines prefill in ring-sized
+    chunks even when ``prefill_chunk`` is 0 (its queries past position 510
+    see no key inside the window: the reference's mean of V), beside
+    shorter prompts; and ``llama-3.2-1b-toy`` (tied embeddings, G = 4)."""
+    je, te = _engines(family_weights(arch), max_batch=2, cache_len=cache_len,
+                      prefill_chunk=prefill_chunk)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(1, 256, size=n)]
+               for n in (600, 40, 9)]
+    if arch == "llama-3.2-1b-toy":
+        prompts[0] = prompts[0][:100]
+    kw = [{"max_tokens": m} for m in (10, 6, 12)]
+    jr = [JaxRequest(prompt_tokens=p, sampling=JaxSampling(**k))
+          for p, k in zip(prompts, kw)]
+    tr = [Request(prompt_tokens=p, sampling=SamplingParams(**k))
+          for p, k in zip(prompts, kw)]
+    je.generate(jr)
+    te.generate(tr)
+    _same_outcome(jr, tr)
     assert all(r.finish_reason is FinishReason.LENGTH for r in tr)
 
 

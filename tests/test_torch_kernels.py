@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import (MIN_SPLIT_KEYS,
                                                   decode_attention_split_plain,
                                                   plan_splits, split_bounds)
 from repro_torch.kernels.flash_attention import (TILE_KEYS, TILE_ROWS,
+                                                 dead_rows, fill_dead_rows,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
                                                  live_mask, packed_rows,
@@ -155,6 +156,45 @@ def test_flash_plain_engine_form_matches_jax(jx, window):
                               window=window, q_positions=_t(qpos),
                               kv_valid=_t(kv_valid))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("window", [8, 16])
+def test_flash_plain_rows_with_no_live_key_match_jax(jx, window):
+    """Queries past ``Skv + window - 2`` over a 16-slot ring see no key:
+    the plain version gives the reference's value there (the mean of V),
+    and :func:`fill_dead_rows` gives the same on rows a kernel left at 0."""
+    b, sq, ring, h, hkv, d = 3, 16, 16, 4, 2, 32
+    q, k, v = _flash_inputs(30, b, sq, ring, h, hkv, d)
+    # rows resume at 0, 16 and 32 over a ring whose every cell is written
+    qpos = (np.array([0, 16, 32])[:, None] + np.arange(sq)).astype(np.int32)
+    kv_valid = np.ones((b, ring), bool)
+    want = np.asarray(jx["ops"].flash_attention(
+        q, k, v, causal=True, window=window, q_positions=qpos,
+        kv_valid=kv_valid))
+    got = flash_attention_plain(_t(q), _t(k), _t(v), causal=True,
+                                window=window, q_positions=_t(qpos),
+                                kv_valid=_t(kv_valid))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    dead = dead_rows(_t(qpos), ring, causal=True, window=window,
+                     kv_valid=_t(kv_valid))
+    assert bool(dead[2].all()) and not bool(dead[0].any())
+    zeroed = torch.where(dead[:, :, None, None], 0.0, got)
+    filled = fill_dead_rows(zeroed, _t(v), _t(qpos), causal=True,
+                            window=window, kv_valid=_t(kv_valid))
+    np.testing.assert_allclose(filled.numpy(), want, **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 5, 20])
+def test_dead_rows_are_the_rows_live_mask_leaves_empty(causal, window):
+    rng = np.random.default_rng(window + causal)
+    qpos = _t(rng.integers(-2, 45, (3, 30)))
+    kv_valid = _t(rng.random((3, 16)) > 0.6)
+    for kv in (None, kv_valid):
+        want = ~live_mask(qpos, 16, causal=causal, window=window,
+                          kv_valid=kv).any(-1)
+        assert torch.equal(dead_rows(qpos, 16, causal=causal, window=window,
+                                     kv_valid=kv), want)
 
 
 @pytest.mark.parametrize("b,s,h,hkv,d", [
@@ -851,3 +891,58 @@ def test_attention_kernels_match_plain_at_the_cross_attention_shapes(cuda,
     q0 = q[:, 0].contiguous()                 # the wrapper takes q [B,H,D]
     _close(decode_attention_cuda(q0, k, v, valid),            # contiguous
            decode_attention_plain(q0, k, v, valid), dtype)
+
+
+# (H, Hkv) of the serving shapes of the MoE and dense-family models, D 128
+FAMILY_HEADS = {"deepseek-moe-16b": (16, 16), "glm4-9b": (32, 2),
+                "yi-34b": (56, 8)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(FAMILY_HEADS))
+@pytest.mark.parametrize("form", ["flash", "flash window ring", "decode",
+                                  "paged", "paged int8"])
+def test_attention_kernels_match_plain_at_the_family_shapes(cuda, dtype, arch,
+                                                            form):
+    """G 1 (deepseek-moe-16b), 16 (glm4-9b) and 7 (yi-34b) at D 128: flash
+    in the engine form over a 2048-slot ring, and windowed (256) over a
+    256-slot ring with rows past the window's reach (no live key); decode
+    at S 2048; paged at 16-token pages, 128 a row, fp and int8 pages."""
+    h, hkv = FAMILY_HEADS[arch]
+    d = 128
+    g = torch.Generator(device=cuda).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    if form.startswith("flash"):
+        b, sq, skv = (4, 512, 2048) if form == "flash" else (3, 256, 256)
+        q, k, v = randn(b, sq, h, d), randn(b, skv, hkv, d), randn(b, skv,
+                                                                    hkv, d)
+        if form == "flash":
+            qpos, kv_valid = (_t(a).to(cuda) for a in _engine_rows(
+                5, b, sq, skv))
+            kw = dict(causal=True, q_positions=qpos, kv_valid=kv_valid)
+        else:
+            qpos = (torch.tensor([[0], [256], [512]], device=cuda)
+                    + torch.arange(sq, device=cuda)).int()
+            kw = dict(causal=True, window=256, q_positions=qpos)
+            assert bool(dead_rows(qpos, skv, causal=True, window=256)[2].all())
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention_plain(q, k, v, **kw)
+    elif form == "decode":
+        b, s = 8, 2048
+        q, k, v = randn(b, h, d), randn(b, s, hkv, d), randn(b, s, hkv, d)
+        lengths = torch.randint(1, s + 1, (b,), generator=g, device=cuda)
+        valid = torch.arange(s, device=cuda)[None] < lengths[:, None]
+        got = decode_attention_cuda(q, k, v, valid)
+        want = decode_attention_plain(q, k, v, valid)
+    else:
+        args, kw = _paged_case(cuda, dtype, h=h, hkv=hkv, d=d,
+                               int8=form == "paged int8")
+        got = paged_attention_cuda(*args, **kw)
+        want = paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    _close(got, want, dtype)

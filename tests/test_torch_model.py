@@ -1,10 +1,12 @@
 """The port's model stack against the JAX package on the CPU: the weight
 bridge, the layer primitives, the attention layer in each ported mode, and
 ``Model.apply`` logits (train, prefill, resume-prefill with ``seq_valid``,
-decode) on ``qwen2-0.5b`` reduced (qkv bias, tied embeddings, G = 4) and
-``qwen3-0.6b-toy``, in float32, and the paged decode branch over a page
-arena, fp and int8.  Tolerance atol 1e-4: the same float32 arithmetic
-summed in another order.  Also the port's import rules.
+decode) on ``qwen2-0.5b`` reduced (qkv bias, tied embeddings, G = 4),
+``qwen3-0.6b-toy`` and the reduced ``codeqwen1.5-7b`` (MHA with qkv
+bias), ``glm4-9b`` and ``yi-34b`` (G = 4), in float32, and the paged decode
+branch over a page arena, fp and int8.  Tolerance atol 1e-4: the same
+float32 arithmetic summed in another order.  Also the copied configs and
+the port's import rules.
 """
 import dataclasses
 import re
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import registry as jax_registry
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch.configs import AudioConfig, get_config, registry
@@ -29,7 +32,11 @@ from repro_torch.models import layers, model
 from repro_torch.models.convert import params_from_jax
 
 ATOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["qwen2-0.5b-reduced", "qwen3-0.6b-toy"]
+# the paged layer test holds arena cells to atol 1e-6, which float32
+# projections summed in another order keep at these two configs' widths
+PAGED_ARCHS = ["qwen2-0.5b-reduced", "qwen3-0.6b-toy"]
+ARCHS = PAGED_ARCHS + ["codeqwen1.5-7b-reduced", "glm4-9b-reduced",
+                       "yi-34b-reduced"]
 PORT = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
@@ -74,6 +81,16 @@ def test_config_registry_copies_the_reference():
         assert asdict(ours[name]) == asdict(jax_get_config(name))
         assert asdict(ours[name].reduced()) == \
             asdict(jax_get_config(name).reduced())
+
+
+@pytest.mark.parametrize("name", sorted(jax_registry()))
+def test_every_reference_config_is_copied(name):
+    """``get_config`` resolves every name of the reference's registry to
+    the same numbers, published and reduced."""
+    assert set(registry()) == set(jax_registry())
+    assert asdict(get_config(name)) == asdict(jax_get_config(name))
+    assert asdict(get_config(name).reduced()) == \
+        asdict(jax_get_config(name).reduced())
 
 
 def test_find_pattern_matches_reference():
@@ -171,6 +188,7 @@ def test_attention_layer_modes_match_reference(pair, mode):
             _close(tnew[n], jnew[n])
 
 
+@pytest.mark.parametrize("pair", PAGED_ARCHS, indirect=True)
 @pytest.mark.parametrize("kv", ["fp", "int8"])
 def test_paged_decode_layer_matches_reference(pair, kv):
     """The S = 1 paged decode branch on a small arena: row 0 live, row 1
@@ -230,7 +248,7 @@ def test_unported_branches_name_their_roadmap_item(pair):
                                positions=torch.zeros((1, 2), dtype=torch.long),
                                cache=cache, page_table=torch.zeros(
                                    (1, 1), dtype=torch.int32))
-    for kind, item in (("moe", "MoE"), ("ssm", "SSM")):
+    for kind, item in (("ssm_moe", "SSM"), ("ssm", "SSM")):
         with pytest.raises(NotImplementedError, match=item):
             layers.init_layer(torch.Generator(), kind, tcfg)
     audio = dataclasses.replace(tcfg, family="audio", audio=AudioConfig(

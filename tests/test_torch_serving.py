@@ -159,6 +159,24 @@ def test_launcher_serves_on_the_cpu():
         srv.api.client.stop()
 
 
+def test_launcher_serves_the_moe_model_on_the_cpu():
+    """``--arch deepseek-moe-16b --smoke``: the reduced MoE model (a dense
+    first layer, then MoE) answers through the launcher."""
+    args = serve.parse_args(["--arch", "deepseek-moe-16b", "--smoke",
+                             "--device", "cpu", "--port", "0",
+                             "--cache-len", "64", "--max-batch", "2"])
+    srv = serve.build_server(args)
+    srv.start()
+    try:
+        assert srv.api.engine.cfg.layer_kinds() == ("attn", "moe")
+        status, body = _chat(srv, "route me", max_tokens=3)
+        assert status == 200 and body["model"] == "deepseek-moe-16b-smoke"
+        assert body["usage"]["completion_tokens"] == 3
+    finally:
+        srv.stop()
+        srv.api.client.stop()
+
+
 def test_launcher_serves_paged_on_the_cpu():
     """``--kv-layout paged``: a request is served and ``/stats`` carries the
     ``kv_pages`` block; the same prompt again hits the prefix cache and
