@@ -37,7 +37,10 @@ Phases (any failure exits non-zero and prints no result line):
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (max |Δlogit| <= 1e-3, argmax
    agreement), over the dense ring and over a paged arena, and the paged
-   run against the dense one through the kernels; then
+   run against the dense one through the kernels; the prompt + the 8
+   decoded tokens prefilled as one sequence (how a preempted request whose
+   snapshot was lost resumes) against the 8th decode step, dense and
+   paged (the same limits); then
    ``llama-3.2-vision-90b`` at published widths and 5 layers (4 self-attn +
    1 gated cross-attn, gates set to 0.5) in float32 with images: prefill,
    the same prefill with the cross KV injected (content-cache hit), 8
@@ -67,7 +70,10 @@ Phases (any failure exits non-zero and prints no result line):
    cost exactly one encoder invocation; a cold request and its warm repeat
    (embedding and cross-KV hit) give identical tokens; a new image misses;
    on the dense ring (4d) and on the paged arena (4e, cross-KV page leases,
-   tokens equal to 4d's); 4f — ``ops.quant_matmul``, the int8 kernel's
+   tokens equal to 4d's), and on each layout an image request preempted
+   by an urgent text request (``max_batch`` 1, EDF, the served weights)
+   resumes from its snapshot with its un-preempted tokens and one encoder
+   call; 4f — ``ops.quant_matmul``, the int8 kernel's
    entry point (no model calls it), as a SwiGLU MLP of that model's widths
    on int8 weights at decode and prefill rows; 4g — ``deepseek-moe-16b`` at
    full depth (28 layers) in bf16, the text mix on the dense ring and the
@@ -79,9 +85,23 @@ Phases (any failure exits non-zero and prints no result line):
    a profile of ~100k kernels takes about a minute, so the paged round is
    not profiled), and, from the engine alone serving 6 of the prompts with
    the host's operators traced, the shares of device time of the expert
-   products and of the dispatch's index, sort and scatter kernels.  Every
+   products and of the dispatch's index, sort and scatter kernels;
+   4h — overload serving on ``qwen2-0.5b`` (bf16, 24 layers): (a) the
+   reference's preemption scenario (``max_batch`` 1, EDF) on the dense
+   ring and on 16-token pages, the prefix cache on and off: the urgent
+   request finishes first, the evictee resumes from its snapshot with
+   tokens identical to FIFO, on pages with the evicted page ids and no
+   copy; (b) the text mix with ``max_tokens`` 128 on an arena holding 45 %
+   of its live set's peak pages, beside a full-capacity arena: rung-2
+   preemptions resumed by re-prefill, nothing failed, no page pinned,
+   tokens/s, peak memory and the share of identical texts; (c) admission
+   on servers built by ``launch/serve.py``: 429s past a tenant's
+   requests/s, 503s at SHED_BULK (batch class) and at a full queue,
+   ``/readyz`` 503 at SHED_ALL, a ``timeout`` finish.  Every
    finish_reason and usage is checked, and each round's launch counters
-   are zeroed just before it and read just after;
+   are zeroed just before it and read just after (4h-b: 24 paged
+   launches per decode step, 24 flash per prefill wave, dense decode
+   never);
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -109,6 +129,7 @@ import threading
 import time
 import traceback
 import types
+import urllib.error
 import urllib.request
 from contextlib import contextmanager
 from pathlib import Path
@@ -584,15 +605,18 @@ def counting_drops(torch, layers, counter: list):
 
 
 def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
-                chunk=None, window=None, phrase_row=False):
+                chunk=None, window=None, phrase_row=False, reprefill=False):
     """``cfg`` in float32 with seeded random weights: a resume-prefill of 2
     rows of ``lengths`` tokens (in ``chunk``-token resume chunks, or one
     call), then 8 decode steps, through the kernels and through the plain
     versions, over the dense ring and over a 16-token-page arena; the paged
     run also against the dense one through the kernels.  ``phrase_row``:
-    row 1 repeats one phrase (:func:`phrase_prompt`).  For an MoE model,
-    returns the pairs that capacity dropped in the kernels' dense prefill
-    (:func:`count_drops`)."""
+    row 1 repeats one phrase (:func:`phrase_prompt`).  ``reprefill``: the
+    prompt + the 8 decoded tokens prefilled as one sequence, the way a
+    preempted request whose snapshot was lost resumes, must give the 8th
+    decode step's logits (dense and paged) through the kernels.  For an MoE
+    model, returns the pairs that capacity dropped in the kernels' dense
+    prefill (:func:`count_drops`)."""
     torch_ops, layers = ns.ops, ns.layers
     model = ns.Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -648,6 +672,20 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
             pos = pos + 1
         return torch.stack(logits), toks
 
+    def resume_prefill(fed):
+        """Each row's prompt + ``fed`` (its 8 decoded tokens) as one
+        sequence, prefilled in one call: the last position's logits."""
+        seq = torch.cat([tokens[:, :s], torch.zeros_like(tokens[:, :8])], 1)
+        rows = torch.arange(b, device="cuda")
+        for i, tok in enumerate(fed):
+            seq[rows, lengths + i] = tok
+        cache = ns.init_cache(cfg, b, cache_len, device="cuda")
+        pos = torch.arange(s + 8, device="cuda")[None].expand(b, s + 8)
+        return model.apply(params, seq, mode="prefill", positions=pos,
+                           cache=cache, resume=True, window=window,
+                           seq_valid=pos < (lengths + 8)[:, None],
+                           last_idx=lengths + 7).logits[:, 0]
+
     kinds = cfg.layer_kinds()
     log(f"  {cfg.name} float32, {cfg.num_layers} layers "
         f"{'+'.join(kinds)} (published widths): prefill {b}x"
@@ -662,10 +700,16 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
         with plain_attention(torch_ops):
             plain, _ = run(fed, paged=False)
             paged_plain, _ = run(fed, paged=True)
+        resumed = resume_prefill(fed) if reprefill else None
     torch.cuda.synchronize()
     compare(torch, "dense, kernels vs plain", kern, plain)
     compare(torch, "paged, kernels vs plain", paged, paged_plain)
     compare(torch, "paged vs dense, both through the kernels", paged, kern)
+    if reprefill:
+        compare(torch, "re-prefill of prompt + 8 tokens vs decode step 8, "
+                "dense", resumed, kern[8])
+        compare(torch, "re-prefill of prompt + 8 tokens vs decode step 8, "
+                "paged", resumed, paged[8])
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -901,7 +945,7 @@ def shared_prompt_chats():
 def check_serving(torch, get_config, InferenceEngine, EngineClient,
                   OpenAIServer, ApiServer, wrappers, *, bodies, rounds=2,
                   profile=True, arch="qwen2-0.5b", profile_ops=False,
-                  params=None, **engine_kw):
+                  params=None, responses=None, **engine_kw):
     """Serve ``arch`` (bf16, published widths, seeded random weights) and
     ``bodies`` ``rounds`` times (the first takes the first-call costs; the
     last is the counted one) and once more under the profiler
@@ -909,8 +953,9 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
     :func:`profile_moe_ops`).  ``wrappers`` maps each kernel's name to its
     CUDA wrapper, whose ``launches`` count is zeroed just before the
     counted round and read just after.  ``params``: the model's weights,
-    made by the engine from its seed when None.  Returns (launches, serve
-    record, /stats after the counted round, engine layers)."""
+    made by the engine from its seed when None.  ``responses``: a list the
+    counted round's responses go to.  Returns (launches, serve record,
+    /stats after the counted round, engine layers)."""
     t0 = time.perf_counter()
     engine = InferenceEngine(get_config(arch), params, device="cuda",
                              max_batch=8, cache_len=2048, prefill_chunk=512,
@@ -950,6 +995,8 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
             if resp is None or isinstance(resp, Exception):
                 raise AssertionError(f"request {body} failed: {resp!r}")
             done += check_response(kind, body, resp, tok)
+        if responses is not None:
+            responses[:] = results
         return done, wall
 
     try:
@@ -1022,6 +1069,403 @@ def check_paged_serving(stats):
             pages["free"] + pages["reclaimable"] != pages["total"]:
         raise AssertionError(f"paged round: prefix cache {cache}, pages "
                              f"{pages}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 4h: overload serving (preemption, the page-pressure ladder,
+# admission control)
+# --------------------------------------------------------------------------- #
+BATCH_PROMPT = "long-running batch request " * 2
+URGENT_PROMPT = "urgent interactive!"
+
+
+def run_preempt_scenario(engine, Request, SamplingParams, *, batch_tokens,
+                         batch_max=64, images=None):
+    """The reference's ``_preempt_scenario`` (tests/test_sched_policy.py):
+    one batch request decodes alone, then after 4 steps an urgent request
+    with a 1 ms deadline arrives.  Returns (batch, urgent, the batch
+    request's pages when it was evicted and when it resumed)."""
+    tok = engine.tokenizer
+    batch = Request(prompt_tokens=tok.encode(batch_tokens),
+                    images=list(images or []),
+                    sampling=SamplingParams(max_tokens=batch_max))
+    engine.add_request(batch)
+    for _ in range(4):
+        engine.step()
+    urgent = Request(prompt_tokens=tok.encode(URGENT_PROMPT),
+                     sampling=SamplingParams(max_tokens=6), deadline_ms=1.0)
+    engine.add_request(urgent)
+    stats, pages = engine.scheduler.stats, {}
+    while engine.scheduler.has_work:
+        held = list(engine.pool.slot_pages(0)) if engine._paged else None
+        counts = (stats.preemptions, stats.resumed)
+        engine.step()
+        if stats.preemptions > counts[0]:
+            pages.setdefault("evicted", held)
+        if stats.resumed > counts[1] and engine._paged:
+            pages.setdefault("resumed", list(engine.pool.slot_pages(0)))
+    return batch, urgent, pages
+
+
+def check_policy_preemption(torch, ns, wrappers, params):
+    """4h-a: ``qwen2-0.5b`` (bf16, published widths, 24 layers) with
+    ``max_batch`` 1, EDF and preemption, on the dense ring and on 16-token
+    fp pages, the prefix cache on and off: the urgent request evicts the
+    batch one and finishes first; the batch request resumes from its
+    snapshot with tokens identical to the same engine's FIFO run; on pages
+    the resumed slot maps the evicted page ids with no copy.  The layout's
+    decode kernel runs 24 times per decode step, the other never."""
+    layers = ns.get_config("qwen2-0.5b").num_layers
+    out = {}
+    for layout in ("dense", "paged"):
+        for cache_on in (True, False):
+            kw = dict(device="cuda", max_batch=1, cache_len=2048,
+                      enable_prefix_cache=cache_on, kv_layout=layout,
+                      kv_page_size=16)
+            fifo = ns.InferenceEngine(ns.get_config("qwen2-0.5b"), params,
+                                      sched_policy="fifo", **kw)
+            fb, fu, _ = run_preempt_scenario(fifo, ns.Request,
+                                             ns.SamplingParams,
+                                             batch_tokens=BATCH_PROMPT)
+            engine = ns.InferenceEngine(ns.get_config("qwen2-0.5b"), params,
+                                        sched_policy="edf", preemption=True,
+                                        **kw)
+            for w in wrappers.values():
+                w.launches = 0
+            b, u, pages = run_preempt_scenario(engine, ns.Request,
+                                               ns.SamplingParams,
+                                               batch_tokens=BATCH_PROMPT)
+            torch.cuda.synchronize()
+            launches = {n: w.launches for n, w in wrappers.items()}
+            st = engine.scheduler.stats
+            used, unused = (("paged_attention", "decode_attention")
+                            if layout == "paged" else
+                            ("decode_attention", "paged_attention"))
+            name = f"{layout}, prefix cache {'on' if cache_on else 'off'}"
+            same = (b.output_tokens == fb.output_tokens
+                    and u.output_tokens == fu.output_tokens)
+            log(f"  {name}: preemptions {st.preemptions}, resumed "
+                f"{st.resumed}, urgent first {u.finish_time < b.finish_time}"
+                f", batch tokens identical to FIFO {same} "
+                f"({b.num_generated}), launches {launches} over "
+                f"{st.device_steps} decode steps / {st.prefill_waves} prefill "
+                f"waves ({launches[used] / st.device_steps:g} {used} per "
+                f"step)")
+            if not (st.preemptions >= 1 and st.resumed >= 1 and same
+                    and u.finish_time < b.finish_time
+                    and b.finish_reason == fb.finish_reason):
+                raise AssertionError(f"4h-a {name}: preemption broke")
+            want = {used: layers * st.device_steps,
+                    "flash_attention": layers * st.prefill_waves, unused: 0}
+            if any(launches[k] != v for k, v in want.items()):
+                raise AssertionError(f"4h-a {name}: launches {launches}, "
+                                     f"want {want}")
+            if layout == "paged":
+                ev, re = pages.get("evicted"), pages.get("resumed")
+                log(f"    pages at eviction {ev}, at resume {re}, full "
+                    f"copies {engine.pool.stats.full_copies}")
+                if not ev or re[:len(ev)] != ev or \
+                        engine.pool.stats.full_copies:
+                    raise AssertionError(f"4h-a {name}: resume did not "
+                                         f"adopt the evicted pages")
+            out[name] = {"preemptions": st.preemptions,
+                         "resumed": st.resumed, "identical_to_fifo": same,
+                         "decode_steps": st.device_steps,
+                         "prefill_waves": st.prefill_waves,
+                         "launches": launches}
+            del fifo, engine
+    return out
+
+
+def pressure_bodies(tok, max_tokens=128, share=0.45):
+    """The 4b text mix (12 requests + the 6 shared-prompt chats), every
+    ``max_tokens`` raised to ``max_tokens``, and the arena that holds
+    ``share`` of the pages its live set asks for at its peak (the 8 largest
+    requests' prompt + output pages).  Returns (bodies, arena pages, peak
+    pages)."""
+    bodies = serve_requests() + shared_prompt_chats()
+    for _, body in bodies:
+        body["max_tokens"] = max_tokens
+    need = sorted((-(-(len(tok.encode(prompt_text(k, b))) + max_tokens)
+                    // 16) for k, b in bodies), reverse=True)
+    peak = sum(need[:8])
+    reserved = 2                              # one trash page + scratch
+    return bodies, reserved + math.ceil(peak * share), peak
+
+
+def check_pressure_serving(torch, serving, params):
+    """4h-b: the text mix with raised ``max_tokens`` on 16-token fp pages
+    with the prefix cache on, once at full capacity and once in an arena
+    below it: every request finishes with the right usage, rung 2 preempts
+    and the victims resume by re-prefill, rung 3 fails nothing, no page
+    stays pinned, and the kernels run as on every paged round.  Prints the
+    share of requests whose text equals the full-capacity run's (a reading:
+    re-prefill rounds bf16 differently from incremental decode)."""
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    bodies, arena, peak = pressure_bodies(ByteTokenizer())
+    runs = {}
+    for label, pages in (("full", None), ("pressure", arena)):
+        responses = []
+        launches, rec, stats, layers = check_serving(
+            *serving, bodies=bodies, rounds=1, profile=False, params=params,
+            responses=responses, kv_layout="paged", kv_page_size=16,
+            kv_num_pages=pages)
+        require_launches(launches, rec, layers,
+                         decode_kernel="paged_attention",
+                         unused="decode_attention")
+        occ = stats["kv_pages"]
+        rec.update(preemptions=stats["preemptions"],
+                   resumed=stats["resumed"], failed=stats["failed"],
+                   kv_pages=occ, texts=[text_of(b, r) for (_, b), r in
+                                        zip(bodies, responses)])
+        runs[label] = rec
+        log(f"  {label}: arena {occ['total']} allocatable pages, "
+            f"preemptions {stats['preemptions']} (snapshot resumes "
+            f"{stats['resumed']}, re-prefill resumes "
+            f"{stats['preemptions'] - stats['resumed']}), failed "
+            f"{stats['failed']}, pinned {occ['pinned']}, "
+            f"{rec['tokens_per_s']:.1f} tokens/s, peak "
+            f"{rec['peak_mem_gib']:.2f} GiB")
+        if stats["failed"] or occ["pinned"]:
+            raise AssertionError(f"4h-b {label}: failed {stats['failed']}, "
+                                 f"pinned {occ['pinned']}")
+    press = runs["pressure"]
+    log(f"  arena {arena} pages (2 reserved) against a live-set peak of "
+        f"{peak} pages ({peak / (arena - 2):.2f}x)")
+    if press["preemptions"] < 1 or \
+            press["preemptions"] - press["resumed"] < 1:
+        raise AssertionError("4h-b: no rung-2 preemption and re-prefill "
+                             "resume under page pressure")
+    same = [a == b for a, b in zip(runs["full"].pop("texts"),
+                                   press.pop("texts"))]
+    share = sum(same) / len(same)
+    log(f"  requests whose text equals the full-capacity run's: "
+        f"{sum(same)}/{len(same)} ({share:.3f}; a reading, not a gate)")
+    return {"arena_pages": arena, "peak_live_pages": peak,
+            "identical_share": share, **runs}
+
+
+def text_of(body, resp) -> str:
+    """The completion text of one checked response (chat, completion or
+    SSE chunks)."""
+    if body.get("stream"):
+        return "".join(c["choices"][0]["delta"].get("content", "")
+                       for c in resp if c["choices"])
+    choice = resp["choices"][0]
+    return choice["message"]["content"] if "message" in choice \
+        else choice["text"]
+
+
+def http(port: int, path: str, body=None, headers=None):
+    """(status, headers, JSON body) of one call; HTTP errors included."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, dict(resp.headers), json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def fire(port, bodies, headers=None):
+    """Send ``bodies`` to chat completions, one thread each; returns the
+    threads and the list their (status, headers, body) land in."""
+    out = [None] * len(bodies)
+
+    def one(i):
+        out[i] = http(port, "/v1/chat/completions", bodies[i], headers)
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    return threads, out
+
+
+def wait_for(cond, what, timeout=120.0):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"4h-c: {what} not reached")
+        time.sleep(0.005)
+
+
+def chat(text, max_tokens=4, **extra):
+    return {"messages": [{"role": "user", "content": text}],
+            "max_tokens": max_tokens, **extra}
+
+
+def hold_engine(engine) -> threading.Event:
+    """Make the engine's steps wait on the returned event while it is
+    clear: the client's loop thread then stays inside one step and releases
+    nothing more, so every later submit waits at admission."""
+    gate = threading.Event()
+    gate.set()
+    step = engine.step
+
+    def held_step():
+        gate.wait()
+        return step()
+
+    engine.step = held_step
+    return gate
+
+
+def check_admission_serving(torch, serve_mod):
+    """4h-c: ``qwen2-0.5b`` servers built as ``launch/serve.py`` builds
+    them (dense ring, admission on, ``--shed-wait 0`` so the ladder reads
+    queue depth): a tenant over its requests/s gets 429s; with the loop
+    held inside a step (:func:`hold_engine`), SHED_BULK answers a
+    batch-class request 503 and queues interactive ones, a full queue
+    answers the rest of a 16-request burst 503, ``/readyz`` reads 503 at
+    SHED_ALL and 200 before and after; a request held past the queue
+    timeout finishes with ``timeout``.  Every admitted request
+    completes."""
+    out = {}
+
+    def build(*flags):
+        args = serve_mod.parse_args(["--arch", "qwen2-0.5b", "--port", "0",
+                                     "--cache-len", "2048", "--shed-wait",
+                                     "0", *flags])
+        srv = serve_mod.build_server(args)
+        srv.start()
+        return srv
+
+    def ok(resp, what):
+        code, _, body = resp
+        reason = body.get("choices", [{}])[0].get("finish_reason")
+        if code != 200 or reason not in ("stop", "length"):
+            raise AssertionError(f"4h-c {what}: {code} {body}")
+
+    def rejected(resp, status, etype, code):
+        st, headers, body = resp
+        err = body.get("error", {})
+        if st != status or err.get("type") != etype or \
+                err.get("code") != code or int(headers["Retry-After"]) < 1:
+            raise AssertionError(f"4h-c: want {status} {etype}/{code}, got "
+                                 f"{st} {headers.get('Retry-After')} {body}")
+        return int(headers["Retry-After"])
+
+    def hold(srv):
+        """Close the gate with one request inside the held step."""
+        gate = hold_engine(srv.api.engine)
+        gate.clear()
+        threads, res = fire(srv.port, [chat("first in", 16)])
+        wait_for(lambda: len(srv.api.engine.scheduler.pending) == 1,
+                 "the held step")
+        return gate, threads, res
+
+    # (1) rate limit: tenant bulk at 2 requests/s (burst 8, the launcher's
+    # default); a concurrent burst of 16
+    srv = build("--tenant", "bulk=1:2")
+    try:
+        threads, res = fire(srv.port, [chat(f"bulk {i}") for i in range(16)],
+                            {"x-tenant": "bulk"})
+        for t in threads:
+            t.join(timeout=600)
+        limited = [r for r in res if r[0] == 429]
+        for r in res:
+            if r[0] == 429:
+                rejected(r, 429, "rate_limit_error", "rate_limited")
+            else:
+                ok(r, "bulk request")
+        snap = http(srv.port, "/stats")[2]["admission"]
+        log(f"  rate limit: 16 bulk requests, {len(limited)} x 429 "
+            f"(Retry-After {sorted({int(r[1]['Retry-After']) for r in limited})}"
+            f" s), {16 - len(limited)} served; tenant counters "
+            f"{snap['tenants']['bulk']}")
+        if len(limited) < 4 or \
+                snap["tenants"]["bulk"]["shed_rate_limited"] != len(limited):
+            raise AssertionError(f"4h-c: {len(limited)} 429s, {snap}")
+        out["rate_limited"] = len(limited)
+    finally:
+        srv.stop()
+        srv.api.client.stop()
+
+    # (2) shedding and the bounded queue: depth 4, batch shed from 2
+    srv = build("--max-queue-depth", "4", "--shed-queue-depth", "2")
+    gate = None
+    try:
+        ctl = srv.api.client._admission
+        idle = http(srv.port, "/readyz")
+        gate, t0, o0 = hold(srv)
+        t1, o1 = fire(srv.port, [chat(f"interactive {i}",
+                                      deadline_ms=60_000.0)
+                                 for i in range(2)])
+        wait_for(lambda: ctl.queue_depth == 2, "two queued")
+        level_bulk = ctl.snapshot()["level_name"]
+        shed = http(srv.port, "/v1/chat/completions", chat("batch work"))
+        rejected(shed, 503, "overloaded_error", "overloaded")
+        t2, o2 = fire(srv.port, [chat("interactive 2", priority=3)])
+        wait_for(lambda: ctl.queue_depth == 3, "interactive queued")
+        t3, burst = fire(srv.port, [chat(f"burst {i}", deadline_ms=60_000.0)
+                                    for i in range(16)])
+        wait_for(lambda: sum(r is not None for r in burst) >= 15, "burst")
+        full = http(srv.port, "/readyz")
+        snap = http(srv.port, "/stats")[2]["admission"]
+        gate.set()
+        for t in t0 + t1 + t2 + t3:
+            t.join(timeout=600)
+        queued_burst = [r for r in burst if r[0] == 200]
+        for r in o0 + o1 + o2 + queued_burst:
+            ok(r, "admitted request")
+        retry = [rejected(r, 503, "overloaded_error", "overloaded")
+                 for r in burst if r[0] != 200]
+        wait_for(lambda: http(srv.port, "/readyz")[0] == 200, "ready again")
+        log(f"  shedding: /readyz idle {idle[0]}; at depth 2 level "
+            f"{level_bulk}: a batch request {shed[0]} "
+            f"({shed[2]['error']['message']!r}), an interactive one queued; "
+            f"a 16-request burst: {len(queued_burst)} queued, {len(retry)} x "
+            f"503 (Retry-After {sorted(set(retry))} s); /readyz at "
+            f"{full[2].get('level')} {full[0]}, then 200; admission "
+            f"snapshot {json.dumps({k: snap[k] for k in ('queue_depth', 'level_name', 'shed_overload')})}; "
+            f"{len(o0 + o1 + o2 + queued_burst)} admitted requests completed")
+        if idle[0] != 200 or level_bulk != "shed_bulk" or \
+                "batch-class" not in shed[2]["error"]["message"] or \
+                len(queued_burst) != 1 or len(retry) != 15 or \
+                full[0] != 503 or full[2].get("level") != "shed_all" or \
+                snap["queue_depth"] != 4:
+            raise AssertionError("4h-c: shedding / readiness broke")
+        out.update(shed_bulk_503=1, overloaded_503=len(retry),
+                   readyz={"idle": idle[0], "shed_all": full[0], "after": 200},
+                   admitted_completed=len(o0 + o1 + o2 + queued_burst))
+    finally:
+        if gate is not None:
+            gate.set()
+        srv.stop()
+        srv.api.client.stop()
+
+    # (3) a queue-wait expiry behind the held step
+    srv = build("--queue-timeout", "0.5")
+    gate = None
+    try:
+        gate, t0, o0 = hold(srv)
+        t1, late = fire(srv.port, [chat("waits too long")])
+        wait_for(lambda: srv.api.client._admission.queue_depth == 1,
+                 "the late request queued")
+        time.sleep(0.7)
+        gate.set()
+        for t in t0 + t1:
+            t.join(timeout=600)
+        ok(o0[0], "first request")
+        code, _, body = late[0]
+        reason = body["choices"][0]["finish_reason"]
+        log(f"  queue timeout 0.5 s: the late request {code}, finish_reason "
+            f"{reason!r}, usage {body['usage']}")
+        if code != 200 or reason != "timeout" or \
+                body["usage"]["completion_tokens"]:
+            raise AssertionError(f"4h-c: timeout finish {code} {body}")
+        out["timeout_finish"] = reason
+    finally:
+        if gate is not None:
+            gate.set()
+        srv.stop()
+        srv.api.client.stop()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1240,6 +1684,7 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
     finally:
         server.stop()
         client.stop()
+    preempt = check_media_preemption(torch, ns, cfg, engine.params, layout)
     steps = after["device_steps"] - before_all["device_steps"]
     waves = after["prefill_waves"] - before_all["prefill_waves"]
     kinds = cfg.layer_kinds()
@@ -1275,11 +1720,44 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
               "content_cache": stats, "max_batch": 8, "cache_len": 2048,
               "ctx_len": engine.ctx_len, "dtype": "bfloat16",
-              "profiled_round": prof}
+              "profiled_round": prof, "preemption": preempt}
     del engine, client, server
     gc.collect()
     torch.cuda.empty_cache()
     return launches, record, cold_toks
+
+
+def check_media_preemption(torch, ns, cfg, params, layout):
+    """The served model's weights (not drawn again) in two engines with
+    ``max_batch`` 1: an image request preempted by an urgent text request
+    (EDF) resumes from its snapshot — ctx rows and cross KV included —
+    with the tokens of its FIFO run and no second encoder call."""
+    import numpy as np
+    image = np.random.default_rng(105).integers(0, 256, (32, 32, 3),
+                                                dtype=np.uint8)
+    kw = dict(device="cuda", max_batch=1, cache_len=2048, kv_layout=layout)
+    runs = []
+    for policy in ("fifo", "edf"):
+        engine = ns.InferenceEngine(cfg, params, sched_policy=policy,
+                                    preemption=policy == "edf", **kw)
+        b, u, pages = run_preempt_scenario(
+            engine, ns.Request, ns.SamplingParams, images=[image],
+            batch_tokens="describe the picture at length", batch_max=24)
+        runs.append((b, u, engine.scheduler.stats,
+                     engine.media_stats.encoder_invocations))
+        del engine
+    (fb, fu, _, _), (b, u, st, calls) = runs
+    same = (b.output_tokens == fb.output_tokens
+            and u.output_tokens == fu.output_tokens)
+    log(f"  {layout}: an image request preempted {st.preemptions}x, resumed "
+        f"{st.resumed}x from its snapshot, encoder calls {calls}, urgent "
+        f"first {u.finish_time < b.finish_time}, tokens identical to its "
+        f"un-preempted run {same}")
+    if not (st.preemptions >= 1 and st.resumed >= 1 and same and calls == 1
+            and u.finish_time < b.finish_time):
+        raise AssertionError(f"{layout}: media preemption broke")
+    return {"preemptions": st.preemptions, "resumed": st.resumed,
+            "encoder_invocations": calls, "identical": same}
 
 
 # --------------------------------------------------------------------------- #
@@ -1831,6 +2309,8 @@ def main() -> int:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.core.kv_cache import slice_cache_row
     from repro_torch.core.paged_kv import PagedKVPool
+    from repro_torch.core.request import Request, SamplingParams
+    from repro_torch.launch import serve as serve_mod
     from repro_torch.models import layers
     from repro_torch.models.model import Model, init_cache, tree_leaves
     from repro_torch.serving.api import OpenAIServer
@@ -1871,7 +2351,7 @@ def main() -> int:
     def f32(name, **kw):
         return dataclasses.replace(get_config(name), dtype="float32", **kw)
 
-    check_model(torch, ns3, f32("qwen2-0.5b"))
+    check_model(torch, ns3, f32("qwen2-0.5b"), reprefill=True)
     check_vision_model(torch, ops, get_config, Model, init_cache)
     moe3 = f32(MOE, num_layers=3)
     drops = check_model(torch, ns3, moe3, phrase_row=True)
@@ -1920,7 +2400,8 @@ def main() -> int:
     ns = types.SimpleNamespace(
         get_config=get_config, InferenceEngine=InferenceEngine,
         EngineClient=EngineClient, OpenAIServer=OpenAIServer,
-        ApiServer=ApiServer, media=media, init_cache=init_cache)
+        ApiServer=ApiServer, media=media, init_cache=init_cache,
+        Request=Request, SamplingParams=SamplingParams)
     log(f"== 4d. serving {VISION} (10 layers, bf16) over HTTP with images, "
         "dense KV, content cache")
     media_launches, media_dense, cold_tokens = check_media_serving(
@@ -1958,6 +2439,20 @@ def main() -> int:
     del moe_params
     gc.collect()
     torch.cuda.empty_cache()
+    qwen_params = Model(get_config("qwen2-0.5b")).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    log("== 4h-a. policy preemption on qwen2-0.5b (bf16, 24 layers), "
+        "max_batch 1, EDF: snapshot and resume vs FIFO")
+    policy_preempt = check_policy_preemption(torch, ns, wrappers,
+                                             qwen_params)
+    log("== 4h-b. the page-pressure ladder: the text mix on an arena below "
+        "full capacity")
+    pressure = check_pressure_serving(torch, serving, qwen_params)
+    del qwen_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 4h-c. admission control over HTTP (launcher-built servers)")
+    admission = check_admission_serving(torch, serve_mod)
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
                 "flash_attention": paged_launches["flash_attention"],
@@ -1999,7 +2494,9 @@ def main() -> int:
             **({"media_round_launches": {"dense": media_launches[name],
                                          "paged": media_paged_launches[name]},
                 "moe_round_launches": {"dense": moe_dense_launches[name],
-                                       "paged": moe_paged_launches[name]}}
+                                       "paged": moe_paged_launches[name]},
+                "pressure_round_launches":
+                    pressure["pressure"]["launches"][name]}
                if name != "quant_matmul" else {})})
         if "moe_ms" in t:
             lib = (t["moe_library_ms"]
@@ -2027,6 +2524,8 @@ def main() -> int:
              "media_dense": media_dense, "media_paged": media_paged,
              "moe_dense": moe_dense, "moe_paged": moe_paged,
              "moe_init_s": moe_init_s,
+             "policy_preemption": policy_preempt, "pressure": pressure,
+             "admission": admission,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
     print(json.dumps({"kernels": kernels, "card": card}))

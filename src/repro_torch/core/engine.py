@@ -9,10 +9,13 @@ the port queue still holds, in eager PyTorch.
 Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
   1. **Plan admissions**: pending requests bind to free decode slots; each
-     opens a *prefill job* that parks in the scheduler's chunk queue.  A
-     request with images or video frames is admissible only once its whole
-     media set has an embedding (content-cache hits at job open, the rest
-     from encode waves).
+     opens a *prefill job* that parks in the scheduler's chunk queue, or —
+     a preempted request — resumes its eviction snapshot.  A request with
+     images or video frames is admissible only once its whole media set
+     has an embedding (content-cache hits at job open, the rest from
+     encode waves).  With ``preemption=True`` under a preemptive policy, a
+     strictly more urgent pending request then evicts the least urgent
+     live slot.
   2. **Dispatch a decode block** (if any slot is live): K decode+sample
      iterations as a Python loop over device tensors — sampling, stop-token
      detection and budget accounting all stay on the device, and a slot
@@ -34,6 +37,15 @@ Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
 Greedy outputs are invariant to K and to ``prefill_chunk``.
 
+Preemption (``preemption=True``, ``sched_policy`` priority or edf): an
+evicted slot's cache is snapshotted — by copy on the dense ring, by
+reference (incref'd pages) on the paged arena — and published as an
+exact-sequence prefix-cache entry (or held engine-side, at most
+``max_batch`` of them, when the cache is off).  Resume restores the cache
+and decode state bit for bit; a snapshot lost to the cache's LRU falls back
+to re-prefilling the prompt + generated history as one sequence.  Slots
+whose history reached ``cache_len`` (ring-wrapped) are never victims.
+
 Prefix cache (``enable_prefix_cache``): a prefill opens at the longest
 cached block-aligned prefix of its prompt; a chunked prefill publishes its
 partial prefix at every chunk boundary (one rolling entry per job); the
@@ -41,8 +53,10 @@ dense layout publishes a slot's prompt at retire, the paged layout at
 commit — as the slot's prompt pages, leased copy-on-write, beside a dense
 shadow row that later prefills resume from.  Under ``kv_layout="paged"``
 every decode block first makes the pages it will write exclusively owned
-(:meth:`PagedKVPool.ensure_decode_capacity`), evicting prefix-cache entries
-when the arena runs short.
+(:meth:`PagedKVPool.ensure_decode_capacity`) under the pressure ladder:
+(1) evict prefix-cache (then cross-KV) entries, (2) preempt the live slot
+holding the most pages without a snapshot, (3) fail the last holdout with a
+typed error.  ``kv_num_pages`` may size the arena below full capacity.
 
 Content cache (``enable_content_cache``): per-frame embedding entries skip
 the encoder; per-media-set cross-KV entries (device clones, never views
@@ -52,14 +66,14 @@ pages of the arena, and the pressure ladder evicts it after the prefix
 cache's entries.
 
 Not ported yet (refused with ``NotImplementedError`` or ``ValueError``
-naming the ROADMAP item, or simply absent from ``/stats``): arenas below
-full capacity (they need preemption), speculative decoding, audio models,
-preemption, fault injection, drain and handoff, shared-prefix ``n`` groups
-(``n`` > 1 runs independent prefills; refused for media requests),
-speculative wave filling, and echo / prompt logprobs.
+naming the ROADMAP item, or simply absent from ``/stats``): speculative
+decoding, audio models, fault injection, drain and handoff, shared-prefix
+``n`` groups (``n`` > 1 runs independent prefills; refused for media
+requests), speculative wave filling, and echo / prompt logprobs.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -90,6 +104,8 @@ from repro_torch.serving.media import VisionEncoderStub, decode_media
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
+log = logging.getLogger("repro_torch.engine")
+
 MAX_MEDIA_ITEMS = 4     # images the cross-attention context window holds
 ENCODE_WAVE = 4         # unique encodes per step: a video streams across
 
@@ -119,7 +135,9 @@ class _Admission:
 class _PrefillJob:
     """One request's prefill in flight: the partial batch=1 cache is carried
     across chunks outside the pool, and the job re-enters the scheduler's
-    chunk queue until the whole prompt is materialised."""
+    chunk queue until the whole sequence is materialised.  ``tokens`` is
+    the prompt, or prompt + generated history for a preempted request
+    whose eviction snapshot was lost."""
     slot: int
     req: Request
     tokens: List[int]
@@ -187,6 +205,8 @@ class InferenceEngine:
         prefill_chunk: int = 512,
         max_prefill_buckets: int = 6,
         sched_policy: Union[str, SchedulingPolicy] = "fifo",
+        preemption: bool = False,
+        max_preemptions: int = 2,
         aging_s: Optional[float] = None,
         enable_prefix_cache: bool = True,
         prefix_block_size: int = 16,
@@ -210,14 +230,6 @@ class InferenceEngine:
         if kv_layout == "dense" and kv_dtype != "fp":
             raise ValueError("int8 KV requires kv_layout='paged'")
         self._paged = kv_layout == "paged"
-        if self._paged and kv_num_pages is not None and kv_num_pages < \
-                PagedKVPool.full_capacity(max_batch, cache_len, kv_page_size):
-            # the reference's pressure ladder preempts a slot when evicting
-            # prefix-cache entries is not enough; without preemption the
-            # port would fail requests the reference finishes
-            raise not_ported(
-                f"a KV page arena below full capacity (kv_num_pages="
-                f"{kv_num_pages})", "preemption")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = Model(cfg)
@@ -235,6 +247,8 @@ class InferenceEngine:
         self.max_top_logprobs = max(1, max_top_logprobs)
         self.truncate_long_prompts = truncate_long_prompts
         self.prefill_chunk = max(0, prefill_chunk)
+        self.preemption = preemption
+        self.max_preemptions = max(0, max_preemptions)
 
         # media geometry (the reference's defaults): the context window
         # holds MAX_MEDIA_ITEMS images; a video frame takes a quarter of an
@@ -302,6 +316,14 @@ class InferenceEngine:
         self._streamers: Dict[int, TokenStreamDecoder] = {}
         self._stopchk: Dict[int, StopSequenceChecker] = {}
         self._live_slots: set = set()        # slots committed to DecodeState
+        # preemption snapshots: request_id -> {"cache": snapshot value held
+        # engine-side (prefix cache off) or None, "ctx_valid": row or None}.
+        # With the prefix cache on, the snapshot value rides in it as an
+        # exact-sequence entry, competing for its byte budget
+        self._evicted: Dict[int, Dict[str, Any]] = {}
+        # finished prefills whose pages the paged arena cannot take yet:
+        # (job, last-position logits) in commit order, retried every step
+        self._staged: List[Tuple[_PrefillJob, torch.Tensor]] = []
 
         # power-of-two prefill buckets, floor raised until at most
         # max_prefill_buckets distinct shapes remain (reference :428-440)
@@ -445,6 +467,11 @@ class InferenceEngine:
         does not decode fails the request."""
         if not self._has_media(req):
             return True
+        if req.preempt_count and req.request_id in self._evicted:
+            # a snapshot resume restores the ctx rows from the snapshot (no
+            # embeddings needed); a lost snapshot re-encodes synchronously
+            # at prefill open (:meth:`_media_pipeline`)
+            return True
         job = self._media_jobs.get(req.request_id)
         if job is None:
             if len(self._media_jobs) >= self._max_media_jobs:
@@ -452,9 +479,8 @@ class InferenceEngine:
             try:
                 job = self._open_media_job(req)
             except (KeyError, TypeError, ValueError, OSError) as e:
-                self._fault_events.extend(self._terminate(
-                    req.request_id, FinishReason.ERROR,
-                    f"media decode failed: {e!r}"))
+                self._fault_events.extend(self._fail_request(
+                    req.request_id, f"media decode failed: {e!r}"))
                 return False
         return job.remaining == 0
 
@@ -499,14 +525,13 @@ class InferenceEngine:
                         item.emb = emb
                         job.remaining -= 1
 
-    def _assemble_media(self, job: Optional[_MediaJob]):
-        """Pack a resolved job's embeddings into the fixed context window
+    def _assemble_media(self, items: List[_MediaItem]):
+        """Pack resolved items' embeddings into the fixed context window
         (cursor walk in context order): (embeds [1, T, De], ctx_valid
-        [1, T], set digest or None).  ``None`` (a text request on a vision
+        [1, T], set digest or None).  No items (a text request on a vision
         model) gives an empty, all-invalid window."""
         embeds = np.zeros((self.ctx_len, self.embed_dim), np.float32)
         valid = np.zeros((self.ctx_len,), bool)
-        items = job.items if job is not None else []
         cursor = 0
         for item in items:
             take = min(item.ntok, self.ctx_len - cursor)
@@ -515,6 +540,34 @@ class InferenceEngine:
             cursor += take
         digest = media_set_digest([it.hash for it in items]) if items else None
         return embeds[None], valid[None], digest
+
+    def _media_pipeline(self, req: Request):
+        """Synchronous resolution of a request's media set (the re-prefill
+        of a preempted request whose snapshot was lost, or a request
+        without a media job): embedding-cache hits, else one encoder call
+        per payload, counted as the encode waves count them; assembled as
+        :meth:`_assemble_media` assembles a job's items."""
+        ms = self.media_stats
+        items: List[_MediaItem] = []
+        for payload, encoder, ntok in self._iter_media_payloads(req):
+            pixels = decode_media(payload)
+            item = _MediaItem(content_hash(pixels), ntok)
+            entry = (self.content_cache.get_embedding(item.hash)
+                     if self.content_cache is not None else None)
+            if entry is None:
+                item.emb = encoder(pixels)
+                ms.encoder_invocations += 1
+                req.vision_cache_misses += 1
+                ms.embed_misses += 1
+                if self.content_cache is not None:
+                    self.content_cache.put_embedding(
+                        item.hash, EmbeddingEntry(item.emb, item.emb.nbytes))
+            else:
+                item.emb = entry.embeddings
+                req.vision_cache_hits += 1
+                ms.embed_hits += 1
+            items.append(item)
+        return self._assemble_media(items)
 
     # ------------------------------------------------------------------ #
     # cross-KV extraction / injection (content cache payloads)
@@ -566,8 +619,19 @@ class InferenceEngine:
                 self.top_k if sp.top_k is None else int(sp.top_k),
                 self.min_p if sp.min_p is None else float(sp.min_p))
 
-    def _admit_into_free_slots(self) -> None:
+    def _plan_admissions(self) -> None:
+        """Alg.1 lines 3-6, policy-ordered: bind pending requests to free
+        slots, then — with a preemptive policy — evict the least urgent
+        live slot for each strictly more urgent pending request.  The
+        policy's aging clock is frozen once per pass, so the keys the
+        preemption loop compares stay still while it runs."""
         self.scheduler.policy.tick(time.monotonic())
+        self._admit_into_free_slots()
+        if (self.preemption and self.scheduler.policy.preemptive
+                and self.scheduler.pending and not self.pool.num_free):
+            self._plan_preemptions()
+
+    def _admit_into_free_slots(self) -> None:
         while (self.pool.num_free and self.scheduler.pending
                and self.scheduler.num_active < self.scheduler.max_batch):
             # requests whose embeddings are still resolving are skipped
@@ -581,10 +645,24 @@ class InferenceEngine:
                 self.pool.free(slot)
                 break
             _, req = admitted[0]
-            self.scheduler.enqueue_prefill(self._open_prefill(slot, req))
+            self._bind_slot(slot, req)
 
-    def _open_prefill(self, slot: int, req: Request) -> _PrefillJob:
-        tokens = list(req.prompt_tokens)
+    def _bind_slot(self, slot: int, req: Request) -> None:
+        """Attach an admitted request to its slot: restore its eviction
+        snapshot (a preempted request), else open a prefill job — of the
+        prompt + generated history when the snapshot was lost (the commit
+        then samples the next token from the last position)."""
+        if ((req.preempt_count or req.request_id in self._evicted)
+                and self._try_resume(slot, req)):
+            return
+        tokens = (req.prompt_tokens + req.output_tokens
+                  if req.preempt_count else None)
+        self.scheduler.enqueue_prefill(
+            self._open_prefill(slot, req, tokens=tokens))
+
+    def _open_prefill(self, slot: int, req: Request,
+                      tokens: Optional[List[int]] = None) -> _PrefillJob:
+        tokens = list(req.prompt_tokens if tokens is None else tokens)
         if not tokens:
             raise ValueError("empty prompt")
         t0 = time.monotonic()
@@ -592,12 +670,18 @@ class InferenceEngine:
         embeds = ctx_valid = set_digest = None
         if self.media_kind != "none":
             # resolved by encode waves / embedding-cache hits ahead of
-            # admission: assembly only, no encoder work on this path
+            # admission: assembly only, no encoder work on this path; a
+            # request without a job (text, or a lost snapshot's re-prefill)
+            # resolves synchronously
             job = self._media_jobs.pop(req.request_id, None)
-            if job is not None and job.remaining:
+            if job is None:
+                embeds, ctx_valid, set_digest = self._media_pipeline(req)
+            elif job.remaining:
                 raise AssertionError(f"request {req.request_id} admitted "
                                      "with unresolved media")
-            embeds, ctx_valid, set_digest = self._assemble_media(job)
+            else:
+                embeds, ctx_valid, set_digest = self._assemble_media(
+                    job.items)
         req.media_set_digest = set_digest
         # Alg.2: longest cached prefix (cap: leave >=1 token for logits)
         matched, single = 0, None
@@ -819,11 +903,14 @@ class InferenceEngine:
         self._live_slots.update(a.slot for a in wave)
         events: List[StreamEvent] = []
         for a in wave:
-            self._streamers[a.req.request_id] = TokenStreamDecoder(
-                self.tokenizer)
-            if a.req.sampling.stop_sequences:
-                self._stopchk[a.req.request_id] = StopSequenceChecker(
-                    list(a.req.sampling.stop_sequences))
+            # a request resumed by re-prefill keeps its streamer (its
+            # mid-UTF-8 decode state survives the eviction)
+            if a.req.request_id not in self._streamers:
+                self._streamers[a.req.request_id] = TokenStreamDecoder(
+                    self.tokenizer)
+                if a.req.sampling.stop_sequences:
+                    self._stopchk[a.req.request_id] = StopSequenceChecker(
+                        list(a.req.sampling.stop_sequences))
             a.req.status = RequestStatus.DECODING
             events.extend(self._emit_token(a.slot, a.req, a.first_token,
                                            a.logprob, a.top_logprobs))
@@ -851,11 +938,7 @@ class InferenceEngine:
                                       shared=shared)
                 break
             except PagePoolExhausted:
-                if self.prefix_cache is not None and \
-                        self.prefix_cache.evict_lru():
-                    continue
-                if self.content_cache is not None and \
-                        self.content_cache.evict_cross_kv_lru():
+                if self._evict_cache_entry():
                     continue
                 raise
         for a in wave:                  # lease ownership moved to the slot
@@ -1002,11 +1085,19 @@ class InferenceEngine:
     def abort(self, request_id: int) -> List[StreamEvent]:
         """Cancel a request wherever it lives — pending queue (its media
         job and its share of in-flight encodes included), prefill chunk
-        queue, or a live decode slot (freed at once, device row frozen).
+        queue, eviction-snapshot table (the snapshot is released), or a
+        live decode slot (freed at once, device row frozen).
         Returns the final ABORT event (empty if unknown or finished).  Not
         thread-safe: callers off the engine thread go through
         :meth:`repro_torch.serving.client.EngineClient.abort`."""
         return self._terminate(request_id, FinishReason.ABORT)
+
+    def _fail_request(self, request_id: int, detail: str
+                      ) -> List[StreamEvent]:
+        """Fail ONE request with a typed ERROR finish wherever it lives
+        (:meth:`abort`'s cleanup); every other request is untouched."""
+        log.warning("request %d failed: %s", request_id, detail)
+        return self._terminate(request_id, FinishReason.ERROR, detail)
 
     def _terminate(self, request_id: int, reason: FinishReason,
                    detail: Optional[str] = None) -> List[StreamEvent]:
@@ -1017,6 +1108,8 @@ class InferenceEngine:
         if slot is not None:
             req = self.scheduler.active[slot]
             self.scheduler.drop_prefill_jobs(request_id)
+            self._staged = [(j, lg) for j, lg in self._staged
+                            if j.req.request_id != request_id]
             self.scheduler.abort_slot(slot)
             self.pool.free(slot)
             self._live_slots.discard(slot)
@@ -1027,6 +1120,14 @@ class InferenceEngine:
         if req is None or req.is_finished:
             return []
         self._cancel_media_job(request_id)
+        meta = self._evicted.pop(request_id, None)
+        if meta is not None:
+            # drop the preemption snapshot (byte budget / page leases)
+            self._release_snapshot_value(meta["cache"])
+            if self.prefix_cache is not None:
+                self._release_snapshot_value(self.prefix_cache.take_exact(
+                    req.prompt_tokens + req.output_tokens,
+                    salt=self._salt(req)))
         req.finish_reason = reason
         req.finish_time = time.monotonic()
         if reason is FinishReason.ABORT:
@@ -1040,6 +1141,121 @@ class InferenceEngine:
         self._stopchk.pop(request_id, None)
         return [StreamEvent(request_id, None, "", finished=True,
                             finish_reason=reason)]
+
+    # ------------------------------------------------------------------ #
+    # slot preemption (policy-gated eviction of live decode slots)
+    # ------------------------------------------------------------------ #
+    def _rebuildable(self, slot: int) -> bool:
+        """A victim must be exactly rebuildable if its snapshot is later
+        lost: re-prefill can only represent a history that fits the ring
+        without wrapping, so a slot whose prompt + generated history
+        reached ``cache_len`` is exempt (it also frees soonest by just
+        finishing)."""
+        req = self.scheduler.active[slot]
+        return (len(req.prompt_tokens) + req.num_generated
+                <= self.pool.cache_len)
+
+    def _plan_preemptions(self) -> None:
+        """Evict the least urgent live slot while the most urgent pending
+        request is *strictly* more urgent than it.  Keys are static per
+        request, so each eviction strictly improves the active set and the
+        loop ends; ``max_preemptions`` caps each request's evictions."""
+        key = self.scheduler.policy.key
+        while self.scheduler.pending and not self.pool.num_free:
+            head = self.scheduler.peek_pending(self._media_admissible)
+            eligible = {s for s in self._live_slots if self._rebuildable(s)}
+            victim = self.scheduler.select_victim(eligible,
+                                                  self.max_preemptions)
+            if head is None or victim is None:
+                return
+            vslot, vreq = victim
+            if not key(head) < key(vreq):
+                return
+            self._evict(vslot)
+            self._admit_into_free_slots()
+
+    def _evict(self, slot: int, *, snapshot: bool = True) -> None:
+        """Evict a live decode slot back to the pending queue.  The
+        snapshot — a copy of the slot's row on the dense ring, the slot's
+        pages by reference (incref'd, zero copy) plus its dense per-slot
+        leaves on the paged arena — is published as an exact-sequence
+        prefix-cache entry keyed by the prompt + generated history, or held
+        engine-side when the cache is off (at most ``max_batch`` of them,
+        the oldest dropped to the re-prefill path).  ``snapshot=False``
+        (page-pressure preemption) keeps none, so the pages really free."""
+        req = self.scheduler.active[slot]
+        meta: Dict[str, Any] = {
+            "cache": None,
+            "ctx_valid": (self.state.ctx_valid[slot].cpu().numpy()
+                          if self.media_kind != "none" else None),
+        }
+        value = None
+        if self._paged:
+            if snapshot:
+                pages = list(self.pool.slot_pages(slot))
+                value = {"pages": pages, "nonkv": self.pool.read_nonkv(slot),
+                         "len": len(req.prompt_tokens) + req.num_generated}
+                nbytes = (self.pool.pages_nbytes(len(pages))
+                          + tree_bytes(value["nonkv"]))
+                self.pool.incref_pages(pages)
+        else:
+            value = {"cache": self.pool.read(slot)}
+            nbytes = tree_bytes(value["cache"])
+        if value is not None:
+            if self.prefix_cache is not None:
+                self.prefix_cache.insert_exact(
+                    req.prompt_tokens + req.output_tokens, value, nbytes,
+                    salt=self._salt(req))
+            else:
+                meta["cache"] = value
+        self._evicted[req.request_id] = meta
+        req.status = RequestStatus.QUEUED
+        if self.prefix_cache is None:
+            holders = [rid for rid, m in self._evicted.items()
+                       if m["cache"] is not None]
+            for rid in holders[:-self.pool.max_batch]:
+                self._release_snapshot_value(self._evicted[rid]["cache"])
+                self._evicted[rid]["cache"] = None
+        self.scheduler.requeue(slot)
+        self.pool.free(slot)
+        self._live_slots.discard(slot)
+        # freeze the row so no decode block advances it before the next
+        # admission lands in the slot
+        self._deactivate_slot(slot)
+
+    def _try_resume(self, slot: int, req: Request) -> bool:
+        """Restore a preempted request's slot from its eviction snapshot;
+        False (the caller re-prefills) if the snapshot was lost to the
+        prefix cache's LRU meanwhile."""
+        meta = self._evicted.pop(req.request_id, None)
+        if meta is None:
+            return False
+        value = meta["cache"]
+        if value is None and self.prefix_cache is not None:
+            value = self.prefix_cache.take_exact(
+                req.prompt_tokens + req.output_tokens, salt=self._salt(req))
+        if value is None:
+            return False
+        if self._paged:
+            # zero-copy resume: the snapshot's page refs move to the slot
+            # (take_exact popped the entry without firing on_evict)
+            self.pool.adopt(slot, value["pages"], value["nonkv"])
+        else:
+            self.pool.insert(slot, value["cache"])
+        self._admit_rows_to_state(
+            [(slot, req, req.output_tokens[-1],
+              len(req.prompt_tokens) + req.num_generated - 1,
+              meta["ctx_valid"], True)])
+        self._live_slots.add(slot)
+        req.status = RequestStatus.DECODING
+        self.scheduler.stats.resumed += 1
+        return True
+
+    def _release_snapshot_value(self, value: Any) -> None:
+        """Release a snapshot value that will NOT be adopted into a slot
+        (a terminated request, or an engine-side snapshot dropped)."""
+        if self._paged and isinstance(value, dict) and value.get("pages"):
+            self.pool.release_pages(value["pages"])
 
     # ------------------------------------------------------------------ #
     # prefix-cache salt and paged-KV bookkeeping
@@ -1085,6 +1301,49 @@ class InferenceEngine:
         self.media_stats.xkv_lease_pages += npages
         return pages
 
+    def _evict_cache_entry(self) -> bool:
+        """Rung 1 of the pressure ladder: evict one prefix-cache entry, else
+        one cross-KV entry (media caching never outranks decode); False
+        when neither cache holds an entry."""
+        return bool((self.prefix_cache is not None
+                     and self.prefix_cache.evict_lru())
+                    or (self.content_cache is not None
+                        and self.content_cache.evict_cross_kv_lru()))
+
+    def _fit_commits(self, completed: List[Tuple[_PrefillJob, torch.Tensor]]
+                     ) -> List[Tuple[_PrefillJob, torch.Tensor]]:
+        """Paged layout: the finished prefills, in order, whose fresh pages
+        the arena can take now, evicting cache entries to make room (as
+        many as the reference's commit retry evicts).  The first that does
+        not fit and everything behind it stay staged until retirements
+        free pages; where the reference would fail such a wave, the port
+        makes it wait — a rung-2 victim re-prefilled at once would
+        otherwise fail on the very pages its eviction freed.  A prefill
+        that cannot fit while no slot decodes (nothing will free a page)
+        fails with a typed error."""
+        ps, cap = self.pool.page_size, self.pool.pages_per_slot
+        fit: List[Tuple[_PrefillJob, torch.Tensor]] = []
+        need = 0
+        for i, (job, logits) in enumerate(completed):
+            fresh = (min(-(-len(job.tokens) // ps), cap)
+                     - len(self._job_leases.get(job.req.request_id, ())))
+            while self.pool.allocator.num_free < need + fresh and \
+                    self._evict_cache_entry():
+                pass
+            if self.pool.allocator.num_free >= need + fresh:
+                fit.append((job, logits))
+                need += fresh
+            elif fit or self._live_slots:
+                self._staged = completed[i:]
+                break
+            else:
+                self._fault_events.extend(self._fail_request(
+                    job.req.request_id,
+                    f"admission commit failed: {fresh} pages needed, "
+                    f"{self.pool.allocator.num_free} free of "
+                    f"{self.pool.allocator.num_allocatable}"))
+        return fit
+
     def _release_lease(self, request_id: int) -> None:
         pages = self._job_leases.pop(request_id, None)
         if pages:
@@ -1101,27 +1360,35 @@ class InferenceEngine:
         return out
 
     def _ensure_paged_capacity(self, k_steps: int) -> None:
-        """Before a decode block: make the pages it will write exclusively
-        owned (lazy tail allocation + COW splits).  On exhaustion, evict
-        prefix-cache entries (their leases free real pages) — rung 1 of the
-        reference's pressure ladder.  Its later rungs preempt or fail a
-        slot; the port refuses arenas below full capacity instead, where
-        rung 1 always frees enough, so running out here is a broken
-        invariant and raises."""
+        """Pressure ladder before a decode block: make the pages it will
+        write exclusively owned (lazy tail allocation + COW splits).  On
+        exhaustion, reclaim in escalating order — (1) evict prefix-cache
+        entries (their leases free real pages), then cross-KV entries, (2)
+        preempt the rebuildable live slot holding the most pages *without*
+        a snapshot (a snapshot would pin the very pages needed), (3) fail
+        the last holdout with a typed error.  Every rung frees pages or
+        shrinks the live set, so the loop ends."""
         while not self.pool.ensure_decode_capacity(self._live_positions(),
                                                    k_steps):
-            if self.prefix_cache is not None and \
-                    self.prefix_cache.evict_lru():
+            if self._evict_cache_entry():
                 continue
-            # cached cross-KV entries surrender their leases before any
-            # live request would (media caching never outranks decode)
-            if self.content_cache is not None and \
-                    self.content_cache.evict_cross_kv_lru():
+            live = self._live_positions()
+            if not live:
+                return
+            eligible = [s for s in live if self._rebuildable(s)]
+            if len(live) > 1 and eligible:
+                victim = max(eligible,
+                             key=lambda s: len(self.pool.slot_pages(s)))
+                log.warning("KV page pressure: preempting slot %d (request "
+                            "%d, %d pages) without snapshot", victim,
+                            self.scheduler.active[victim].request_id,
+                            len(self.pool.slot_pages(victim)))
+                self._evict(victim, snapshot=False)
                 continue
-            raise RuntimeError(
-                f"KV page arena exhausted with nothing left to evict "
-                f"({self.pool.page_occupancy()}): a full-capacity arena "
-                "should never run out")
+            slot = max(live, key=lambda s: len(self.pool.slot_pages(s)))
+            self._fault_events.extend(self._fail_request(
+                self.scheduler.active[slot].request_id,
+                f"KV page pool exhausted ({self.pool.num_pages} pages)"))
 
     def validate_request(self, req: Request) -> None:
         """Validate + normalise a request without enqueueing it: prompt
@@ -1168,7 +1435,7 @@ class InferenceEngine:
         decode block is dispatched first and the prefill wave second, and
         only then does the host wait on the block's tokens."""
         events: List[StreamEvent] = []
-        self._admit_into_free_slots()
+        self._plan_admissions()
 
         block_plan = None
         if self._live_slots:
@@ -1180,7 +1447,9 @@ class InferenceEngine:
             num_steps = self.scheduler.plan_decode_block(
                 self.max_decode_block, reclaim_queued=reclaim_q)
             if self._paged:
-                # the block's KV writes must land on exclusively-owned pages
+                # the block's KV writes must land on exclusively-owned
+                # pages, under the pressure ladder (which can shrink the
+                # live set)
                 self._ensure_paged_capacity(num_steps)
             toks, lps = self._decode_block(
                 num_steps,
@@ -1224,6 +1493,9 @@ class InferenceEngine:
                     events.extend(self._emit_token(slot, req, tok, logprob,
                                                    top))
 
+        completed, self._staged = self._staged + completed, []
+        if self._paged:
+            completed = self._fit_commits(completed)
         events.extend(self._commit_jobs(completed))
         if self._fault_events:
             events.extend(self._fault_events)

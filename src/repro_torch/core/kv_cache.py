@@ -171,6 +171,11 @@ class SlotKVPool:
         self._used.remove(slot)
         self._free.append(slot)
 
+    def insert(self, slot: int, single_cache) -> None:
+        """Install one batch=1 cache into a slot (a preemption snapshot's
+        restore: the row read by :meth:`read` goes back bit for bit)."""
+        self.insert_many([slot], [single_cache])
+
     def insert_many(self, slots: Sequence[int], single_caches) -> None:
         """Install an admission wave of batch=1 caches: one concatenation
         and one indexed copy per cache leaf, whatever the wave size."""
@@ -212,3 +217,7 @@ class SlotKVPool:
             self._zeros = init_cache(self.cfg, 1, self.cache_len,
                                      ctx_len=self.ctx_len, device=self.device)
         return self._zeros
+
+    @property
+    def nbytes(self) -> int:
+        return tree_bytes(self.cache)

@@ -1,6 +1,6 @@
 """Paged KV pool of the port: a global page arena + per-slot page tables +
 copy-on-write sharing (the reference package's ``core/paged_kv.py``, less
-what only preemption and speculative decoding call).
+what only speculative decoding calls).
 
 KV memory is one arena of ``num_pages`` fixed-size pages per attention
 layer — ``k``/``v`` leaves are ``[N, page_size, Hkv, hd]`` (stacked block
@@ -10,6 +10,11 @@ engine's device that the decode steps thread through attention
 (:func:`repro_torch.kernels.ops.paged_attention`).  The cross-attention
 leaves (``xk``/``xv``) stay dense per slot: O(1) per slot, paging them buys
 nothing.
+
+A preemption snapshot holds a slot's pages by *reference*: the engine
+increfs them at eviction (:meth:`PagedKVPool.read_nonkv` copies the dense
+per-slot leaves beside them) and :meth:`PagedKVPool.adopt` installs the
+same page ids back into a slot at resume — no KV byte moves either way.
 
 Sharing is copy-on-write at page granularity: a prefix-cache hit maps
 already-materialised pages into the new owner's table with a refcount bump
@@ -346,6 +351,37 @@ class PagedKVPool:
                                self._index(dst))
         self._insert_dense(self._index(slots), single_caches)
         self.sync_page_table()
+
+    def adopt(self, slot: int, pages: Sequence[int], nonkv=None) -> None:
+        """Resume: install a snapshot's page list into a slot, taking over
+        the caller's refs (the snapshot's refs move here — no copy, no
+        refcount churn), copy the snapshot's dense per-slot leaves (cross
+        KV) back into the slot, and sync the device page table."""
+        assert not self._slot_pages.get(slot), \
+            f"slot {slot} already holds pages"
+        pages = list(pages)
+        assert len(pages) <= self.pages_per_slot
+        self._slot_pages[slot] = pages
+        self._pt_host[slot, :len(pages)] = pages
+        self._pt_host[slot, len(pages):] = 0
+        self._pt_dirty = True
+        if nonkv is not None:
+            self._insert_dense(self._index([slot]), [nonkv])
+        self.sync_page_table()
+
+    def read_nonkv(self, slot: int):
+        """Copies of one slot's dense per-slot leaves (cross KV) as a
+        batch=1 tree; the KV pages themselves are snapshotted by
+        reference."""
+        out: Dict[str, Any] = {"prefix": [
+            {n: leaf[slot:slot + 1].clone() for n, leaf in sub.items()
+             if n not in ARENA_KEYS} for sub in self.cache["prefix"]]}
+        out["block"] = ({pos: {n: leaf[:, slot:slot + 1].clone()
+                               for n, leaf in sub.items()
+                               if n not in ARENA_KEYS}
+                         for pos, sub in self.cache["block"].items()}
+                        if self.cache.get("block") is not None else None)
+        return out
 
     def _scatter_rows(self, singles, src: torch.Tensor, dst: torch.Tensor):
         """Copy pages ``src`` of the wave's dense rows (row-major: row i's

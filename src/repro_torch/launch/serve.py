@@ -6,6 +6,12 @@ otherwise.
       --port 8177 --max-batch 8 --cache-len 2048 [--kv-layout paged]
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch llama-3.2-vision-90b ...   # image_url content parts
+  ... --kv-layout paged --kv-num-pages 600 --sched-policy edf --preemption \\
+      --tenant bulk=1:2 --max-queue-depth 64   # overload knobs
+
+Admission control is on unless ``--no-admission``: per-tenant rate limits
+(429), a bounded fair queue with queue-wait expiry, and load shedding (503),
+each rejection with a ``Retry-After`` header.
 
 Weights are random, drawn from ``--seed`` (nothing is downloaded), so the
 text is gibberish: check the contract (finish_reason, usage, chunk framing).
@@ -16,10 +22,24 @@ import argparse
 import threading
 
 from repro_torch.configs import get_config
+from repro_torch.core.admission import AdmissionController, TenantConfig
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.serving.api import OpenAIServer
 from repro_torch.serving.client import EngineClient
 from repro_torch.serving.server import ApiServer
+
+
+def parse_tenant_spec(spec: str) -> tuple:
+    """``name=weight[:rps[:tps]]`` -> (name, TenantConfig)."""
+    if "=" not in spec:
+        raise ValueError(f"tenant spec {spec!r} must look like "
+                         "name=weight[:rps[:tps]]")
+    name, _, rest = spec.partition("=")
+    parts = rest.split(":")
+    weight = float(parts[0]) if parts[0] else 1.0
+    rps = float(parts[1]) if len(parts) > 1 and parts[1] else 0.0
+    tps = float(parts[2]) if len(parts) > 2 and parts[2] else 0.0
+    return name.strip(), TenantConfig(weight=weight, rps=rps, tps=tps)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,7 +70,39 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--sched-policy", default="fifo",
                     choices=["fifo", "priority", "edf"],
                     help="request ordering for admission and the prefill "
-                         "chunk queue")
+                         "chunk queue: fifo (arrival), priority (request "
+                         "'priority' field), edf (earliest 'deadline_ms' "
+                         "first)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="let an urgent pending request (per --sched-policy; "
+                         "fifo never preempts) evict the least urgent live "
+                         "slot; the evicted request resumes from its "
+                         "snapshot, or re-prefills its history")
+    ap.add_argument("--max-preemptions", type=int, default=2,
+                    help="max times one request may be evicted by the "
+                         "policy (bounds preemption churn)")
+    ap.add_argument("--no-admission", action="store_true",
+                    help="disable admission control (no rate limits, no "
+                         "fair queue, no shedding: the engine's unbounded "
+                         "pending queue)")
+    ap.add_argument("--max-queue-depth", type=int, default=256,
+                    help="hard bound on waiting requests; beyond it every "
+                         "submit gets a 503 with Retry-After")
+    ap.add_argument("--queue-timeout", type=float, default=30.0,
+                    help="seconds a request may wait for admission before "
+                         "it finishes with a typed 'timeout' (0 = never)")
+    ap.add_argument("--shed-queue-depth", type=int, default=None,
+                    help="queue depth where batch-class shedding starts "
+                         "(default max-queue-depth/2)")
+    ap.add_argument("--shed-wait", type=float, default=10.0,
+                    help="estimated queue wait (s) that sheds batch-class "
+                         "requests; twice it sheds everything (0 = depth "
+                         "thresholds only)")
+    ap.add_argument("--tenant", action="append", default=[],
+                    metavar="NAME=WEIGHT[:RPS[:TPS]]",
+                    help="per-tenant fair-share weight and rate limits "
+                         "(repeatable); a request names its tenant in the "
+                         "OpenAI 'user' field or an x-tenant header")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--kv-layout", choices=("dense", "paged"),
                     default="dense",
@@ -61,8 +113,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "the prefix-cache block size)")
     ap.add_argument("--kv-num-pages", type=int, default=None,
                     help="page-arena size (paged layout); default sizes for "
-                         "full max-batch capacity + reserved pages (smaller "
-                         "arenas need preemption, not ported yet)")
+                         "full max-batch capacity + reserved pages; a "
+                         "smaller arena runs the pressure ladder (evict "
+                         "cache entries, preempt, fail the last holdout)")
     ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp",
                     help="KV page storage: model dtype, or int8 with "
                          "per-(position, head) scales (paged layout only)")
@@ -93,7 +146,8 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         max_decode_block=args.max_decode_block, top_p=args.top_p,
         top_k=args.top_k, min_p=args.min_p, prefill_chunk=args.prefill_chunk,
         max_prefill_buckets=args.max_prefill_buckets,
-        sched_policy=args.sched_policy,
+        sched_policy=args.sched_policy, preemption=args.preemption,
+        max_preemptions=args.max_preemptions,
         enable_prefix_cache=not args.no_prefix_cache,
         kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
         kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype,
@@ -103,8 +157,16 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         content_cache_bytes=(None if args.content_cache_mb is None
                              else args.content_cache_mb * 1024 * 1024),
         vision_work_iters=args.vision_work_iters)
-    return ApiServer(OpenAIServer(EngineClient(engine), cfg.name),
-                     port=args.port)
+    admission = None
+    if not args.no_admission:
+        admission = AdmissionController(
+            tenants=dict(parse_tenant_spec(s) for s in args.tenant),
+            max_queue_depth=args.max_queue_depth,
+            queue_timeout_s=args.queue_timeout,
+            shed_queue_depth=args.shed_queue_depth,
+            shed_wait_s=args.shed_wait)
+    client = EngineClient(engine, admission=admission)
+    return ApiServer(OpenAIServer(client, cfg.name), port=args.port)
 
 
 def main(argv=None) -> None:
@@ -114,7 +176,8 @@ def main(argv=None) -> None:
     eng = server.api.engine
     print(f"serving {eng.cfg.name} ({eng.cfg.param_count() / 1e6:.1f}M "
           f"params) on {eng.device} at http://127.0.0.1:{server.port} "
-          "(chat + completions + models; stats: /stats)", flush=True)
+          f"(chat + completions + models; stats: /stats; admission "
+          f"{'off' if args.no_admission else 'on'})", flush=True)
     try:
         threading.Event().wait()
     except KeyboardInterrupt:

@@ -8,10 +8,12 @@ handle events encode to response / SSE chunk dicts, and every rejection
 raises :class:`OpenAIError` with the structured ``{"error": {message, type,
 param, code}}`` envelope and an HTTP status.  Streaming generators abort
 their handle on early close (a dropped SSE connection cancels the request).
+An admission rejection becomes the structured ``rate_limit_error`` (429) or
+``overloaded_error`` (503) envelope with ``retry_after``; the OpenAI
+``user`` field names the admission tenant.
 
-Not ported in this slice: admission control (429/503 shedding), drain and
-readiness, the router, and ``echo`` (rejected by the engine with a 400);
-``/stats`` carries no block for those subsystems.
+Not ported in this slice: drain, the router, and ``echo`` (rejected by the
+engine with a 400); ``/stats`` carries no block for those subsystems.
 """
 from __future__ import annotations
 
@@ -19,10 +21,11 @@ import dataclasses
 import hashlib
 import time
 import uuid
-from typing import Any, Dict, Iterator, List, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.core.admission import AdmissionError
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.paged_kv import PagedKVPool
 from repro_torch.core.request import (GenerationRequest, PromptTooLongError,
@@ -42,13 +45,16 @@ class OpenAIError(Exception):
 
     def __init__(self, message: str, *, etype: str = "invalid_request_error",
                  param: Union[str, None] = None, code: Union[str, None] = None,
-                 status: int = 400):
+                 status: int = 400, retry_after: Optional[float] = None):
         super().__init__(message)
         self.message = message
         self.etype = etype
         self.param = param
         self.code = code
         self.status = status
+        # seconds until a retry makes sense (429/503); the HTTP server
+        # sends it as a ``Retry-After`` header
+        self.retry_after = retry_after
 
     def to_dict(self) -> Dict[str, Any]:
         return {"error": {"message": self.message, "type": self.etype,
@@ -203,9 +209,16 @@ class OpenAIServer:
         deadline_ms = body.get("deadline_ms")
         if deadline_ms is not None:
             deadline_ms = _as_float(body, "deadline_ms", 0.0)
+        # the admission tenant: the OpenAI ``user`` field (the HTTP server
+        # maps an ``x-tenant`` header here) keys per-tenant rate limits and
+        # the fair-share queue
+        user = body.get("user")
+        if user is not None and not isinstance(user, str):
+            raise OpenAIError("'user' must be a string", param="user")
         return GenerationRequest(prompt=prompt, sampling=sampling, n=n,
                                  images=list(images or []), priority=priority,
-                                 deadline_ms=deadline_ms)
+                                 deadline_ms=deadline_ms,
+                                 tenant=user or "default")
 
     def _decode_chat(self, body: Dict[str, Any]) -> GenerationRequest:
         messages = body.get("messages")
@@ -262,13 +275,19 @@ class OpenAIServer:
     def _submit(self, greq: GenerationRequest) -> RequestHandle:
         try:
             return self.client.submit(greq)
+        except AdmissionError as e:
+            raise OpenAIError(
+                str(e), etype=("rate_limit_error" if e.status == 429
+                               else "overloaded_error"),
+                code=e.code, status=e.status, retry_after=e.retry_after) from e
         except PromptTooLongError as e:
             raise OpenAIError(str(e), code="context_length_exceeded") from e
         except ValueError as e:
             raise OpenAIError(str(e)) from e
         except RuntimeError as e:
             raise OpenAIError("server is shutting down", etype="overloaded_error",
-                              code="shutting_down", status=503) from e
+                              code="shutting_down", status=503,
+                              retry_after=1.0) from e
 
     def _submit_all(self, greqs: List[GenerationRequest]) -> List[RequestHandle]:
         """Submit a multi-prompt fan-out; if a later prompt is rejected the
@@ -465,11 +484,11 @@ class OpenAIServer:
     def stats(self) -> Dict[str, Any]:
         """Serving observability (``GET /stats``): scheduler and client
         counters with the ``content_cache`` block (media pipeline and
-        content-cache counters), the engine's knobs, the ``prefix_cache``
-        block when the cache is on, and under the paged layout a
-        ``kv_pages`` block (arena occupancy and allocator counters);
-        subsystems not ported yet (admission, speculation, router) have no
-        block."""
+        content-cache counters), the ``admission`` snapshot when admission
+        control is on, the engine's knobs, the ``prefix_cache`` block when
+        the cache is on, and under the paged layout a ``kv_pages`` block
+        (arena occupancy and allocator counters); subsystems not ported yet
+        (speculation, router) have no block."""
         eng = self.engine
         out = dict(self.client.stats())
         out.update({
@@ -483,6 +502,7 @@ class OpenAIServer:
             "prefill_bucket_floor": eng._bucket_floor,
             "prefill_buckets_seen": sorted(eng._seen_buckets),
             "sched_policy": eng.scheduler.policy.name,
+            "preemption": eng.preemption,
         })
         if eng.prefix_cache is not None:
             out["prefix_cache"] = {
@@ -501,3 +521,15 @@ class OpenAIServer:
         """Liveness: 200 while the engine loop thread is alive."""
         ok = self.client.alive
         return {"status": "ok" if ok else "dead", "ok": ok}, (200 if ok else 503)
+
+    def readyz(self) -> Tuple[Dict[str, Any], int]:
+        """Readiness: 200 while the server should receive traffic, 503 once
+        it sheds all new work."""
+        ok = self.client.ready
+        out: Dict[str, Any] = {"status": "ok" if ok else "not_ready",
+                               "ok": ok}
+        if self.client._admission is not None:
+            snap = self.client._admission.snapshot()
+            out["level"] = snap["level_name"]
+            out["queue_depth"] = snap["queue_depth"]
+        return out, (200 if ok else 503)

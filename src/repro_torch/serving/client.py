@@ -1,7 +1,6 @@
 """EngineClient: the thread-safe request-lifecycle API over the engine (the
-port of the reference package's ``serving/client.py``, without admission
-control, watchdog, drain or handoff — it behaves as the reference server
-does under ``--no-admission``).
+port of the reference package's ``serving/client.py``, with admission
+control, without watchdog, drain or handoff).
 
 ``submit(GenerationRequest) -> RequestHandle`` returns immediately; the
 handle exposes the lifecycle of one *logical* request (``n`` engine
@@ -16,16 +15,24 @@ requests for OpenAI-style multi-choice sampling):
 * ``handle.status`` — coarsest in-flight choice state.
 
 One loop thread owns the engine and drives ``engine.step()``; submissions
-and aborts are thread-safe and land at block boundaries.
+and aborts are thread-safe and land at block boundaries.  With an
+:class:`~repro_torch.core.admission.AdmissionController` attached,
+``submit`` goes through it — a rate-limited or shed request raises the
+typed 429/503 :class:`~repro_torch.core.admission.AdmissionError` — and the
+loop thread releases admitted requests into the engine once per iteration,
+in weighted-fair order, finishing the ones whose queue wait expired with a
+typed ``timeout`` event.
 """
 from __future__ import annotations
 
 import logging
 import queue
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
+from repro_torch.core.admission import LEVEL_SHED_ALL, AdmissionController
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import (FinishReason, GenerationRequest,
                                       Request, RequestStatus, StreamEvent)
@@ -59,7 +66,7 @@ class FinishEvent:
     """Terminal event for one choice; ``text`` carries any held-back tail."""
 
     index: int
-    finish_reason: str    # "stop" | "length" | "abort" | "error"
+    finish_reason: str    # "stop" | "length" | "abort" | "timeout" | "error"
     text: str = ""
 
 
@@ -193,12 +200,16 @@ class RequestHandle:
 
 
 class EngineClient:
-    """Thread-safe request-lifecycle front end that owns the engine.  The
-    loop thread never dies: an exception escaping ``engine.step()`` fails
-    the requests the engine holds with typed ERROR events and is logged."""
+    """Thread-safe request-lifecycle front end that owns the engine, with an
+    optional admission controller in front of it.  The loop thread never
+    dies: an exception escaping ``engine.step()`` fails the requests the
+    engine holds with typed ERROR events and is logged."""
 
-    def __init__(self, engine: InferenceEngine, *, auto_start: bool = True):
+    def __init__(self, engine: InferenceEngine, *,
+                 admission: Optional[AdmissionController] = None,
+                 auto_start: bool = True):
         self.engine = engine
+        self._admission = admission
         self._cv = threading.Condition()
         self._handles: Dict[int, RequestHandle] = {}
         self._aborts: List[int] = []
@@ -208,8 +219,26 @@ class EngineClient:
         # collapse the decode block to K=1 while an abort waits at the
         # boundary, so its slot is reclaimed after one device step
         engine.reclaim_hint = lambda: bool(self._aborts)
+        # the degradation ladder's capacity probe, unless the caller gave one
+        if admission is not None and admission.headroom_fn is None:
+            admission.headroom_fn = self._headroom
         if auto_start:
             self.start()
+
+    def _headroom(self) -> float:
+        """Fraction of serving capacity still free: decode slots plus one
+        engine queue's worth, bounded under the paged layout by the arena's
+        free + reclaimable (cache-held) pages — long sequences can exhaust
+        the arena while slots remain free."""
+        sched = self.engine.scheduler
+        cap = max(1, 2 * sched.max_batch)
+        slots = max(0.0, 1.0 - (sched.num_active + len(sched.pending)) / cap)
+        probe = getattr(self.engine.pool, "page_occupancy", None)
+        if probe is None:
+            return slots
+        occ = probe()
+        return min(slots, (occ["free"] + occ["reclaimable"])
+                   / max(1, occ["total"]))
 
     def start(self) -> None:
         if self._thread is not None:
@@ -219,7 +248,10 @@ class EngineClient:
 
     def submit(self, request: Union[GenerationRequest, Request]) -> RequestHandle:
         """Validate + enqueue; returns the lifecycle handle immediately.
-        Invalid requests raise here, before anything is enqueued."""
+        Invalid requests raise here, before anything is enqueued; with
+        admission control, a rate-limited or shed request raises the typed
+        :class:`~repro_torch.core.admission.AdmissionError` (429/503 with
+        ``retry_after``) instead of queueing."""
         if isinstance(request, Request):
             reqs = [request]
         else:
@@ -230,12 +262,25 @@ class EngineClient:
                 raise RuntimeError("EngineClient is stopped")
             admitted: List[Request] = []
             try:
-                for r in reqs:
-                    self.engine.add_request(r)
-                    admitted.append(r)
+                if self._admission is not None:
+                    # validation errors raise here, not later on the loop
+                    # thread, so validate before the admission queue
+                    for r in reqs:
+                        self.engine.validate_request(r)
+                    for r in reqs:
+                        self._admission.submit(r)
+                        admitted.append(r)
+                else:
+                    for r in reqs:
+                        self.engine.add_request(r)
+                        admitted.append(r)
             except BaseException:
                 # roll back the partial fan-out so no orphan choice decodes
-                self._aborts.extend(r.request_id for r in admitted)
+                for r in admitted:
+                    if self._admission is not None:
+                        self._admission.drop(r.request_id)
+                    else:
+                        self._aborts.append(r.request_id)
                 self._cv.notify()
                 raise
             for r in reqs:
@@ -251,22 +296,35 @@ class EngineClient:
         out = dict(self.engine.scheduler.snapshot())
         out["loop_errors"] = self._loop_errors
         out["content_cache"] = self.engine.content_cache_stats()
+        if self._admission is not None:
+            out["admission"] = self._admission.snapshot()
         return out
 
     @property
     def alive(self) -> bool:
         return self._thread is not None and self._thread.is_alive()
 
+    @property
+    def ready(self) -> bool:
+        """Readiness: alive and not shedding all traffic (load balancers
+        route away before clients see 503 bodies)."""
+        return self.alive and (self._admission is None
+                               or self._admission.level < LEVEL_SHED_ALL)
+
     def _request_abort(self, request_ids: List[int]) -> None:
         with self._cv:
             self._aborts.extend(request_ids)
             self._cv.notify()
 
+    def _has_work(self) -> bool:
+        return self.engine.scheduler.has_work or (
+            self._admission is not None and self._admission.queue_depth > 0)
+
     def _run(self) -> None:
         engine = self.engine
         while True:
             with self._cv:
-                while (not engine.scheduler.has_work and not self._aborts
+                while (not self._has_work() and not self._aborts
                        and not self._stop):
                     self._cv.wait(timeout=0.5)
                 if self._stop:
@@ -276,9 +334,19 @@ class EngineClient:
             events: List[StreamEvent] = []
             try:
                 # aborts land at the block boundary, before the next
-                # admission plan: the freed slot is reusable in this step
+                # admission plan: the freed slot is reusable in this step;
+                # a request still waiting at admission is dropped there
                 for rid in aborts:
-                    events.extend(engine.abort(rid))
+                    dropped = (self._admission.drop(rid)
+                               if self._admission is not None else None)
+                    if dropped is not None:
+                        events.extend(self._finish_unstarted(
+                            dropped, FinishReason.ABORT,
+                            RequestStatus.ABORTED))
+                    else:
+                        events.extend(engine.abort(rid))
+                if self._admission is not None:
+                    events.extend(self._admission_round())
                 if engine.scheduler.has_work:
                     events.extend(engine.step())
             except Exception:
@@ -292,6 +360,36 @@ class EngineClient:
                         handle._on_event(ev)
                         if ev.finished:
                             del self._handles[ev.request_id]
+
+    @staticmethod
+    def _finish_unstarted(req: Request, reason: FinishReason,
+                          status: RequestStatus,
+                          error: Optional[str] = None) -> List[StreamEvent]:
+        """Terminal event of a request that never reached the engine (still
+        in the admission queue): a queue-wait timeout or an abort."""
+        req.finish_reason = reason
+        req.status = status
+        req.finish_time = time.monotonic()
+        req.error = error
+        return [StreamEvent(req.request_id, None, "", finished=True,
+                            finish_reason=reason)]
+
+    def _admission_round(self) -> List[StreamEvent]:
+        """One fair-release round: expire overdue waiters (typed
+        ``timeout`` finishes) and release up to the engine queue's
+        headroom in weighted-fair order."""
+        sched = self.engine.scheduler
+        ready, expired = self._admission.poll(
+            max(0, sched.max_batch - len(sched.pending)))
+        events: List[StreamEvent] = []
+        for req in expired:
+            events.extend(self._finish_unstarted(
+                req, FinishReason.TIMEOUT, RequestStatus.FAILED,
+                error=(f"queue-wait timeout after "
+                       f"{self._admission.queue_timeout_s:g}s")))
+        for req in ready:
+            self.engine.add_request(req)       # validated at submit
+        return events
 
     def _fail_all(self) -> List[StreamEvent]:
         """After an unexpected engine error the device state of every slot

@@ -2,9 +2,12 @@
 reference package's threaded ``serving/server.py`` transport).
 
 Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions`` (with
-``"stream": true`` -> SSE), ``GET /v1/models``, ``GET /stats`` and ``GET
-/healthz``.  Every error is the structured OpenAI envelope ``{"error":
-{message, type, param, code}}`` with the matching HTTP status.  A client
+``"stream": true`` -> SSE; the OpenAI ``user`` field or an ``x-tenant``
+header selects the admission tenant), ``GET /v1/models``, ``GET /stats``,
+``GET /healthz`` (liveness) and ``GET /readyz`` (readiness: 503 while
+shedding all traffic).  Every error is the structured OpenAI envelope
+``{"error": {message, type, param, code}}`` with the matching HTTP status;
+an overload rejection (429/503) also carries a ``Retry-After`` header.  A client
 that disconnects during an SSE stream closes the chunk generator, which
 aborts the in-flight request."""
 from __future__ import annotations
@@ -22,16 +25,22 @@ def make_handler(api: OpenAIServer):
         def log_message(self, *a):  # quiet
             pass
 
-        def _send_json(self, obj, code=200):
+        def _send_json(self, obj, code=200, headers=None):
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
         def _send_error(self, err: OpenAIError):
-            self._send_json(err.to_dict(), err.status)
+            headers = {}
+            if err.retry_after is not None:
+                headers["Retry-After"] = str(max(1, int(err.retry_after
+                                                        + 0.5)))
+            self._send_json(err.to_dict(), err.status, headers)
 
         def _not_found(self):
             self._send_error(OpenAIError(f"unknown route {self.path}",
@@ -44,6 +53,9 @@ def make_handler(api: OpenAIServer):
                 self._send_json(api.stats())
             elif self.path == "/healthz":
                 payload, code = api.healthz()
+                self._send_json(payload, code)
+            elif self.path == "/readyz":
+                payload, code = api.readyz()
                 self._send_json(payload, code)
             else:
                 self._not_found()
@@ -91,6 +103,11 @@ def make_handler(api: OpenAIServer):
             blocking, streaming = route
             try:
                 body = self._read_body()
+                # the x-tenant header maps to the OpenAI `user` field (the
+                # admission tenant); an explicit body field wins
+                tenant = self.headers.get("x-tenant")
+                if tenant and "user" not in body:
+                    body["user"] = tenant
                 if body.get("stream"):
                     self._stream_sse(streaming(body))
                 else:

@@ -450,10 +450,19 @@ def test_cow_prefix_hit_does_zero_copies(weights):
 
 
 def test_arena_below_full_capacity_is_refused(weights):
+    """Arenas below full capacity are served now (the pressure ladder of
+    ``tests/test_torch_preemption.py`` runs them); what stays refused is an
+    arena with no page past the reserved ones and int8 KV on the dense
+    layout."""
     tcfg, tp = weights[1], weights[3]
-    with pytest.raises(NotImplementedError, match="preemption"):
+    small = InferenceEngine(tcfg, tp, device="cpu", max_batch=2,
+                            cache_len=128, kv_layout="paged",
+                            kv_page_size=16, kv_num_pages=12)
+    assert small.pool.num_pages == 12
+    assert small.pool.page_occupancy()["total"] == 12 - 2
+    with pytest.raises(ValueError, match="reserved"):
         InferenceEngine(tcfg, tp, device="cpu", max_batch=2, cache_len=128,
-                        kv_layout="paged", kv_page_size=16, kv_num_pages=12)
+                        kv_layout="paged", kv_page_size=16, kv_num_pages=2)
     with pytest.raises(ValueError, match="paged"):
         InferenceEngine(tcfg, tp, device="cpu", kv_dtype="int8")
     full = paged_kv.PagedKVPool.full_capacity(2, 128, 16)
