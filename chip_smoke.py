@@ -40,12 +40,18 @@ Phases (any failure exits non-zero and prints no result line):
    run against the dense one through the kernels; the prompt + the 8
    decoded tokens prefilled as one sequence (how a preempted request whose
    snapshot was lost resumes) against the 8th decode step, dense and
-   paged (the same limits); then
+   paged (the same limits); a speculative verify round over ``[last, d_0
+   .. d_3]`` (``d`` the model's own next greedy tokens) against 5
+   sequential decode steps, dense and paged (the same limits, every draft
+   accepted, the kept cells equal to the sequential run's), and a round
+   with a wrong draft per row that must restore every cell past the
+   accepted prefix bit for bit; then
    ``llama-3.2-vision-90b`` at published widths and 5 layers (4 self-attn +
    1 gated cross-attn, gates set to 0.5) in float32 with images: prefill,
    the same prefill with the cross KV injected (content-cache hit), 8
    decode steps, kernels against plain (the same limits), fresh against
-   cross-cached logits, and a different image moving the logits; then, each
+   cross-cached logits, a different image moving the logits, and the
+   verify check through the cross-attention S > 1 branch; then, each
    in float32 at published widths and freed before the next, like
    ``qwen2-0.5b`` (dense and paged, kernels vs plain): ``deepseek-moe-16b``
    at 3 layers (the dense layer 0 and 2 stacked MoE layers, capacity
@@ -101,7 +107,22 @@ Phases (any failure exits non-zero and prints no result line):
    finish_reason and usage is checked, and each round's launch counters
    are zeroed just before it and read just after (4h-b: 24 paged
    launches per decode step, 24 flash per prefill wave, dense decode
-   never);
+   never); 4i — speculative decoding on ``qwen2-0.5b`` (bf16, 24 layers,
+   ``max_batch`` 8, ``cache_len`` 2048, ``spec_k`` 4): (a) n-gram on the
+   dense ring serving the 4a mix plus 6 repetition-heavy requests, beside
+   the same rounds with spec off; (b) the same on 16-token fp pages with
+   the prefix cache on (no page pinned or copied, every page free or a
+   cache lease); (c) a draft model with the target's own weights, the
+   engine alone on 8 greedy requests (acceptance > 0.3, draft pool > 0
+   bytes) and a seeded stochastic request replayed; (d) a server built
+   by ``launch/serve.py --spec-mode ngram`` over HTTP (one request
+   streamed) with the ``/stats`` ``speculation`` block.  Each requires
+   rounds > 0, accepted > 0 and drafted = accepted + rejected, and counts
+   launches per round: 24 x (block decode steps + 5 x verify rounds) on
+   the layout's kernel, + 24 x 4 x draft rounds on decode in (c), flash
+   24 x (prefill waves + the draft's prime prefills); it reads the share
+   of texts equal to spec off, tokens/s of both, accepted tokens a round,
+   and forwards against emitted tokens;
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -113,7 +134,7 @@ Phases (any failure exits non-zero and prints no result line):
    ``moe_*`` columns); decode's and paged's time against their number of
    splits.
 
-The last lines are one ``serve`` JSON line, one
+The last lines are one ``serve`` JSON line, one ``spec`` JSON line, one
 ``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -717,6 +738,166 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
     return sum(drops[:n_prefill]) if "moe" in kinds else None
 
 
+class CapturingModel:
+    """A model whose ``apply`` keeps the logits of its last call (the
+    verify round returns tokens; phase 3 holds its logits too)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, None
+
+    def apply(self, *args, **kw):
+        out = self.model.apply(*args, **kw)
+        self.logits = out.logits
+        return out
+
+
+def check_verify(torch, model, params, cache, last, lengths, *, what,
+                 cache_len, page_size=0, ctx_valid=None, spec_k=4):
+    """A speculative verify round over ``[last, d_0 .. d_3]`` through the
+    kernels (float32), ``d`` the model's own next greedy tokens, against
+    ``spec_k + 1`` sequential decode steps from the same prefilled
+    ``cache`` (a dense tree, or a paged arena with its ``page_table``):
+    logits at every position within 1e-3 with argmax equal, every draft
+    accepted and the cells kept; then a round whose rows carry a wrong
+    draft (row 0 at d_3, row 1 at d_1) must accept the prefix before it,
+    emit the target's token there, and leave every cell past the
+    accepted prefix as it was before the round (bit for bit)."""
+    from repro_torch.core.kv_cache import (admit_decode_state, gather_cells,
+                                           init_decode_state, restore_cells)
+    from repro_torch.core.spec_decode import (build_spec_verify_fn,
+                                              stage_drafts)
+    from repro_torch.models.model import tree_leaves, tree_map
+    paged = "page_table" in cache
+    b = last.shape[0]
+    rows = torch.arange(b, device="cuda")
+    kw = {}
+    if paged:
+        kw = dict(page_table=cache["page_table"],
+                  slot_active=torch.ones(b, dtype=torch.bool, device="cuda"))
+    if ctx_valid is not None:
+        kw["ctx_valid"] = ctx_valid
+    seq_cache = tree_map(torch.clone, cache)
+    if paged:
+        kw["page_table"] = seq_cache["page_table"]
+    seq_logits, fed, tok, pos = [], [last], last, lengths.clone()
+    for _ in range(spec_k + 1):
+        out = model.apply(params, tok[:, None], mode="decode",
+                          positions=pos[:, None], cache=seq_cache, **kw)
+        seq_logits.append(out.logits[:, 0])
+        tok = out.logits[:, 0].argmax(-1)
+        fed.append(tok)
+        pos = pos + 1
+    want = torch.stack(seq_logits, 1)                   # [B, S, V]
+    drafts = torch.stack(fed[1:spec_k + 1], 1)          # [B, k]
+
+    capture = CapturingModel(model)
+    verify = build_spec_verify_fn(capture, use_ctx=ctx_valid is not None,
+                                  n_top=1, paged=paged, cache_len=cache_len,
+                                  page_size=page_size)
+
+    def round_(stage):
+        work = tree_map(torch.clone, cache)
+        st = init_decode_state(b, 1, spec_k=spec_k,
+                               ctx_len=0 if ctx_valid is None
+                               else ctx_valid.shape[1], device="cuda")
+        admit_decode_state(st, list(range(b)), last_token=last.tolist(),
+                           positions=lengths.tolist(), temps=[0.0] * b,
+                           top_p=[1.0] * b, top_k=[0] * b, min_p=[0.0] * b,
+                           sample_key=[0] * b, budget=[100] * b,
+                           active=[True] * b,
+                           **({} if ctx_valid is None
+                              else {"ctx_valid": ctx_valid.cpu().numpy()}))
+        stage_drafts(st, stage, [spec_k] * b)
+        emit, n_acc, n_emit, _ = verify(params, work, st, spec_k=spec_k)
+        return work, emit.T, n_acc, n_emit
+
+    full, emit, n_acc, n_emit = round_(drafts)
+    torch.cuda.synchronize()
+    err = max_err(torch, capture.logits, want)
+    compare(torch, f"{what}: verify over [last, d_0..d_3] vs 5 sequential "
+            "decode steps", capture.logits.float(), want.float())
+    if n_acc.tolist() != [spec_k] * b or \
+            not torch.equal(emit, torch.stack(fed[1:], 1)):
+        raise AssertionError(f"{what}: all-correct drafts accepted "
+                             f"{n_acc.tolist()}, emitted {emit.tolist()}")
+    kept = max(max_err(torch, a, w) for a, w in zip(
+        tree_leaves(full), tree_leaves(seq_cache)))
+    wrong = drafts.clone()
+    bad_at = [spec_k - 1, 1][:b]
+    for r, j in enumerate(bad_at):
+        wrong[r, j] = (wrong[r, j] + 1) % model.cfg.vocab_size
+    got, emit, n_acc, n_emit = round_(wrong)
+    if n_acc.tolist() != bad_at or n_emit.tolist() != [j + 1 for j in bad_at]:
+        raise AssertionError(f"{what}: a wrong draft at {bad_at} accepted "
+                             f"{n_acc.tolist()}, emitted {n_emit.tolist()}")
+    for r, j in enumerate(bad_at):
+        if emit[r, :j + 1].tolist() != [int(t[r]) for t in fed[1:j + 2]]:
+            raise AssertionError(f"{what}: row {r} emitted "
+                                 f"{emit[r].tolist()}")
+    # put the kept cells (positions p0 .. p0 + n_emit - 1) back to their
+    # pre-round values; then the whole cache must equal the pre-round one
+    jidx = torch.arange(spec_k + 1, device="cuda")[None]
+    ring = (lengths[:, None] + jidx) % cache_len
+    if paged:
+        r_idx = got["page_table"][rows[:, None], ring // page_size].long()
+        c_idx = ring % page_size
+        names = ("k", "v", "k_scale", "v_scale")
+    else:
+        r_idx, c_idx, names = rows[:, None].expand_as(ring), ring, ("k", "v")
+    restore_cells(got, gather_cells(cache, r_idx, c_idx, names), r_idx,
+                  c_idx, jidx >= n_emit[:, None])
+    same = all(torch.equal(a, w) for a, w in zip(tree_leaves(got),
+                                                 tree_leaves(cache)))
+    log(f"  {what}: all-correct drafts accepted {spec_k} a row, kept cells "
+        f"vs sequential max|Δ| {kept:.3e}; wrong draft at {bad_at}: "
+        f"accepted {n_acc.tolist()}, emitted {n_emit.tolist()}, cells past "
+        f"the accepted prefix restored bit for bit: {same}")
+    if not same or kept > 1e-3:
+        raise AssertionError(f"{what}: rollback failed (restored {same}, "
+                             f"kept cells {kept})")
+    return {"max_abs_err": err, "kept_cells_err": kept}
+
+
+def check_model_verify(torch, ns, cfg, *, lengths=(300, 257), cache_len=512):
+    """Phase 3's verify check on ``cfg`` (float32, seeded weights): a
+    resume-prefill of 2 rows, then :func:`check_verify` over the dense
+    ring and over a 16-token-page arena."""
+    model = ns.Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    b, s = len(lengths), max(lengths)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda")
+    lengths = torch.tensor(lengths, device="cuda")
+    out = {}
+    with torch.no_grad():
+        for paged in (False, True):
+            cache = ns.init_cache(cfg, b, cache_len, device="cuda")
+            pos = torch.arange(s, device="cuda")[None].expand(b, s)
+            last = model.apply(params, tokens, mode="prefill", positions=pos,
+                               cache=cache, resume=True,
+                               seq_valid=pos < lengths[:, None],
+                               last_idx=lengths - 1).logits[:, 0].argmax(-1)
+            if paged:
+                pool = ns.PagedKVPool(cfg, b, cache_len, page_size=16,
+                                      dtype=torch.float32, device="cuda")
+                slots = [pool.allocate() for _ in range(b)]
+                pool.insert_many(slots, [ns.slice_cache_row(cache, i)
+                                         for i in range(b)],
+                                 consumed=lengths.tolist())
+                assert pool.ensure_decode_capacity(
+                    dict(zip(slots, lengths.tolist())), 5)
+                cache = pool.cache
+            label = f"{cfg.name} {'paged' if paged else 'dense'}"
+            out["paged" if paged else "dense"] = check_verify(
+                torch, model, params, cache, last, lengths, what=label,
+                cache_len=cache_len, page_size=16 if paged else 0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def vision_config(get_config, layers, dtype):
     """``llama-3.2-vision-90b`` at published widths, depth cut to ``layers``
     (one gated cross-attention layer per 5)."""
@@ -762,7 +943,9 @@ def image_moves_logits(torch, model, params, init_cache, ctx_len, what):
 def check_vision_model(torch, ops, get_config, Model, init_cache):
     """5 layers of llama-3.2-vision-90b (4 self-attn + 1 cross-attn) in
     float32 with images: prefill, the same prefill with the cross KV
-    injected (``cross_cached``), 8 decode steps; kernels vs plain."""
+    injected (``cross_cached``), 8 decode steps; kernels vs plain; then a
+    speculative verify round through the cross-attention S > 1 branch
+    (:func:`check_verify`), whose record is returned."""
     cfg = vision_config(get_config, 5, "float32")
     model = Model(cfg)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
@@ -820,6 +1003,11 @@ def check_vision_model(torch, ops, get_config, Model, init_cache):
             plain, plain_cached, _ = run(fed)
         image_moves_logits(torch, model, params, init_cache, ctx,
                            "5-layer float32")
+        cache = init_cache(cfg, b, cache_len, ctx_len=ctx, device="cuda")
+        last = prefill(cache, image_embeds=embeds).argmax(-1)
+        verify = check_verify(torch, model, params, cache, last, lengths,
+                              what=f"{VISION} 5 layers, cross S > 1",
+                              cache_len=cache_len, ctx_valid=ctx_valid)
     torch.cuda.synchronize()
     compare(torch, "vision, kernels vs plain", kern, plain)
     compare(torch, "vision cross-cached prefill, kernels vs plain",
@@ -832,6 +1020,7 @@ def check_vision_model(torch, ops, get_config, Model, init_cache):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return verify
 
 
 def compare(torch, what, got, want, tol=1e-3):
@@ -1020,6 +1209,9 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
         prof["engine_alone"] = profile_moe_ops(torch, engine, bodies[:6])
     stats = {k: after[k] - before[k] for k in
              ("retired", "aborted", "prefill_waves", "device_steps")}
+    spec = ({k: after["speculation"][k] - before["speculation"][k]
+             for k in SPEC_COUNTERS}
+            if engine_kw.get("spec_mode", "off") != "off" else None)
     if stats["retired"] != len(bodies) or stats["aborted"]:
         raise AssertionError(f"engine counters disagree: {stats}")
     layers = engine.cfg.num_layers
@@ -1039,6 +1231,8 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
              "decode_steps": stats["device_steps"], "launches": launches,
              "max_batch": 8, "cache_len": 2048, "dtype": "bfloat16",
              **engine_kw, "profiled_round": prof}
+    if spec is not None:
+        serve["speculation"] = spec
     # the engine and the client refer to each other: collect the cycle so
     # the next round's peak memory holds its own engine only
     del engine, client, server
@@ -1069,6 +1263,290 @@ def check_paged_serving(stats):
             pages["free"] + pages["reclaimable"] != pages["total"]:
         raise AssertionError(f"paged round: prefix cache {cache}, pages "
                              f"{pages}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 4i: speculative decoding
+# --------------------------------------------------------------------------- #
+SPEC_K = 4
+SPEC_COUNTERS = ("rounds", "tokens_drafted", "tokens_accepted",
+                 "tokens_rejected", "tokens_emitted")
+
+
+def repetition_bodies():
+    """6 repetition-heavy requests (code, a table, a refrain): prompt
+    lookup finds their trailing n-grams earlier in the context."""
+    texts = ["def f(x):\n    return x + 1\n" * 6,
+             "| id | name | qty |\n| 1 | bolt | 10 |\n" * 5,
+             "row row row your boat, gently down the stream. " * 6,
+             "for i in range(10):\n    print(i)\n" * 6,
+             "<item><key>a</key><value>1</value></item>\n" * 5,
+             "the cat sat on the mat and the cat sat on the mat " * 5]
+    return [("chat" if i % 2 else "completion",
+             ({"messages": [{"role": "user", "content": t}]} if i % 2
+              else {"prompt": t}) | {"max_tokens": 64})
+            for i, t in enumerate(texts)]
+
+
+def require_spec_launches(launches, rec, layers, *, decode_kernel, unused,
+                          draft_layers=0, draft_prefills=0):
+    """A spec round's launches: ``decode_kernel`` once per layer per block
+    decode step and ``spec_k + 1`` times per layer per verify round (plus
+    ``spec_k`` per draft layer per draft round on the dense decode kernel),
+    flash once per layer per prefill wave (plus one per draft layer per
+    prime prefill), ``unused`` never."""
+    spec = rec["speculation"]
+    rounds = spec["rounds"]
+    blocks = rec["decode_steps"] - rounds
+    want = {decode_kernel: layers * (blocks + (SPEC_K + 1) * rounds),
+            "flash_attention": layers * rec["prefill_waves"]
+            + draft_layers * draft_prefills, unused: 0}
+    want["decode_attention"] = want.get("decode_attention", 0) + \
+        draft_layers * SPEC_K * rounds
+    if any(launches[name] != n for name, n in want.items()) or \
+            rounds <= 0:
+        raise AssertionError(f"spec launch counts {launches}, want {want} "
+                             f"({blocks} block steps, {rounds} rounds)")
+    return want
+
+
+def spec_reading(rec) -> dict:
+    """Acceptance, accepted tokens a round and forwards per emitted token
+    of one counted spec round."""
+    sp = rec["speculation"]
+    if sp["tokens_drafted"] != sp["tokens_accepted"] + sp["tokens_rejected"]:
+        raise AssertionError(f"spec counters do not add up: {sp}")
+    return {"acceptance": sp["tokens_accepted"] / max(sp["tokens_drafted"], 1),
+            "accepted_per_round": sp["tokens_accepted"] / max(sp["rounds"], 1),
+            "device_steps": rec["decode_steps"],
+            "completion_tokens": rec["completion_tokens"]}
+
+
+def check_spec_serving(torch, serving, params):
+    """4i-a/b: ``qwen2-0.5b`` (bf16, 24 layers) serving the 4a mix plus 6
+    repetition-heavy requests with ``spec_mode="ngram"``, ``spec_k`` 4,
+    beside the same rounds with spec off — on the dense ring (a) and on
+    16-token fp pages with the prefix cache on (b).  Every request
+    finishes with the right usage, rounds > 0, tokens_accepted > 0 and
+    drafted = accepted + rejected; the kernels run exactly as counted; on
+    pages no page stays pinned, every page is free or a cache lease, and
+    no full copy is made.  Reads the share of texts equal to spec off,
+    tokens/s of both, accepted tokens a round, and forwards against
+    emitted tokens."""
+    bodies = serve_requests() + repetition_bodies()
+    out = {}
+    for label, layout in (("a_dense", {}),
+                          ("b_paged", dict(kv_layout="paged",
+                                           kv_page_size=16))):
+        runs = {}
+        for mode in ("off", "ngram"):
+            responses = []
+            spec = ({} if mode == "off"
+                    else dict(spec_mode="ngram", spec_k=SPEC_K))
+            launches, rec, stats, layers = check_serving(
+                *serving, bodies=bodies, profile=False, params=params,
+                responses=responses, **layout, **spec)
+            kern, other = (("paged_attention", "decode_attention") if layout
+                           else ("decode_attention", "paged_attention"))
+            if mode == "off":
+                require_launches(launches, rec, layers, decode_kernel=kern,
+                                 unused=other)
+            else:
+                require_spec_launches(launches, rec, layers,
+                                      decode_kernel=kern, unused=other)
+                rec["reading"] = spec_reading(rec)
+                if rec["speculation"]["tokens_accepted"] <= 0:
+                    raise AssertionError(f"4i {label}: no draft accepted: "
+                                         f"{rec['speculation']}")
+            if layout:
+                pages = stats["kv_pages"]
+                rec["kv_pages"] = pages
+                if pages["pinned"] or pages["full_copies"] or \
+                        pages["free"] + pages["reclaimable"] != pages["total"]:
+                    raise AssertionError(f"4i {label} {mode}: pages {pages}")
+            rec["texts"] = [text_of(b, r) for (_, b), r in
+                            zip(bodies, responses)]
+            runs[mode] = rec
+        same = [a == b for a, b in zip(runs["off"].pop("texts"),
+                                       runs["ngram"].pop("texts"))]
+        on, off = runs["ngram"], runs["off"]
+        rd = on["reading"]
+        log(f"  4i-{label}: spec {on['speculation']}; acceptance "
+            f"{rd['acceptance']:.3f}, {rd['accepted_per_round']:.2f} "
+            f"accepted a round (all slots); {on['decode_steps']} forwards "
+            f"for {on['completion_tokens']} tokens (spec off "
+            f"{off['decode_steps']} for {off['completion_tokens']}); "
+            f"{on['tokens_per_s']:.1f} tokens/s vs {off['tokens_per_s']:.1f} "
+            f"off; texts equal to spec off {sum(same)}/{len(same)}")
+        out[label] = {"identical_share": sum(same) / len(same), **runs}
+    return out
+
+
+def row_drift(torch, params, cfg, rows=8, s=SPEC_K + 1) -> dict:
+    """Which bf16 products of a decode step give a row another value when
+    the call carries more rows: each of layer 0's weight products and the
+    LM head on ``rows`` random rows alone against the same rows inside a
+    call of ``rows * s`` (a verify forward's M), max |Δ| (0: bit-identical);
+    and ``rmsnorm_var_rows``, the rows whose float32 mean of squares (the
+    variance inside ``layers.rmsnorm``) differs between the two calls."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    layer = {k: v[0] for k, v in params["block"]["pos0"]["attn"].items()
+             if k.startswith("w")}
+    layer.update({k: v[0] for k, v in params["block"]["pos0"]["ffn"].items()})
+    layer["lm_head"] = (params["embed"].T if cfg.tie_embeddings
+                        else params["lm_head"])
+    out = {}
+    for name, w in layer.items():
+        x = torch.randn((rows * s, w.shape[0]), generator=g, device="cuda",
+                        dtype=torch.float32).to(w.dtype)
+        out[name] = max_err(torch, x[:rows] @ w, (x @ w)[:rows])
+    x = torch.randn((rows, s, cfg.d_model), generator=g, device="cuda")
+    out["rmsnorm_var_rows"] = int(
+        (torch.mean(x[:, :1].contiguous() ** 2, dim=-1)
+         != torch.mean(x * x, dim=-1)[:, :1]).sum())
+    return out
+
+
+def check_draft_engine(torch, get_config, InferenceEngine, Request,
+                       SamplingParams, wrappers, params):
+    """4i-c: ``spec_mode="draft"`` with the target's own weights as the
+    draft (the reference's oracle test), the engine alone: 8 greedy
+    requests (2 of the mix, the 6 repetition-heavy ones) after a warm-up,
+    beside the same requests with spec off; greedy acceptance > 0.3; the
+    decode kernel runs 24 x (block steps + 5 x rounds) for the target plus
+    24 x 4 x rounds for the draft, flash 24 x (prefill waves + the draft's
+    prime prefills); a seeded stochastic request replays token for token
+    in two runs; ``draft_pool_bytes`` > 0."""
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    cfg = get_config("qwen2-0.5b")
+    texts = [prompt_text(k, b) for k, b in
+             (serve_requests()[3:5] + repetition_bodies())]
+
+    def reqs(**sp):
+        return [Request(prompt_tokens=tok.encode(t),
+                        sampling=SamplingParams(max_tokens=64, **sp))
+                for t in texts]
+
+    out = {}
+    for mode in ("off", "draft"):
+        spec = ({} if mode == "off" else
+                dict(spec_mode="draft", spec_k=SPEC_K, spec_draft_config=cfg,
+                     spec_draft_params=params))
+        eng = InferenceEngine(cfg, params, device="cuda", max_batch=8,
+                              cache_len=2048, prefill_chunk=512, seed=0,
+                              enable_prefix_cache=False, **spec)
+        eng.generate(reqs()[:2])                        # warm-up
+        sched = eng.scheduler.stats
+        before = (sched.device_steps, sched.prefill_waves,
+                  eng.speculation_stats(),
+                  eng._draft_source.prefills if mode == "draft" else 0)
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = eng.generate(reqs())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: w.launches for name, w in wrappers.items()}
+        n = sum(len(r.output_tokens) for r in done)
+        if not all(r.finish_reason is not None for r in done):
+            raise AssertionError("4i-c: a request did not finish")
+        rec = {"requests": len(done), "completion_tokens": n, "wall_s": wall,
+               "tokens_per_s": n / wall,
+               "decode_steps": sched.device_steps - before[0],
+               "prefill_waves": sched.prefill_waves - before[1],
+               "launches": launches,
+               "tokens": [r.output_tokens for r in done]}
+        if mode == "off":
+            require_launches(launches, rec, cfg.num_layers,
+                             decode_kernel="decode_attention",
+                             unused="paged_attention")
+        else:
+            sp = eng.speculation_stats()
+            rec["speculation"] = {k: sp[k] - before[2][k]
+                                  for k in SPEC_COUNTERS}
+            rec["draft_prefills"] = eng._draft_source.prefills - before[3]
+            rec["draft_pool_bytes"] = sp["draft_pool_bytes"]
+            require_spec_launches(
+                launches, rec, cfg.num_layers,
+                decode_kernel="decode_attention", unused="paged_attention",
+                draft_layers=cfg.num_layers,
+                draft_prefills=rec["draft_prefills"])
+            rec["reading"] = spec_reading(rec)
+            if rec["reading"]["acceptance"] <= 0.3 or \
+                    sp["draft_pool_bytes"] <= 0:
+                raise AssertionError(f"4i-c: acceptance "
+                                     f"{rec['reading']['acceptance']}, draft "
+                                     f"pool {sp['draft_pool_bytes']} bytes")
+            replay = []
+            for _ in range(2):
+                r = Request(prompt_tokens=tok.encode(texts[2]),
+                            sampling=SamplingParams(max_tokens=48,
+                                                    temperature=0.9,
+                                                    top_p=0.9, seed=42))
+                eng.generate([r])
+                replay.append(r.output_tokens)
+            if replay[0] != replay[1] or len(replay[0]) != 48:
+                raise AssertionError(f"4i-c: seeded replay differs: {replay}")
+            rec["seeded_replay_identical"] = True
+        out[mode] = rec
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = [a == b for a, b in zip(out["off"].pop("tokens"),
+                                   out["draft"].pop("tokens"))]
+    out["row_drift"] = row_drift(torch, params, cfg)
+    on, off = out["draft"], out["off"]
+    log(f"  4i-c draft = target weights: spec {on['speculation']}; greedy "
+        f"acceptance {on['reading']['acceptance']:.3f}, "
+        f"{on['reading']['accepted_per_round']:.2f} accepted a round (all "
+        "slots), "
+        f"{on['draft_prefills']} prime prefills, draft pool "
+        f"{on['draft_pool_bytes'] / 2**20:.1f} MiB; {on['decode_steps']} "
+        f"forwards for {on['completion_tokens']} tokens (off "
+        f"{off['decode_steps']} for {off['completion_tokens']}); "
+        f"{on['tokens_per_s']:.1f} tokens/s vs {off['tokens_per_s']:.1f} "
+        f"off; outputs equal to spec off {sum(same)}/{len(same)}; seeded "
+        "stochastic replay identical; 8 rows alone vs inside "
+        f"{8 * (SPEC_K + 1)} rows: {out['row_drift']}")
+    out["identical_share"] = sum(same) / len(same)
+    return out
+
+
+def check_spec_launcher(torch, serve_mod):
+    """4i-d: a server built by ``launch/serve.py --spec-mode ngram`` answers
+    a chat, a completion and a streamed chat over HTTP with the right
+    usage, and its ``/stats`` has the ``speculation`` block."""
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    args = serve_mod.parse_args(["--arch", "qwen2-0.5b", "--port", "0",
+                                 "--cache-len", "2048", "--spec-mode",
+                                 "ngram", "--spec-k", str(SPEC_K)])
+    srv = serve_mod.build_server(args)
+    srv.start()
+    try:
+        bodies = [b for b in repetition_bodies()[:2]] + [
+            ("chat", {"messages": [{"role": "user", "content":
+                                    "la la la la la la la la"}],
+                      "max_tokens": 32, "stream": True,
+                      "stream_options": {"include_usage": True}})]
+        tok = ByteTokenizer()
+        n = 0
+        for kind, body in bodies:
+            path = ("/v1/chat/completions" if kind == "chat"
+                    else "/v1/completions")
+            n += check_response(kind, body, post(srv.port, path, body), tok)
+        code, _, stats = http(srv.port, "/stats")
+        spec = stats.get("speculation")
+        if code != 200 or not spec or spec["mode"] != "ngram" or \
+                spec["k"] != SPEC_K:
+            raise AssertionError(f"4i-d: /stats speculation block {spec}")
+    finally:
+        srv.stop()
+        srv.api.client.stop()
+    log(f"  4i-d: launcher --spec-mode ngram served {len(bodies)} requests "
+        f"(one streamed), {n} completion tokens; /stats speculation {spec}")
+    return {"completion_tokens": n, "speculation": spec}
 
 
 # --------------------------------------------------------------------------- #
@@ -2352,7 +2830,9 @@ def main() -> int:
         return dataclasses.replace(get_config(name), dtype="float32", **kw)
 
     check_model(torch, ns3, f32("qwen2-0.5b"), reprefill=True)
-    check_vision_model(torch, ops, get_config, Model, init_cache)
+    verify3 = check_model_verify(torch, ns3, f32("qwen2-0.5b"))
+    verify3["vision"] = check_vision_model(torch, ops, get_config, Model,
+                                           init_cache)
     moe3 = f32(MOE, num_layers=3)
     drops = check_model(torch, ns3, moe3, phrase_row=True)
     log(f"  {MOE} prefill: capacity factor {moe3.moe.capacity_factor} "
@@ -2448,11 +2928,23 @@ def main() -> int:
     log("== 4h-b. the page-pressure ladder: the text mix on an arena below "
         "full capacity")
     pressure = check_pressure_serving(torch, serving, qwen_params)
+    log("== 4i-a/b. speculative decoding (n-gram, spec_k 4) on qwen2-0.5b: "
+        "the text mix + 6 repetition-heavy requests vs spec off, dense "
+        "ring, then 16-token pages with the prefix cache on")
+    spec = check_spec_serving(torch, serving, qwen_params)
+    log("== 4i-c. draft-model speculation, the target's own weights as the "
+        "draft")
+    spec["c_draft"] = check_draft_engine(torch, get_config, InferenceEngine,
+                                         Request, SamplingParams, wrappers,
+                                         qwen_params)
     del qwen_params
     gc.collect()
     torch.cuda.empty_cache()
     log("== 4h-c. admission control over HTTP (launcher-built servers)")
     admission = check_admission_serving(torch, serve_mod)
+    log("== 4i-d. a launcher-built server with --spec-mode ngram")
+    spec["d_launcher"] = check_spec_launcher(torch, serve_mod)
+    spec["phase3_verify"] = verify3
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
                 "flash_attention": paged_launches["flash_attention"],
@@ -2491,7 +2983,11 @@ def main() -> int:
                if k.startswith(("sdpa_on", "int8_pages", "cross_", "moe_",
                                 "shapes",
                                 "library", "split_sweep", "device_ms"))},
-            **({"media_round_launches": {"dense": media_launches[name],
+            **({"spec_round_launches": {
+                    "ngram_dense": spec["a_dense"]["ngram"]["launches"][name],
+                    "ngram_paged": spec["b_paged"]["ngram"]["launches"][name],
+                    "draft": spec["c_draft"]["draft"]["launches"][name]},
+                "media_round_launches": {"dense": media_launches[name],
                                          "paged": media_paged_launches[name]},
                 "moe_round_launches": {"dense": moe_dense_launches[name],
                                        "paged": moe_paged_launches[name]},
@@ -2528,6 +3024,7 @@ def main() -> int:
              "admission": admission,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"spec": spec, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -65,11 +65,23 @@ layer.  Under ``kv_layout="paged"`` a cross-KV entry leases accounting
 pages of the arena, and the pressure ladder evicts it after the prefix
 cache's entries.
 
+Speculative decoding (``spec_mode`` ``"ngram"`` or ``"draft"``,
+:mod:`repro_torch.core.spec_decode`): while no request or prefill chunk
+waits, a step stages up to ``spec_k`` drafts per live slot — prompt-lookup
+proposals from its own history, or ``spec_k`` steps of a draft model in its
+own pool — and runs ONE verify forward over ``spec_k + 1`` positions in
+place of the decode block, committing the longest accepted prefix plus one
+token a slot and rolling back the KV cells of rejected drafts.  N-gram
+rows emit exactly the spec-off stream; draft-model stochastic rows are
+rejection-sampled.  A slot whose ring would wrap inside a round, or whose
+budget leaves no draft, stages none; a step with nothing staged runs the
+ordinary decode block.
+
 Not ported yet (refused with ``NotImplementedError`` or ``ValueError``
-naming the ROADMAP item, or simply absent from ``/stats``): speculative
-decoding, audio models, fault injection, drain and handoff, shared-prefix
-``n`` groups (``n`` > 1 runs independent prefills; refused for media
-requests), speculative wave filling, and echo / prompt logprobs.
+naming the ROADMAP item, or simply absent from ``/stats``): audio models,
+fault injection, drain and handoff, shared-prefix ``n`` groups (``n`` > 1
+runs independent prefills; refused for media requests), speculative wave
+filling, and echo / prompt logprobs.
 """
 from __future__ import annotations
 
@@ -96,6 +108,10 @@ from repro_torch.core.sampling import (masked_sample_inner, request_base_key,
                                        validate_sampling_params)
 from repro_torch.core.scheduler import (ContinuousBatchingScheduler,
                                         SchedulingPolicy)
+from repro_torch.core.spec_decode import (DraftModelSource, DraftSource,
+                                          NGramDraftSource, SpecController,
+                                          SpecStats, build_spec_verify_fn,
+                                          stage_drafts)
 from repro_torch.core.streaming import StopSequenceChecker, TokenStreamDecoder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import not_ported
@@ -220,10 +236,30 @@ class InferenceEngine:
         cache_vision_kv: bool = True,
         content_cache_bytes: Optional[int] = None,  # None = cache_max_bytes
         vision_work_iters: int = 8,
+        spec_mode: str = "off",          # 'off' | 'ngram' | 'draft'
+        spec_k: int = 4,                 # max drafted tokens per round
+        spec_draft_config: Optional[Any] = None,  # name | ModelConfig
+        spec_draft_params: Optional[Any] = None,  # None = seeded init
+        spec_ngram_max: int = 3,         # longest lookup n-gram
     ):
         if cfg.audio is not None:
             raise not_ported("audio models (Model._encode_audio)",
                              "multimodal (audio)")
+        if spec_mode not in ("off", "ngram", "draft"):
+            raise ValueError(f"spec_mode must be 'off', 'ngram' or 'draft', "
+                             f"got {spec_mode!r}")
+        self.spec_mode = spec_mode
+        self.spec_k = max(1, spec_k) if spec_mode != "off" else 0
+        if spec_mode != "off":
+            if any(k.startswith("ssm") for k in cfg.layer_kinds()):
+                raise ValueError(
+                    "speculative decoding needs an attention decode path: "
+                    f"family '{cfg.family}' decodes recurrent state strictly "
+                    "one token at a time")
+            if spec_mode == "draft" and spec_draft_config is None:
+                raise ValueError("spec_mode='draft' requires "
+                                 "spec_draft_config (a config name or "
+                                 "ModelConfig for the draft model)")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', got "
                              f"{kv_layout!r}")
@@ -309,6 +345,7 @@ class InferenceEngine:
         self.reclaim_hint: Optional[Callable[[], bool]] = None
         self.state = init_decode_state(max_batch, max_stop_tokens,
                                        ctx_len=self.ctx_len,
+                                       spec_k=self.spec_k,
                                        device=self.device)
         # unseeded requests draw their base key from this engine-owned
         # stream (deterministic for a fixed engine seed + add order)
@@ -336,6 +373,47 @@ class InferenceEngine:
             floor *= 2
         self._bucket_floor = min(floor, b_max)
         self._seen_buckets: frozenset = frozenset()
+
+        # speculation: the counters and the controller exist when it is off
+        # too (a stable /stats block); the verify function and the draft
+        # source only when a mode is selected
+        self.spec_stats = SpecStats()
+        self.spec_controller = SpecController()
+        self._draft_source: Optional[DraftSource] = None
+        self._spec_verify_fn = None
+        if self.spec_mode != "off":
+            self._spec_verify_fn = build_spec_verify_fn(
+                self.model, use_ctx=self.media_kind != "none",
+                n_top=self.max_top_logprobs, paged=self._paged,
+                cache_len=cache_len,
+                page_size=self.pool.page_size if self._paged else 0)
+            if self.spec_mode == "draft":
+                self._draft_source = self._make_draft_source(
+                    spec_draft_config, spec_draft_params, max_batch,
+                    cache_len, seed)
+            else:
+                self._draft_source = NGramDraftSource(max_n=spec_ngram_max)
+
+    def _make_draft_source(self, dcfg, params, max_batch: int,
+                           cache_len: int, seed: int) -> DraftModelSource:
+        """The draft-model rung, behind the reference's gates: the draft
+        shares the target's vocab (its proposals are target token ids) and
+        is a text-only attention config."""
+        if isinstance(dcfg, str):
+            from repro_torch.configs import get_config
+            dcfg = get_config(dcfg)
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size}: draft proposals must be target "
+                "token ids")
+        if any(k.startswith("ssm") for k in dcfg.layer_kinds()) or \
+                dcfg.vision is not None or dcfg.audio is not None:
+            raise ValueError("the draft model must be a text-only "
+                             "attention config")
+        return DraftModelSource(dcfg, params, max_batch=max_batch,
+                                cache_len=cache_len, seed=seed,
+                                device=self.device)
 
     # ------------------------------------------------------------------ #
     # device steps
@@ -992,6 +1070,30 @@ class InferenceEngine:
                     for _, req, *_ in rows],
             stop_tokens=stops,
             active=[act for *_, act in rows])
+        if self.spec_mode == "off":
+            return
+        # speculation joins at the same single admission point: the
+        # acceptance EWMA resets optimistic, and the draft-model rung
+        # re-primes its KV from the slot's committed history (a resume from
+        # a preemption snapshot included)
+        for slot, _, _, _, _, act in rows:
+            if act:
+                self.spec_controller.on_admit(slot)
+        if isinstance(self._draft_source, DraftModelSource):
+            for slot, req, last, pos, _, act in rows:
+                base = req.prompt_tokens + req.output_tokens
+                if act and len(base) >= pos:
+                    self._draft_source.prime(slot, base[:pos] + [last])
+                else:       # frozen, or no history: the slot never drafts
+                    self._draft_source.release(slot)
+            self._draft_source.admit(
+                [slot for slot, *_ in rows],
+                [last for _, _, last, *_ in rows],
+                [pos for _, _, _, pos, *_ in rows],
+                [s[0] for s in samp], [s[1] for s in samp],
+                [s[2] for s in samp], [s[3] for s in samp],
+                [req.sample_key for _, req, *_ in rows],
+                [act for *_, act in rows])
 
     # ------------------------------------------------------------------ #
     # emit / finish / abort (the host side of the request lifecycle)
@@ -1076,6 +1178,15 @@ class InferenceEngine:
         self.scheduler.retire(slot)
         self.pool.free(slot)
         self._live_slots.discard(slot)
+        self._spec_release(slot)
+
+    def _spec_release(self, slot: int) -> None:
+        """Drop a slot's speculation state (EWMA entry, draft-pool primed
+        mark) when it detaches from its request — retire, eviction, abort
+        or failure; a resumed request re-primes at admission."""
+        if self.spec_mode != "off":
+            self.spec_controller.release(slot)
+            self._draft_source.release(slot)
 
     def _deactivate_slot(self, slot: int) -> None:
         """Freeze a slot's device row: the next decode block masks its
@@ -1113,6 +1224,7 @@ class InferenceEngine:
             self.scheduler.abort_slot(slot)
             self.pool.free(slot)
             self._live_slots.discard(slot)
+            self._spec_release(slot)
             self._deactivate_slot(slot)
         else:
             req = self.scheduler.abort_pending(request_id)
@@ -1219,6 +1331,7 @@ class InferenceEngine:
         self.scheduler.requeue(slot)
         self.pool.free(slot)
         self._live_slots.discard(slot)
+        self._spec_release(slot)
         # freeze the row so no decode block advances it before the next
         # admission lands in the slot
         self._deactivate_slot(slot)
@@ -1430,6 +1543,102 @@ class InferenceEngine:
         self.scheduler.add(req)
 
     # ------------------------------------------------------------------ #
+    # speculative decoding rounds
+    # ------------------------------------------------------------------ #
+    def _plan_spec_lens(self, reclaim_queued: bool
+                        ) -> Optional[Tuple[np.ndarray, Optional[np.ndarray]]]:
+        """Host-side staging plan for one draft-verify round: per-slot draft
+        lengths and (n-gram rung) the proposals ``[B, spec_k]``, or None to
+        run the ordinary decode block instead.
+
+        A slot stages no draft when (guards, in order): the scheduler is
+        under pressure or acceptance is on probation (``plan_spec_k`` = 0);
+        its ring would wrap inside the round (``pos + spec_k >= cache_len``
+        — a wrapped mask would let a verify query see cells written for
+        later queries of the same forward); its budget leaves no draft; or
+        (draft rung) its draft KV is not primed.  An all-zero plan returns
+        None, so an unspeculable batch keeps the K-step block."""
+        acceptance = self.spec_controller.tick()
+        k_cap = self.scheduler.plan_spec_k(self.spec_k, acceptance,
+                                           reclaim_queued=reclaim_queued)
+        if k_cap <= 0:
+            return None
+        lens = np.zeros((self.pool.max_batch,), np.int64)
+        draft_rung = isinstance(self._draft_source, DraftModelSource)
+        props = (None if draft_rung else
+                 np.zeros((self.pool.max_batch, self.spec_k), np.int64))
+        for slot, pos in self._live_positions().items():
+            req = self.scheduler.active[slot]
+            if pos + self.spec_k >= self.pool.cache_len:
+                continue
+            kmax = min(k_cap, req.sampling.max_tokens - req.num_generated - 1)
+            if kmax <= 0:
+                continue
+            if draft_rung:
+                if self._draft_source.primed(slot):
+                    lens[slot] = kmax
+            else:
+                p = self._draft_source.propose(
+                    req.prompt_tokens + req.output_tokens, kmax)
+                if p:
+                    props[slot, :len(p)] = p
+                    lens[slot] = len(p)
+        if not lens.any():
+            return None
+        return lens, props
+
+    def _dispatch_spec_round(self, lens: np.ndarray,
+                             drafts: Optional[np.ndarray], want_lp: bool,
+                             any_stochastic: bool, any_mask: bool
+                             ) -> Dict[str, Any]:
+        """Stage the drafts (the n-gram proposals, or a draft-model round's)
+        and run one verify round (in place); returns the block plan and the
+        per-slot accounting tensors."""
+        fix = q = None
+        if self._paged:
+            # the verify forward writes up to spec_k + 1 positions a slot
+            self._ensure_paged_capacity(self.spec_k + 1)
+        if isinstance(self._draft_source, DraftModelSource):
+            snap, start_pos, drafts, q = \
+                self._draft_source.draft_round(self.spec_k)
+            fix = (snap, start_pos)
+        stage_drafts(self.state, drafts, lens)
+        toks, n_acc, n_emit, lps = self._spec_verify_fn(
+            self.params, self.pool.cache, self.state, q, spec_k=self.spec_k,
+            want_logprobs=want_lp, use_q=self._draft_source.uses_q,
+            any_stochastic=any_stochastic, any_mask=any_mask)
+        if fix is not None:
+            self._draft_source.fixup(self.spec_k, *fix, self.state)
+        return {"plan": (self.spec_k + 1, toks, lps),
+                "lens": lens, "n_acc": n_acc, "n_emit": n_emit}
+
+    def _account_spec_round(self, meta: Dict[str, Any]) -> None:
+        lens = meta["lens"]
+        n_acc = meta["n_acc"].cpu().numpy()
+        n_emit = meta["n_emit"].cpu().numpy()
+        st = self.spec_stats
+        st.rounds += 1
+        st.emitted += int(n_emit.sum())
+        for slot in np.nonzero(lens)[0]:
+            d = int(lens[slot])
+            a = int(min(n_acc[slot], d))
+            st.drafted += d
+            st.accepted += a
+            st.rejected += d - a
+            self.spec_controller.observe(int(slot), d, a)
+
+    def speculation_stats(self) -> Dict[str, Any]:
+        """The speculation block of ``GET /stats`` (plain-int reads, the
+        concurrency contract of ``scheduler.snapshot``)."""
+        out: Dict[str, Any] = {"mode": self.spec_mode, "k": self.spec_k}
+        out.update(self.spec_stats.snapshot())
+        out["slot_acceptance_ewma"] = self.spec_controller.snapshot()
+        out["draft_pool_bytes"] = (
+            self._draft_source.nbytes
+            if isinstance(self._draft_source, DraftModelSource) else 0)
+        return out
+
+    # ------------------------------------------------------------------ #
     def step(self) -> List[StreamEvent]:
         """One scheduler iteration (paper Alg.1 loop body, K tokens): the
         decode block is dispatched first and the prefill wave second, and
@@ -1437,27 +1646,37 @@ class InferenceEngine:
         events: List[StreamEvent] = []
         self._plan_admissions()
 
-        block_plan = None
+        block_plan = spec_meta = None
         if self._live_slots:
             reclaim_q = bool(self.reclaim_hint is not None
                              and self.reclaim_hint())
             live_reqs = [r for s, r in self.scheduler.active.items()
                          if s in self._live_slots]
             samp = [self._resolve_sampling(r) for r in live_reqs]
-            num_steps = self.scheduler.plan_decode_block(
-                self.max_decode_block, reclaim_queued=reclaim_q)
-            if self._paged:
-                # the block's KV writes must land on exclusively-owned
-                # pages, under the pressure ladder (which can shrink the
-                # live set)
-                self._ensure_paged_capacity(num_steps)
-            toks, lps = self._decode_block(
-                num_steps,
-                want_logprobs=any(r.sampling.logprobs for r in live_reqs),
-                any_stochastic=any(s[0] > 0 for s in samp),
-                any_mask=any(s[1] < 1.0 or s[2] > 0 or s[3] > 0
-                             for s in samp if s[0] > 0))
-            block_plan = (num_steps, toks, lps)
+            want_lp = any(r.sampling.logprobs for r in live_reqs)
+            any_stochastic = any(s[0] > 0 for s in samp)
+            any_mask = any(s[1] < 1.0 or s[2] > 0 or s[3] > 0
+                           for s in samp if s[0] > 0)
+            spec_plan = (self._plan_spec_lens(reclaim_q)
+                         if self._spec_verify_fn is not None else None)
+            if spec_plan is not None:
+                # draft-verify round: one wider forward commits up to
+                # spec_k + 1 tokens per slot
+                spec_meta = self._dispatch_spec_round(
+                    *spec_plan, want_lp, any_stochastic, any_mask)
+                block_plan = spec_meta["plan"]
+            else:
+                num_steps = self.scheduler.plan_decode_block(
+                    self.max_decode_block, reclaim_queued=reclaim_q)
+                if self._paged:
+                    # the block's KV writes must land on exclusively-owned
+                    # pages, under the pressure ladder (which can shrink
+                    # the live set)
+                    self._ensure_paged_capacity(num_steps)
+                toks, lps = self._decode_block(
+                    num_steps, want_logprobs=want_lp,
+                    any_stochastic=any_stochastic, any_mask=any_mask)
+                block_plan = (num_steps, toks, lps)
 
         # the encode wave and the prefill wave run behind the dispatched
         # block; encodes resolved here make requests admissible next step
@@ -1471,7 +1690,11 @@ class InferenceEngine:
             if lps is not None:
                 lp_c, lp_v, lp_i = (a.cpu().numpy() for a in lps)
             self.scheduler.stats.steps += 1
-            self.scheduler.stats.device_steps += num_steps
+            # a spec round is ONE forward however many rows it commits
+            self.scheduler.stats.device_steps += \
+                1 if spec_meta is not None else num_steps
+            if spec_meta is not None:
+                self._account_spec_round(spec_meta)
             live = {s: r for s, r in self.scheduler.active.items()
                     if s in self._live_slots}
             for k in range(num_steps):

@@ -61,12 +61,16 @@ class DecodeState:
     budget: torch.Tensor       # [B] int64 — tokens left before LENGTH stop
     stop_tokens: torch.Tensor  # [B, S] int64 — per-slot stop ids, -1 pad
     active: torch.Tensor       # [B] bool — False: slot frozen/empty
+    draft_tokens: torch.Tensor  # [B, K] int64 — staged speculative drafts
+    draft_len: torch.Tensor    # [B] int64 — drafts staged this round (<= K)
 
 
 def init_decode_state(max_batch: int, max_stop: int, *, ctx_len: int = 0,
+                      spec_k: int = 0,
                       device: DeviceLike = None) -> DecodeState:
     """An all-empty state on ``device`` (``cuda`` unless the caller asks
-    for another); ``ctx_len`` is the media context length (0: text)."""
+    for another); ``ctx_len`` is the media context length (0: text),
+    ``spec_k`` the most drafts a speculative round stages per slot."""
     device = resolve_device(device)
 
     def z(dtype, fill=0):
@@ -82,19 +86,93 @@ def init_decode_state(max_batch: int, max_stop: int, *, ctx_len: int = 0,
         budget=z(torch.int64),
         stop_tokens=torch.full((max_batch, max_stop), -1, dtype=torch.int64,
                                device=device),
-        active=z(torch.bool, False))
+        active=z(torch.bool, False),
+        draft_tokens=torch.zeros((max_batch, max(spec_k, 1)),
+                                 dtype=torch.int64, device=device),
+        draft_len=z(torch.int64))
 
 
 def admit_decode_state(state: DecodeState, slots: Sequence[int],
                        **rows: Sequence) -> None:
     """Scatter one admission wave (k slots) into the decode state in place:
     ``rows`` maps each :class:`DecodeState` field to its k new values (host
-    lists or arrays, uploaded here in one copy per field)."""
+    lists or arrays, uploaded here in one copy per field).  The slots'
+    staged drafts are cleared, as in the reference."""
     dev = state.active.device
     idx = torch.as_tensor(list(slots), dtype=torch.int64, device=dev)
     for name, values in rows.items():
         dst = getattr(state, name)
         dst[idx] = torch.as_tensor(values, dtype=dst.dtype, device=dev)
+    state.draft_tokens[idx] = 0
+    state.draft_len[idx] = 0
+
+
+# --------------------------------------------------------------------------- #
+# speculative-decode rollback (dense ring here, paged arena in paged_kv)
+# --------------------------------------------------------------------------- #
+def gather_cells(cache, rows: torch.Tensor, cols: torch.Tensor, names):
+    """Copies of the cells ``(rows[b, j], cols[b, j])`` of the leaves
+    ``names`` of every layer, as ``[B, S, ...]`` (stacked block layers
+    ``[L, B, S, ...]``) blocks in the reference's snapshot layout
+    (``{"prefix": [...], "block": {...}}``)."""
+    def g(sub, stacked):
+        return {n: (sub[n][:, rows, cols] if stacked else sub[n][rows, cols])
+                for n in sub if n in names}
+
+    out = {"prefix": [g(sub, False) for sub in cache["prefix"]]}
+    out["block"] = ({pos: g(sub, True) for pos, sub in cache["block"].items()}
+                    if cache.get("block") is not None else None)
+    return out
+
+
+def restore_cells(cache, snap, rows: torch.Tensor, cols: torch.Tensor,
+                  keep: torch.Tensor) -> None:
+    """In place, for every leaf of ``snap`` (a :func:`gather_cells` tree of
+    the same cells): each cell keeps its current value where ``keep``
+    ([B, S] bool) is True and takes its snapshot back where it is False.
+    The write is an indexed assignment without accumulation: the callers
+    give every repeated index the same value (see theirs)."""
+    b, s = keep.shape
+
+    def r(sub, sn, stacked):
+        for n, old in sn.items():
+            leaf = sub[n]
+            if stacked:
+                cur = leaf[:, rows, cols]
+                mask = keep.reshape((1, b, s) + (1,) * (cur.ndim - 3))
+                leaf[:, rows, cols] = torch.where(mask, cur, old)
+            else:
+                cur = leaf[rows, cols]
+                mask = keep.reshape((b, s) + (1,) * (cur.ndim - 2))
+                leaf[rows, cols] = torch.where(mask, cur, old)
+
+    for sub, sn in zip(cache["prefix"], snap["prefix"]):
+        r(sub, sn, False)
+    for pos, sub in (cache.get("block") or {}).items():
+        r(sub, snap["block"][pos], True)
+
+
+def _ring_rows(slots: torch.Tensor) -> torch.Tensor:
+    return torch.arange(slots.shape[0], device=slots.device)[:, None] \
+        .expand_as(slots)
+
+
+def gather_ring_cells(cache, slots: torch.Tensor):
+    """Snapshot the ring cells ``slots`` ([B, S] ring indices) of every
+    ``k``/``v`` leaf: the speculative verifier's pre-forward copy of the
+    cells its batched forward may overwrite (the reference's
+    ``gather_ring_cells``).  Cross-attention ``xk``/``xv`` are read-only in
+    decode and carry no per-position state."""
+    return gather_cells(cache, _ring_rows(slots), slots, ("k", "v"))
+
+
+def restore_ring_cells(cache, snap, slots: torch.Tensor,
+                       keep: torch.Tensor) -> None:
+    """Roll back the ring cells of rejected speculative positions in place
+    (``keep`` [B, S]: True keeps the forward's cell, False restores the
+    :func:`gather_ring_cells` snapshot).  A row's cells are consecutive
+    ring positions (S <= cache_len), so no index repeats."""
+    restore_cells(cache, snap, _ring_rows(slots), slots, keep)
 
 
 # --------------------------------------------------------------------------- #

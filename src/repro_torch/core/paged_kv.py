@@ -1,6 +1,7 @@
 """Paged KV pool of the port: a global page arena + per-slot page tables +
-copy-on-write sharing (the reference package's ``core/paged_kv.py``, less
-what only speculative decoding calls).
+copy-on-write sharing (the reference package's ``core/paged_kv.py``), and
+the speculative verifier's rollback of arena cells
+(:func:`gather_page_cells` / :func:`restore_page_cells`).
 
 KV memory is one arena of ``num_pages`` fixed-size pages per attention
 layer — ``k``/``v`` leaves are ``[N, page_size, Hkv, hd]`` (stacked block
@@ -49,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig
-from repro_torch.core.kv_cache import tree_bytes
+from repro_torch.core.kv_cache import gather_cells, restore_cells, tree_bytes
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.quant_matmul import quantize_kv_int8
 from repro_torch.models.layers import dtype_of
@@ -557,3 +558,34 @@ class PagedKVPool:
     @property
     def nbytes(self) -> int:
         return tree_bytes(self.cache)
+
+
+# --------------------------------------------------------------------------- #
+# speculative-decode rollback (paged variant of kv_cache.gather_ring_cells)
+# --------------------------------------------------------------------------- #
+def gather_page_cells(cache, pages: torch.Tensor, offs: torch.Tensor):
+    """Snapshot the arena cells ``(pages[b, j], offs[b, j])`` of every arena
+    leaf (``k``/``v`` and, on int8 pages, their scale leaves) as ``[B, S,
+    ...]`` blocks (stacked block layers ``[L, B, S, ...]``): the verifier's
+    pre-forward copy of the cells its batched forward may write.  Callers
+    redirect the cells of frozen rows to the slot's reserved trash cell
+    ``(b // ps, b % ps)``, as the attention write does, so a rollback never
+    writes a page another slot owns."""
+    return gather_cells(cache, pages, offs, ARENA_KEYS)
+
+
+def restore_page_cells(cache, snap, pages: torch.Tensor, offs: torch.Tensor,
+                       keep: torch.Tensor) -> None:
+    """Roll back rejected speculative cells of the arena in place (``keep``
+    [B, S]: True keeps the forward's cell, False restores the snapshot).
+
+    Why an indexed write without accumulation is safe although entries may
+    repeat a cell: a repeat comes only from the trash redirect, whose
+    entries all name the trash cell of their own row (distinct per slot),
+    and a redirected row is a frozen one, whose ``keep`` is False in every
+    column.  So every repeat of a cell writes the same value, the snapshot
+    gathered from that very cell before the forward, and the order in
+    which the repeats land cannot matter.  Live rows' cells lie on pages
+    the slot owns alone (``ensure_decode_capacity``) at distinct ring
+    positions, so they never repeat."""
+    restore_cells(cache, snap, pages, offs, keep)

@@ -21,7 +21,9 @@ What differs from the reference: the stream is a counter-based hash
 (:func:`uniform_noise`), turned into a categorical draw by the Gumbel-max
 rule, not JAX's threefry generator, so a seeded request draws other tokens
 than it does in the reference package (bit-replay of those streams is a
-ROADMAP item).  Greedy tokens are unaffected.
+ROADMAP item).  Greedy tokens are unaffected.  The speculative verifier's
+auxiliary draws (accept test, correction, draft sampling) come from salted
+streams on the same hash (:func:`salted_keys`), never from the plain one.
 """
 from __future__ import annotations
 
@@ -88,6 +90,56 @@ def mask_scaled_logits(
     n_keep = torch.minimum(torch.minimum(n_k, n_p), n_m).clamp(1, vocab)
     cutoff = torch.gather(sorted_desc, 1, (n_keep - 1)[:, None])
     return torch.where(scaled < cutoff, float("-inf"), scaled)
+
+
+def masked_probs(
+    logits: torch.Tensor,        # [B, V]
+    temperatures: torch.Tensor,  # [B] f32 (0 = greedy)
+    top_p: torch.Tensor,         # [B] f32 (1 = off)
+    top_k: torch.Tensor,         # [B] int (0 = off)
+    min_p: torch.Tensor,         # [B] f32 (0 = off)
+) -> torch.Tensor:
+    """[B, V] per-slot token distribution under the masked sampler: the
+    softmax of the masked scaled logits that the stochastic path draws
+    from; greedy slots get the argmax point mass.  The speculative
+    verifier's target ``p`` and draft ``q`` of the rejection test."""
+    logits = logits.float()
+    greedy = torch.nn.functional.one_hot(torch.argmax(logits, dim=-1),
+                                         logits.shape[-1]).float()
+    scaled = logits / temperatures.clamp_min(1e-6)[:, None]
+    masked = mask_scaled_logits(scaled, top_p, top_k, min_p)
+    return torch.where((temperatures > 0)[:, None],
+                       torch.softmax(masked, dim=-1), greedy)
+
+
+def salted_keys(base_keys: torch.Tensor, salt: int) -> torch.Tensor:
+    """[B] int64 base keys of an auxiliary stream: ``(base key, salt)``
+    hashed into a new 63-bit key, so ``uniform_noise(salted_keys(k, s),
+    position, ·)`` is a function of (base key, salt, position) that shares
+    no draw with the plain stream ``uniform_noise(k, position, ·)``, which
+    stays reserved for the tokens themselves."""
+    s = _mix32(torch.full_like(base_keys, salt & _MASK32))
+    lo, hi = base_keys & _MASK32, (base_keys >> 32) & _MASK32
+    new_lo = _mix32(lo ^ s)
+    new_hi = _mix32(hi ^ _mix32(s ^ 0x2545F491))
+    return ((new_hi >> 1) << 32) | new_lo
+
+
+def salted_uniform(base_keys: torch.Tensor, salt: int,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """[B] float32 uniforms in (0, 1), one per (slot, position), from the
+    ``salt`` stream (the accept test's ``u``)."""
+    return uniform_noise(salted_keys(base_keys, salt), positions, 1)[:, 0]
+
+
+def salted_categorical(base_keys: torch.Tensor, salt: int,
+                       positions: torch.Tensor,
+                       log_probs: torch.Tensor) -> torch.Tensor:
+    """[B] one draw per slot from ``softmax(log_probs)`` by the Gumbel-max
+    rule over the ``salt`` stream (-inf entries are never drawn)."""
+    u = uniform_noise(salted_keys(base_keys, salt), positions,
+                      log_probs.shape[-1])
+    return torch.argmax(log_probs - torch.log(-torch.log(u)), dim=-1)
 
 
 def masked_sample_inner(

@@ -8,6 +8,10 @@ otherwise.
       --arch llama-3.2-vision-90b ...   # image_url content parts
   ... --kv-layout paged --kv-num-pages 600 --sched-policy edf --preemption \\
       --tenant bulk=1:2 --max-queue-depth 64   # overload knobs
+  ... --spec-mode ngram --spec-k 4    # speculative decoding (/stats
+                                      # "speculation"); --spec-mode draft
+                                      # --spec-draft-config NAME pairs a
+                                      # draft model (reduced with --smoke)
 
 Admission control is on unless ``--no-admission``: per-tenant rate limits
 (429), a bounded fair queue with queue-wait expiry, and load shedding (503),
@@ -133,13 +137,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vision-work-iters", type=int, default=8,
                     help="vision encoder work multiplier (stubbed encoder "
                          "cost; higher = heavier encode, larger cache wins)")
+    ap.add_argument("--spec-mode", choices=("off", "ngram", "draft"),
+                    default="off",
+                    help="speculative decoding: off, self-speculative "
+                         "n-gram drafting from the request's own history, "
+                         "or a paired draft model (--spec-draft-config)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens verified per round (the "
+                         "scheduler halves/zeroes it when acceptance "
+                         "drops or pending work needs the batch)")
+    ap.add_argument("--spec-draft-config", default=None,
+                    help="registered model config name for the draft "
+                         "model (--spec-mode draft); must share the "
+                         "target's vocab and be text-only attention")
     return ap.parse_args(argv)
 
 
 def build_server(args: argparse.Namespace) -> ApiServer:
     cfg = get_config(args.arch)
+    spec_draft = args.spec_draft_config
     if args.smoke:
         cfg = cfg.reduced()
+        if spec_draft is not None:
+            # shrink the draft alongside the target, or its full-size vocab
+            # can never match the reduced target's
+            spec_draft = get_config(spec_draft).reduced()
     engine = InferenceEngine(
         cfg, device=args.device, max_batch=args.max_batch,
         cache_len=args.cache_len, seed=args.seed,
@@ -156,7 +178,9 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         cache_vision_kv=not args.no_vision_kv_cache,
         content_cache_bytes=(None if args.content_cache_mb is None
                              else args.content_cache_mb * 1024 * 1024),
-        vision_work_iters=args.vision_work_iters)
+        vision_work_iters=args.vision_work_iters,
+        spec_mode=args.spec_mode, spec_k=args.spec_k,
+        spec_draft_config=spec_draft)
     admission = None
     if not args.no_admission:
         admission = AdmissionController(

@@ -13,7 +13,9 @@ leaves without transposing.  Each block runs one of the reference's modes:
   * ``decode``  — one token per slot at per-slot positions over a dense
                   ring cache, or (with a ``page_table``) over one layer of
                   the paged arena of :mod:`repro_torch.core.paged_kv`, fp
-                  or int8.
+                  or int8; ``S > 1`` tokens per slot (speculative
+                  verification, ``positions [B, S]``, ``seq_valid``) run
+                  one decode-kernel call per position.
 
 An ``moe`` layer replaces the MLP with the reference's GShard-style
 capacity routing (:func:`apply_moe`): softmax top-k over a float32 router,
@@ -184,58 +186,82 @@ def apply_self_attn(
     elif mode == "decode" and page_table is not None:
         # paged KV: the cache holds one layer of the page arena [N, ps, Hkv,
         # hd] and each slot's cells are reached through page_table.  The
-        # engine's ensure_decode_capacity makes the write target a page the
+        # engine's ensure_decode_capacity makes the write targets pages the
         # slot owns alone; a frozen slot (slot_active False), whose pages
         # may already be freed and handed to another slot, redirects its
-        # write to its reserved trash cell (b // ps, b % ps).  So the
-        # indices of each indexed write below are distinct.
-        if s > 1:
-            raise not_ported("S > 1 paged decode (speculative verification)",
-                             "speculative decoding")
+        # write to its reserved trash cell (b // ps, b % ps), and so does a
+        # speculative cell past the slot's staged drafts (seq_valid False).
+        # So the indices of each indexed write below are distinct.
+        #
+        # S > 1 is speculative verification: for each position j, write
+        # cell j, then one paged-attention call for query j (whose live
+        # cells end at its own position, so the cells already written for
+        # j' > j stay masked).  Row j = 0 is exactly the S = 1 step.
         kc, vc = cache["k"], cache["v"]
+        ksc, vsc = cache.get("k_scale"), cache.get("v_scale")
         ps = kc.shape[1]
-        pos = positions[:, 0]
-        ring = pos % (ps * page_table.shape[1])
         bidx = torch.arange(b, device=x.device)
-        page = page_table[bidx, ring // ps].long()
-        off = ring % ps
-        if slot_active is not None:
-            page = torch.where(slot_active, page, bidx // ps)
-            off = torch.where(slot_active, off, bidx % ps)
-        pos32 = pos.to(torch.int32)
-        if "k_scale" in cache:                          # int8 arena
-            ksc, vsc = cache["k_scale"], cache["v_scale"]
-            kq, ks = quantize_kv_int8(k[:, 0])
-            vq, vs = quantize_kv_int8(v[:, 0])
-            kc[page, off], vc[page, off] = kq, vq
-            ksc[page, off], vsc[page, off] = ks, vs
-            out = ops.paged_attention(q[:, 0], kc, vc, page_table, pos32,
-                                      k_scale=ksc, v_scale=vsc)[:, None]
-        else:
-            kc[page, off], vc[page, off] = k[:, 0], v[:, 0]
-            out = ops.paged_attention(q[:, 0], kc, vc, page_table,
-                                      pos32)[:, None]
+        live = (slot_active if slot_active is not None
+                else torch.ones((b,), dtype=torch.bool, device=x.device))
+        # the kernel takes contiguous per-position rows: [S, B, ...] copies
+        # (no copy at S = 1)
+        qs = q.transpose(0, 1).contiguous()
+        pos_s = positions.t().contiguous()
+        outs = []
+        for j in range(s):
+            pos = pos_s[j]
+            ring = pos % (ps * page_table.shape[1])
+            page = page_table[bidx, ring // ps].long()
+            off = ring % ps
+            ok = live if seq_valid is None else live & seq_valid[:, j]
+            page = torch.where(ok, page, bidx // ps)
+            off = torch.where(ok, off, bidx % ps)
+            pos32 = pos.to(torch.int32)
+            if ksc is not None:                         # int8 arena
+                kq, ks = quantize_kv_int8(k[:, j])
+                vq, vs = quantize_kv_int8(v[:, j])
+                kc[page, off], vc[page, off] = kq, vq
+                ksc[page, off], vsc[page, off] = ks, vs
+                outs.append(ops.paged_attention(qs[j], kc, vc, page_table,
+                                                pos32, k_scale=ksc,
+                                                v_scale=vsc))
+            else:
+                kc[page, off], vc[page, off] = k[:, j], v[:, j]
+                outs.append(ops.paged_attention(qs[j], kc, vc, page_table,
+                                                pos32))
+        out = torch.stack(outs, dim=1)
         new_cache = cache
-    elif mode == "decode" and s > 1:
-        raise not_ported("S > 1 decode (speculative verification)",
-                         "speculative decoding")
     elif mode == "decode":
+        # one token per slot (S = 1), or S > 1 for speculative verification:
+        # the S cells are written under the masked-restore rule (a cell of a
+        # frozen slot, or past the slot's staged drafts, is rewritten with
+        # its old value), then one decode-attention call per position j
+        # over the ring up to its own position — never flash, so row j = 0
+        # is bit for bit the S = 1 step.  The engine stages no draft for a
+        # slot whose ring would wrap inside the round (a wrapped ring's
+        # mask is all live, and query j would see the cells of j' > j).
         kc, vc = cache["k"], cache["v"]
         sc = kc.shape[1]
-        pos = positions[:, 0]
-        slot = (pos % sc).long()                                        # [B]
-        bidx = torch.arange(b, device=x.device)
-        k1, v1 = k[:, 0], v[:, 0]
+        bidx = torch.arange(b, device=x.device)[:, None]
+        slots = (positions % sc).long()                                 # [B,S]
+        keep = seq_valid
         if slot_active is not None:
-            # frozen slots rewrite their cell with its old value
-            keep = slot_active[:, None, None]
-            k1 = torch.where(keep, k1, kc[bidx, slot])
-            v1 = torch.where(keep, v1, vc[bidx, slot])
-        kc[bidx, slot] = k1
-        vc[bidx, slot] = v1
+            keep = (slot_active[:, None] if keep is None
+                    else keep & slot_active[:, None])
+        if keep is not None:
+            keep = keep[..., None, None]
+            k = torch.where(keep, k, kc[bidx, slots])
+            v = torch.where(keep, v, vc[bidx, slots])
+        kc[bidx, slots] = k
+        vc[bidx, slots] = v
         idx = torch.arange(sc, device=x.device)[None, :]
-        valid = (idx <= pos[:, None]) | (pos[:, None] >= sc)            # ring
-        out = ops.decode_attention(q[:, 0], kc, vc, valid)[:, None]
+        qs = q.transpose(0, 1).contiguous()      # contiguous rows per j
+        outs = []
+        for j in range(s):
+            pos = positions[:, j:j + 1]
+            valid = (idx <= pos) | (pos >= sc)                          # ring
+            outs.append(ops.decode_attention(qs[j], kc, vc, valid))
+        out = torch.stack(outs, dim=1)
         new_cache = cache
     elif mode in ("train", "prefill"):
         out = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -293,15 +319,17 @@ def apply_cross_attn(
         out = ops.flash_attention(q, cache["xk"], cache["xv"], causal=False,
                                   kv_valid=ctx_valid)
     elif mode == "decode":
-        if s > 1:
-            raise not_ported("S > 1 cross-attention decode (speculative "
-                             "verification)", "speculative decoding")
+        # S > 1 (speculative verification): the context is the same for
+        # every position, so each query j takes one decode call over the
+        # shared mask
         xk, xv = cache["xk"], cache["xv"]
-        q = (hn @ p["wq"]).reshape(b, h, hd)
+        q = (hn @ p["wq"]).reshape(b, s, h, hd)
         valid = (torch.ones((b, xk.shape[1]), dtype=torch.bool,
                             device=x.device) if ctx_valid is None
                  else ctx_valid)
-        out = ops.decode_attention(q, xk, xv, valid)[:, None]
+        qs = q.transpose(0, 1).contiguous()      # contiguous rows per j
+        out = torch.stack([ops.decode_attention(qs[j], xk, xv, valid)
+                           for j in range(s)], dim=1)
     elif mode in ("train", "prefill"):
         hkv = cfg.num_kv_heads
         q = (hn @ p["wq"]).reshape(b, s, h, hd)

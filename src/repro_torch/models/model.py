@@ -142,7 +142,12 @@ class Model:
 
         With ``page_table`` (paged decode), ``cache`` is a paged arena: its
         layers are read and written through the table, and every other
-        top-level key (the arena's own ``page_table``) is left untouched."""
+        top-level key (the arena's own ``page_table``) is left untouched.
+
+        Decode takes ``S > 1`` tokens per slot too (speculative
+        verification): ``positions [B, S]`` and ``seq_valid [B, S]`` (the
+        slot's input and staged drafts) reach the layers as in prefill, and
+        the logits are ``[B, S, V]``."""
         cfg = self.cfg
         b, s = tokens.shape
         window_eff = cfg.sliding_window if window is None else window

@@ -484,11 +484,13 @@ class OpenAIServer:
     def stats(self) -> Dict[str, Any]:
         """Serving observability (``GET /stats``): scheduler and client
         counters with the ``content_cache`` block (media pipeline and
-        content-cache counters), the ``admission`` snapshot when admission
-        control is on, the engine's knobs, the ``prefix_cache`` block when
-        the cache is on, and under the paged layout a ``kv_pages`` block
-        (arena occupancy and allocator counters); subsystems not ported yet
-        (speculation, router) have no block."""
+        content-cache counters), the ``speculation`` block (mode, k, rounds
+        and drafted / accepted / rejected / emitted tokens, per-slot
+        acceptance EWMA, draft-pool bytes), the ``admission`` snapshot when
+        admission control is on, the engine's knobs, the ``prefix_cache``
+        block when the cache is on, and under the paged layout a
+        ``kv_pages`` block (arena occupancy and allocator counters); the
+        router, not ported yet, has no block."""
         eng = self.engine
         out = dict(self.client.stats())
         out.update({

@@ -296,6 +296,7 @@ class EngineClient:
         out = dict(self.engine.scheduler.snapshot())
         out["loop_errors"] = self._loop_errors
         out["content_cache"] = self.engine.content_cache_stats()
+        out["speculation"] = self.engine.speculation_stats()
         if self._admission is not None:
             out["admission"] = self._admission.snapshot()
         return out

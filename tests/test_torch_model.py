@@ -236,18 +236,22 @@ def _np_t(t):
 def test_unported_branches_name_their_roadmap_item(pair):
     _, tcfg, _, tp = pair
     attn = model.tree_map(lambda a: a[0], tp["block"]["pos0"]["attn"])
-    x = torch.zeros((1, 2, tcfg.d_model))
+    x = torch.ones((1, 2, tcfg.d_model))
     cache = model.init_cache(tcfg, 1, 8, device="cpu")["block"]["pos0"]
     cache = model.tree_map(lambda a: a[0], cache)
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
-                               positions=torch.zeros((1, 2), dtype=torch.long),
-                               cache=cache)
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
-                               positions=torch.zeros((1, 2), dtype=torch.long),
-                               cache=cache, page_table=torch.zeros(
-                                   (1, 1), dtype=torch.int32))
+    # S > 1 decode (speculative verification) is ported: dense and paged
+    # run, each giving one output row per position
+    pos2 = torch.arange(2)[None]
+    out, _ = layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
+                                    positions=pos2, cache=cache)
+    assert out.shape == x.shape
+    arena = {n: torch.zeros((2, 8) + leaf.shape[-2:])
+             for n, leaf in cache.items()}
+    out, _ = layers.apply_self_attn(attn, x, cfg=tcfg, mode="decode",
+                                    positions=pos2, cache=arena,
+                                    page_table=torch.ones((1, 1),
+                                                          dtype=torch.int32))
+    assert out.shape == x.shape and bool(arena["k"][1, :2].any())
     for kind, item in (("ssm_moe", "SSM"), ("ssm", "SSM")):
         with pytest.raises(NotImplementedError, match=item):
             layers.init_layer(torch.Generator(), kind, tcfg)

@@ -138,8 +138,10 @@ def test_stats_and_health(server):
     assert stats["tokens_generated"] >= 1 and stats["aborted"] == 0
     assert set(stats["prefix_cache"]) == {"entries", "hits", "misses"}
     assert stats["content_cache"]["encoder_invocations"] == 0
-    for absent in ("kv_pages", "admission", "speculation", "router"):
+    for absent in ("kv_pages", "admission", "router"):
         assert absent not in stats
+    assert stats["speculation"]["mode"] == "off"
+    assert stats["speculation"]["rounds"] == 0
     _, health = _request_json(server, {"method": "GET", "path": "/healthz"})
     assert health["ok"] is True
 
