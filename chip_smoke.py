@@ -122,7 +122,36 @@ Phases (any failure exits non-zero and prints no result line):
    the layout's kernel, + 24 x 4 x draft rounds on decode in (c), flash
    24 x (prefill waves + the draft's prime prefills); it reads the share
    of texts equal to spec off, tokens/s of both, accepted tokens a round,
-   and forwards against emitted tokens;
+   and forwards against emitted tokens; 4j — the rest of single-engine
+   serving on ``qwen2-0.5b`` (bf16, 24 layers, the served weights, the
+   engine alone unless named): (a) 24 prompts of 300–1500 tokens on 8
+   slots with speculative wave filling on and off, dense ring and fp
+   pages: the same tokens, speculative jobs opened and admitted, flash
+   24 x prefill waves either way; waves, the queued requests' TTFT and
+   tokens/s read; (b) ``n`` = 4 behind a ~650-token system prompt: the
+   prompt prefills once, 3 shared admits, no copy and no pinned page on
+   pages, every choice equal to an ``n`` = 1 request; 4d also serves an
+   ``n`` = 2 image request (admitted independently, one encoder call);
+   (c) the echo pass (phase 3's float32 model, TF32 off) through the
+   kernels against the plain versions and against prefills of the
+   prefix at 3 cut points (1e-3), and over HTTP one logprob per prompt
+   token, ``error_echo_stream``'s 400; (d) a ``FaultInjector`` at the
+   prefill, decode, codec and pool sites, 16 requests on each layout:
+   survivors equal a fault-free run, each failure one ``error`` naming an
+   injected fault, nothing pinned; then a decode block that raises with 8
+   live and 4 pending requests: the live fail, the pending finish, and
+   the peak of allocated memory across the rebuild stays less than one
+   arena above what was allocated before; (e) on launcher-built servers
+   a ``slow_step`` fault flips ``/readyz`` to 503 and back (the
+   watchdog), ``POST /admin/drain`` finishes 4 in-flight requests while a
+   new one gets the 503 ``draining`` envelope, and on pages a drain past
+   ``--drain-timeout`` publishes the 8 live slots' exact sequences and
+   aborts all 10 requests, no page pinned; (f) export mid-decode from one
+   engine and import into another, dense, fp and int8 pages: tokens equal
+   an undrained run, the 8 snapshots resume with no flash launch, their
+   cells (int8 values and scales) equal the exporter's bit for bit.  An
+   ``error`` finish that names no injected fault fails the run in every
+   phase;
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -1762,11 +1791,11 @@ def fire(port, bodies, headers=None):
     return threads, out
 
 
-def wait_for(cond, what, timeout=120.0):
+def wait_for(cond, what, timeout=120.0, phase="4h-c"):
     t0 = time.perf_counter()
     while not cond():
         if time.perf_counter() - t0 > timeout:
-            raise AssertionError(f"4h-c: {what} not reached")
+            raise AssertionError(f"{phase}: {what} not reached")
         time.sleep(0.005)
 
 
@@ -2143,6 +2172,27 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
         if miss != {"encoder_invocations": 1, "embed_misses": 1,
                     "xkv_misses": 1}:
             raise AssertionError(f"a new image did not miss: {miss}")
+        # (d) n = 2 with a new image: the choices admit independently (a
+        # group's shared value carries no context rows), one encoder call
+        g0, c5 = server.api.stats()["prefill_groups"], cc()
+        two_body = media_body("two takes", [image_urls(media, 105)[1]], n=2)
+        two = post(server.port, "/v1/chat/completions", two_body)
+        enc = delta(c5, cc(), "encoder_invocations")
+        g1 = server.api.stats()["prefill_groups"]
+        groups = {k: g1[k] - g0[k] for k in g1}
+        texts = [c["message"]["content"] for c in two["choices"]]
+        log(f"  n = 2 with a new image: {enc}, groups {groups}, "
+            f"finishes {[c['finish_reason'] for c in two['choices']]}, "
+            f"choices equal {len(set(texts)) == 1}")
+        if len(texts) != 2 or len(set(texts)) != 1 or \
+                enc != {"encoder_invocations": 1} or groups != {
+                    "groups": 1, "shared_admits": 0,
+                    "independent_fallbacks": 1} or \
+                any(c["finish_reason"] not in ("stop", "length")
+                    for c in two["choices"]):
+            raise AssertionError(f"n = 2 media request: {two}, {enc}, "
+                                 f"{groups}")
+        tokens += two["usage"]["completion_tokens"]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {name: w.launches for name, w in wrappers.items()}
@@ -2175,7 +2225,7 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
     else:
         want.update(paged_attention=0,
                     decode_attention=(n_self + n_cross) * steps)
-    log(f"  {layout}: 12 media requests, {tokens} completion tokens in "
+    log(f"  {layout}: 13 media requests, {tokens} completion tokens in "
         f"{wall:.3f} s, {waves} prefill waves, {steps} decode steps, "
         f"launches {launches} (flash: {n_self} causal + {n_cross} "
         f"non-causal D128 per wave; decode: {n_cross} cross-attention per "
@@ -2191,7 +2241,7 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
                 pages["full_copies"]:
             raise AssertionError(f"paged media round: {stats}, {pages}")
     record = {"layout": layout, "layers": cfg.num_layers,
-              "requests": 12, "completion_tokens": tokens, "wall_s": wall,
+              "requests": 13, "completion_tokens": tokens, "wall_s": wall,
               "tokens_per_s": tokens / wall, "prefill_waves": waves,
               "decode_steps": steps, "launches": launches,
               "ttft_cold_s": cold_ttft, "ttft_warm_s": warm_ttft,
@@ -2363,6 +2413,572 @@ def profile_round(torch, send_all):
     out = {"wall_s": wall, "device_busy_share": busy / wall,
            **{f"{k}_share": v / 1e6 / wall for k, v in device_us.items()}}
     log("  profiled round: " + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 4j: speculative wave filling, n groups, echo, faults with recovery,
+# the watchdog and drain, handoff (qwen2-0.5b, bf16, 24 layers)
+# --------------------------------------------------------------------------- #
+QWEN = "qwen2-0.5b"
+LAYOUTS_4J = {"dense": {}, "paged": dict(kv_layout="paged", kv_page_size=16)}
+USED = {"dense": ("decode_attention", "paged_attention"),
+        "paged": ("paged_attention", "decode_attention")}
+
+
+def engine_4j(ns, params, **kw):
+    """``qwen2-0.5b`` as phases 4a-4i serve it: 8 slots, a 2048 ring,
+    512-token chunks, the served weights."""
+    kw = {"max_batch": 8, "cache_len": 2048, "prefill_chunk": 512,
+          "seed": 0, **kw}
+    return ns.InferenceEngine(ns.get_config(QWEN), params, device="cuda",
+                              **kw)
+
+
+def random_prompts(ns, n, lo, hi, seed):
+    """``n`` prompts of random token ids from the upper half of the vocab
+    (past the byte tokenizer's specials), lengths from ``lo`` to ``hi``
+    staggered evenly."""
+    import numpy as np
+    vocab = ns.get_config(QWEN).vocab_size
+    rng = np.random.default_rng(seed)
+    return [rng.integers(vocab // 2, vocab,
+                         lo + (hi - lo) * i // max(1, n - 1)).tolist()
+            for i in range(n)]
+
+
+def zero(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def counted(wrappers) -> dict:
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+def drive(torch, engine, reqs, what, *, errors_ok=False):
+    """Add ``reqs`` at once and step the engine until it is idle; every
+    finish must be stop or length (an ``error`` fails the run unless
+    ``errors_ok``).  Returns (wall s, {request_id: finish events})."""
+    finishes = {}
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.add_request(r)
+    while engine.scheduler.has_work:
+        for ev in engine.step():
+            if ev.finished:
+                finishes.setdefault(ev.request_id, []).append(ev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bad = [(r.request_id, r.finish_reason, r.error) for r in reqs
+           if r.finish_reason is None or (r.finish_reason.value not in (
+               "stop", "length") and not (errors_ok and
+                                          r.finish_reason.value == "error"))]
+    if bad:
+        raise AssertionError(f"4j {what}: unexpected finishes {bad}")
+    return wall, finishes
+
+
+def require_engine_launches(launches, engine, layout, what, extra_flash=0):
+    """The layout's decode kernel 24 times per decode step, flash 24 times
+    per prefill wave (+ ``extra_flash`` forwards), the other never."""
+    st, layers = engine.scheduler.stats, engine.cfg.num_layers
+    used, unused = USED[layout]
+    want = {used: layers * st.device_steps, unused: 0,
+            "flash_attention": layers * (st.prefill_waves + extra_flash)}
+    if any(launches[k] != v for k, v in want.items()):
+        raise AssertionError(f"4j {what}: launches {launches}, want {want}")
+
+
+def check_spec_fill(torch, ns, wrappers, params):
+    """4j-a: 24 requests with staggered prompts of 300-1500 tokens on 8
+    slots (512-token chunks, so waves carry padding rows), with
+    speculative wave filling on and off, on the dense ring and on 16-token
+    fp pages: the same greedy tokens, ``spec_jobs``, ``spec_chunks`` and
+    ``spec_admitted`` > 0 with it on, flash 24 x prefill waves either way
+    (a backfilled row replaces a padding row: no launch of its own).
+    Reads waves, the TTFT of the 16 queued requests and tokens/s."""
+    prompts = random_prompts(ns, 24, 300, 1500, seed=11)
+    out = {}
+    for layout, kw in LAYOUTS_4J.items():
+        runs = {}
+        # the first run takes the first-call costs; off and on are read
+        for label, fill in (("warm", True), ("off", False), ("on", True)):
+            engine = engine_4j(ns, params, speculative_fill=fill, **kw)
+            reqs = [ns.Request(prompt_tokens=list(p),
+                               sampling=ns.SamplingParams(max_tokens=16))
+                    for p in prompts]
+            zero(wrappers)
+            wall, _ = drive(torch, engine, reqs, f"4j-a {layout} {label}")
+            launches = counted(wrappers)
+            require_engine_launches(launches, engine, layout,
+                                    f"4j-a {layout} {label}")
+            st = engine.scheduler.stats
+            ttft = sorted(r.first_token_time - r.arrival_time
+                          for r in reqs[8:])
+            done = sum(r.num_generated for r in reqs)
+            runs[label] = {
+                "tokens": [r.output_tokens for r in reqs],
+                "prefill_waves": st.prefill_waves,
+                "prefill_rows": st.prefill_chunks,
+                "spec_jobs": st.spec_jobs, "spec_chunks": st.spec_chunks,
+                "spec_admitted": st.spec_admitted, "wall_s": wall,
+                "tokens_per_s": done / wall,
+                "queued_ttft_mean_s": sum(ttft) / len(ttft),
+                "queued_ttft_p50_s": ttft[len(ttft) // 2],
+                "queued_ttft_max_s": ttft[-1], "launches": launches}
+            del engine
+        on, off = runs["on"], runs["off"]
+        same = on.pop("tokens") == off.pop("tokens")
+        runs.pop("warm")
+        log(f"  4j-a {layout}: spec fill on {on['spec_jobs']} jobs, "
+            f"{on['spec_chunks']} chunks, {on['spec_admitted']} admitted; "
+            f"waves {on['prefill_waves']} vs {off['prefill_waves']} off; "
+            f"queued TTFT mean {on['queued_ttft_mean_s']:.4f} s vs "
+            f"{off['queued_ttft_mean_s']:.4f} s off; "
+            f"{on['tokens_per_s']:.1f} vs {off['tokens_per_s']:.1f} "
+            f"tokens/s; tokens identical to off {same}")
+        if not same or min(on["spec_jobs"], on["spec_chunks"],
+                           on["spec_admitted"]) <= 0 or off["spec_jobs"]:
+            raise AssertionError(f"4j-a {layout}: identical {same}, {on}")
+        out[layout] = runs
+    return out
+
+
+def check_groups(torch, ns, wrappers, params):
+    """4j-b: ``n`` = 4 behind a ~600-token system prompt, the prefix cache
+    off, on the dense ring and on fp pages: the prompt prefills once
+    (``ceil(L / 512)`` chunks) and the 3 followers prefill 1 token each
+    (shared admits 3), flash 24 x prefill waves, 0 full copies and 0
+    pinned pages on pages, every choice equal to the others and to an
+    ``n`` = 1 request of the same prompt."""
+    from repro_torch.core.request import GenerationRequest
+    system = "You are a careful assistant for a parts catalogue. " * 12
+    text = f"<|system|>{system}<|user|>part number 7?<|assistant|>"
+    out = {}
+    for layout, kw in LAYOUTS_4J.items():
+        engine = engine_4j(ns, params, enable_prefix_cache=False, **kw)
+        prompt = engine.tokenizer.encode(text)
+        group = GenerationRequest(prompt=prompt, n=4, sampling=(
+            ns.SamplingParams(max_tokens=24))).to_requests(engine.tokenizer)
+        zero(wrappers)
+        drive(torch, engine, group, f"4j-b {layout}")
+        launches = counted(wrappers)
+        require_engine_launches(launches, engine, layout, f"4j-b {layout}")
+        st = engine.scheduler.stats
+        chunks = -(-len(prompt) // 512)
+        rec = {"prompt_tokens": len(prompt), "group_stats":
+               dict(engine.group_stats), "prefill_waves": st.prefill_waves,
+               "prefill_rows": st.prefill_chunks, "launches": launches}
+        if engine._paged:
+            rec["full_copies"] = engine.pool.stats.full_copies
+            rec["pinned"] = engine.pool.page_occupancy()["pinned"]
+        solo = ns.Request(prompt_tokens=list(prompt),
+                          sampling=ns.SamplingParams(max_tokens=24))
+        drive(torch, engine, [solo], f"4j-b {layout} n=1")
+        same = all(r.output_tokens == solo.output_tokens for r in group)
+        log(f"  4j-b {layout}: {len(prompt)}-token prompt, n 4: "
+            f"{rec['group_stats']}, {rec['prefill_waves']} waves / "
+            f"{rec['prefill_rows']} rows before the n = 1 request, launches "
+            f"{launches}, full copies {rec.get('full_copies')}, pinned "
+            f"{rec.get('pinned')}; choices equal to each other and to n = 1 "
+            f"{same}")
+        if rec["group_stats"] != {"groups": 1, "shared_admits": 3,
+                                  "independent_fallbacks": 0} or \
+                rec["prefill_rows"] != chunks + 3 or \
+                rec["prefill_waves"] != chunks + 1 or \
+                rec.get("full_copies") or rec.get("pinned") or not same:
+            raise AssertionError(f"4j-b {layout}: {rec}, same {same}")
+        out[layout] = rec
+        del engine
+    return out
+
+
+def check_echo_f32(torch, ns, cfg, wrappers, InferenceEngine, Request,
+                   SamplingParams):
+    """4j-c (in phase 3's float32 model, TF32 off): the engine's echo pass
+    over a 500-token prompt through the kernels (24 flash launches) against
+    the same pass through the plain versions, and at 3 cut points i the
+    log-softmax of the last row of a prefill of ``toks[:i]`` at
+    ``toks[i]`` (kernels), all within 1e-3."""
+    engine = InferenceEngine(cfg, device="cuda", max_batch=1, cache_len=2048)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (500,), generator=g,
+                         device="cuda").tolist()
+
+    def echo():
+        req = Request(prompt_tokens=toks, sampling=SamplingParams(
+            max_tokens=1, logprobs=True, echo=True))
+        engine._compute_prompt_logprobs(req)
+        return req.prompt_logprobs
+
+    with torch.no_grad():
+        zero(wrappers)
+        kern = echo()
+        launches = counted(wrappers)["flash_attention"]
+        with plain_attention(ns.ops):
+            plain = echo()
+        cuts = {}
+        for i in (50, 250, 499):
+            out = engine.model.apply(
+                engine.params, torch.tensor([toks[:i]], device="cuda"),
+                mode="prefill", cache=ns.init_cache(cfg, 1, 512,
+                                                    device="cuda"),
+                logits_mode="last")
+            cuts[i] = abs(kern[i] - float(torch.log_softmax(
+                out.logits[0, -1].float(), -1)[toks[i]]))
+    err = max(abs(a - b) for a, b in zip(kern[1:], plain[1:]))
+    log(f"  4j-c echo pass (float32, 500 tokens): kernels vs plain max "
+        f"|d logprob| {err:.3e}, vs prefills of the prefix at cut points "
+        f"{ {i: f'{e:.3e}' for i, e in cuts.items()} }, flash launches "
+        f"{launches}")
+    if kern[0] is not None or len(kern) != len(toks) or err > 1e-3 or \
+            max(cuts.values()) > 1e-3 or launches != cfg.num_layers:
+        raise AssertionError(f"4j-c echo: err {err}, cuts {cuts}, launches "
+                             f"{launches}")
+    del engine
+    return {"max_abs_err_vs_plain": err, "cut_point_err": cuts,
+            "flash_launches": launches}
+
+
+def check_chaos(torch, ns, wrappers, params):
+    """4j-d: a ``FaultInjector`` firing at the prefill, decode, codec and
+    pool sites, 16 requests on each layout beside a fault-free run: the
+    survivors' tokens equal the fault-free run's, each failed request has
+    one ``error`` finish naming an injected fault, an error that names none
+    fails the run, and no page stays pinned.  Then a decode block that
+    raises (after its launches), with 8 live and 4 pending requests: the
+    live ones fail, the pending ones finish, the engine serves again, and
+    across the rebuild the peak of allocated memory stays less than one
+    arena above what was allocated before (never two arenas at once)."""
+    from repro_torch.core.faults import FaultInjector
+    rates = {"prefill": 0.15, "decode": 0.005, "codec": 0.005, "pool": 0.2}
+    prompts = random_prompts(ns, 16, 100, 700, seed=13)
+    out = {}
+    for layout, kw in LAYOUTS_4J.items():
+        def reqs(base):
+            return [ns.Request(prompt_tokens=list(p), request_id=base + i,
+                               sampling=ns.SamplingParams(max_tokens=32))
+                    for i, p in enumerate(prompts)]
+        clean = reqs(40_000)
+        drive(torch, engine_4j(ns, params, **kw), clean,
+              f"4j-d {layout} fault-free")
+        inj = FaultInjector(seed=5, rates=rates)
+        engine = engine_4j(ns, params, faults=inj, **kw)
+        chaos = reqs(40_000)
+        _, finishes = drive(torch, engine, chaos, f"4j-d {layout} chaos",
+                            errors_ok=True)
+        failed = [r for r in chaos if r.finish_reason.value == "error"]
+        alien = [r.error for r in failed if "injected" not in r.error]
+        diverged = [r.request_id for r, c in zip(chaos, clean)
+                    if r.finish_reason.value != "error"
+                    and r.output_tokens != c.output_tokens]
+        once = all(len(finishes.get(r.request_id, ())) == 1 for r in chaos)
+        pinned = (engine.pool.page_occupancy()["pinned"] if engine._paged
+                  else 0)
+        rec = {"failed": len(failed), "survivors": len(chaos) - len(failed),
+               "fired": inj.snapshot(), "diverged": diverged,
+               "pinned": pinned}
+        log(f"  4j-d {layout} chaos {rates}: {len(failed)} failed "
+            f"({sorted({r.error.split(':')[0] for r in failed})}), "
+            f"{rec['survivors']} survivors, fired {rec['fired']}, survivors "
+            f"diverged from the fault-free run {diverged}, pinned {pinned}")
+        if alien or diverged or not once or pinned or \
+                not 0 < len(failed) < len(chaos):
+            raise AssertionError(f"4j-d {layout}: {rec}, errors not "
+                                 f"injected {alien}, one finish {once}")
+        rec["block_failure"] = block_failure(torch, ns, params, layout, kw)
+        out[layout] = rec
+        del engine
+    return out
+
+
+def block_failure(torch, ns, params, layout, kw):
+    """A decode block that raises after it ran (4j-d, second half)."""
+    engine = engine_4j(ns, params, **kw)
+    reqs = [ns.Request(prompt_tokens=list(p),
+                       sampling=ns.SamplingParams(max_tokens=64))
+            for p in random_prompts(ns, 12, 200, 400, seed=17)]
+    for r in reqs:
+        engine.add_request(r)
+    while len(engine._live_slots) < 8:
+        engine.step()
+    live = {engine.scheduler.active[s].request_id for s in engine._live_slots}
+    real = engine._decode_block
+
+    def boom(*a, **k):
+        real(*a, **k)
+        raise RuntimeError("injected decode-block failure")
+
+    engine._decode_block = boom
+    arena = engine.pool.nbytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    engine.step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    engine._decode_block = real
+    drive(torch, engine, [], f"4j-d {layout} after the failure",
+          errors_ok=True)
+    failed = {r.request_id for r in reqs if r.finish_reason.value == "error"}
+    finished = [r for r in reqs if r.finish_reason.value in ("stop",
+                                                             "length")]
+    again = [ns.Request(prompt_tokens=list(p),
+                        sampling=ns.SamplingParams(max_tokens=8))
+             for p in random_prompts(ns, 2, 50, 60, seed=19)]
+    drive(torch, engine, again, f"4j-d {layout} served again")
+    rec = {"live_failed": len(failed), "pending_finished": len(finished),
+           "arena_bytes": arena, "peak_above_before_bytes": peak}
+    log(f"  4j-d {layout} decode block raised: {len(failed)} live failed "
+        f"(decode block failed: injected), {len(finished)} pending finished, "
+        f"peak allocated {peak / 2**20:.1f} MiB above before the failure "
+        f"against a {arena / 2**20:.1f} MiB arena; served 2 more")
+    if failed != live or len(finished) != len(reqs) - len(live) or \
+            peak >= arena or not all(
+                "decode block failed: injected" in r.error
+                for r in reqs if r.request_id in failed):
+        raise AssertionError(f"4j-d {layout} block failure: {rec}")
+    del engine
+    return rec
+
+
+def check_watchdog_drain(torch, serve_mod):
+    """4j-e, on servers built as ``launch/serve.py`` builds them: a
+    ``slow_step`` fault (1.0 s steps, ``--watchdog-timeout 0.5``) flips
+    ``/readyz`` to 503 and back; the echo completion over a ~500-token
+    prompt (4j-c over HTTP) and ``error_echo_stream``'s 400; ``POST
+    /admin/drain`` lets 4 in-flight requests finish while a new one gets
+    the 503 ``draining`` envelope with ``Retry-After``; on 16-token pages a
+    drain past ``--drain-timeout`` publishes the 8 live slots' exact
+    sequences (pages incref'd), aborts all 10 requests and leaves no page
+    pinned."""
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    out = {}
+
+    def build(*flags):
+        # --shed-wait 0: a burst is judged by queue depth alone (with no
+        # release rate observed yet the estimated wait is infinite)
+        args = serve_mod.parse_args(["--arch", QWEN, "--port", "0",
+                                     "--cache-len", "2048", "--shed-wait",
+                                     "0", *flags])
+        srv = serve_mod.build_server(args)
+        srv.start()
+        return srv
+
+    srv = build("--watchdog-timeout", "0.5", "--fault-rate",
+                "slow_step=1.0")
+    api = srv.api
+    try:
+        api.engine.faults.slow_step_s = 1.0
+        states = []
+        threads, res = fire(srv.port, [chat("wedge me", 2)])
+        while threads[0].is_alive():
+            states.append(http(srv.port, "/readyz")[0])
+            time.sleep(0.05)
+        threads[0].join()
+        api.engine.faults = None
+        wait_for(lambda: http(srv.port, "/readyz")[0] == 200,
+                 "/readyz back to 200", timeout=10, phase="4j-e")
+        trips = api.client.stats()["watchdog"]["trips"]
+        out["watchdog"] = {"readyz_503_polls": states.count(503),
+                           "readyz_polls": len(states), "trips": trips}
+        log(f"  4j-e watchdog: /readyz 503 on {states.count(503)} of "
+            f"{len(states)} polls during 1.0 s steps, {trips} trips, 200 "
+            "after")
+        if res[0][0] != 200 or not states.count(503) or trips < 1:
+            raise AssertionError(f"4j-e watchdog: {out['watchdog']}, "
+                                 f"{res[0][0]}")
+        # echo over HTTP on the bf16 server
+        text = " ".join(f"word{i:03d}" for i in range(62))
+        body = {"prompt": text, "max_tokens": 4, "echo": True, "logprobs": 1}
+        code, _, resp = http(srv.port, "/v1/completions", body)
+        n_prompt = len(tok.encode(text))
+        lps = resp["choices"][0]["logprobs"]["token_logprobs"] \
+            if code == 200 else []
+        usage = resp.get("usage", {})
+        ok = (code == 200 and len(lps) == n_prompt
+              + usage.get("completion_tokens", -1) and lps[0] is None
+              and all(math.isfinite(x) and x <= 0 for x in lps[1:])
+              and resp["choices"][0]["text"].startswith(text))
+        stream_code = http(srv.port, "/v1/completions", {
+            "prompt": "echo me", "max_tokens": 4, "echo": True,
+            "stream": True})[0]
+        out["echo"] = {"prompt_tokens": n_prompt, "entries": len(lps),
+                       "stream_status": stream_code}
+        log(f"  4j-c over HTTP: echo + logprobs on a {n_prompt}-token "
+            f"prompt: {len(lps)} entries (first null, the rest <= 0: {ok}); "
+            f"echo + stream -> {stream_code}")
+        if not ok or stream_code != 400:
+            raise AssertionError(f"4j-c echo over HTTP: {code} {resp}")
+        # graceful drain: in-flight requests finish, new ones get 503
+        threads, res = fire(srv.port, [chat(f"keep going {i}", 256)
+                                       for i in range(4)])
+        wait_for(lambda: len(api.engine._live_slots) == 4,
+                 "4 live slots", timeout=60, phase="4j-e")
+        code, _, body = http(srv.port, "/admin/drain", {"timeout_s": 120})
+        rejected = http(srv.port, "/v1/chat/completions", chat("too late"))
+        ready = http(srv.port, "/readyz")
+        for t in threads:
+            t.join(timeout=300)
+        reasons = [r[2]["choices"][0]["finish_reason"] for r in res]
+        err = rejected[2].get("error", {})
+        out["drain"] = {"status": code, "rejected": rejected[0],
+                        "code": err.get("code"), "reasons": reasons,
+                        "readyz": ready[0]}
+        log(f"  4j-e drain: POST /admin/drain {code} {body}; a new request "
+            f"{rejected[0]} {err.get('type')}/{err.get('code')} Retry-After "
+            f"{rejected[1].get('Retry-After')}; /readyz {ready[0]} "
+            f"{ready[2]}; in-flight finished {reasons}")
+        if code != 202 or rejected[0] != 503 or \
+                err.get("code") != "draining" or \
+                int(rejected[1].get("Retry-After", 0)) < 1 or \
+                ready[0] != 503 or not ready[2]["draining"] or \
+                any(r not in ("stop", "length") for r in reasons):
+            raise AssertionError(f"4j-e drain: {out['drain']}")
+        wait_for(lambda: not api.client.alive, "drained", timeout=60,
+                 phase="4j-e")
+    finally:
+        srv.stop()
+        api.client.stop()
+
+    srv = build("--kv-layout", "paged", "--drain-timeout", "0.5")
+    api = srv.api
+    try:
+        engine = api.engine
+        threads, res = fire(srv.port, [chat(f"long job {i} " * 20, 1024)
+                                       for i in range(10)])
+        wait_for(lambda: len(engine._live_slots) == 8 and all(
+            len(r.output_tokens) >= 8 for r in list(
+                engine.scheduler.active.values())), "8 live slots",
+            timeout=120, phase="4j-e")
+        live = [r for r in list(engine.scheduler.active.values())]
+        code = http(srv.port, "/admin/drain", {})[0]
+        for t in threads:
+            t.join(timeout=120)
+        reasons = [r[2]["choices"][0]["finish_reason"] for r in res]
+        wait_for(lambda: not api.client.alive, "cutoff", timeout=60,
+                 phase="4j-e")
+        occ = engine.pool.page_occupancy()
+        held = []
+        for r in live:
+            value = engine.prefix_cache.take_exact(r.prompt_tokens
+                                                   + r.output_tokens)
+            held.append(0 if value is None else len(value["pages"]))
+            if value is not None:
+                engine._release_snapshot_value(value)
+        out["cutoff"] = {"status": code, "reasons": reasons,
+                         "published_pages": held, "kv_pages": occ}
+        log(f"  4j-e drain cutoff (--drain-timeout 0.5, pages): POST "
+            f"{code}, finishes {reasons}; exact entries of the 8 live slots "
+            f"hold {held} pages; pages {occ}")
+        if code != 202 or reasons != ["abort"] * 10 or len(live) != 8 or \
+                not all(held) or occ["pinned"] or \
+                occ["reclaimable"] < sum(held):
+            raise AssertionError(f"4j-e cutoff: {out['cutoff']}")
+    finally:
+        srv.stop()
+        api.client.stop()
+    return out
+
+
+def slot_cells(torch, engine, slot, n):
+    """A slot's cache cells at positions < n, leaf by leaf (on pages the
+    raw contents: int8 values and their scales)."""
+    pool, out = engine.pool, []
+    subs = [(sub, False) for sub in pool.cache["prefix"]]
+    subs += [(sub, True) for sub in (pool.cache.get("block") or {}).values()]
+    for sub, stacked in subs:
+        for name in sorted(sub):
+            leaf = sub[name]
+            if engine._paged:
+                ids = torch.tensor(pool.slot_pages(slot), device="cuda")
+                rows = (leaf[:, ids] if stacked else leaf[ids]).flatten(
+                    int(stacked), int(stacked) + 1)
+            else:
+                rows = leaf[:, slot] if stacked else leaf[slot]
+            out.append((rows[:, :n] if stacked else rows[:n]).clone())
+    return out
+
+
+def check_handoff(torch, ns, wrappers, params):
+    """4j-f: two engines on the card, dense, fp pages and int8 pages: 10
+    requests on A (8 live, 2 queued), exported mid-decode and imported
+    into B.  B's tokens equal an undrained run's; its 8 snapshots resume
+    with no flash launch (the prefill rows B runs are the queued requests'
+    alone, flash 24 x B's waves); the resumed slots' cells equal A's bit
+    for bit (int8 values and scales on int8 pages)."""
+    prompts = random_prompts(ns, 10, 200, 600, seed=23)
+    out = {}
+    for label, kw in (("dense", {}), ("paged", LAYOUTS_4J["paged"]),
+                      ("int8", dict(LAYOUTS_4J["paged"], kv_dtype="int8"))):
+        def reqs():
+            return [ns.Request(prompt_tokens=list(p),
+                               sampling=ns.SamplingParams(max_tokens=48))
+                    for p in prompts]
+        layout = "dense" if label == "dense" else "paged"
+        undrained = reqs()
+        drive(torch, engine_4j(ns, params, **kw), undrained,
+              f"4j-f {label} undrained")
+        a = engine_4j(ns, params, **kw)
+        moving = reqs()
+        for r in moving:
+            a.add_request(r)
+        while len(a._live_slots) < 8 or any(
+                a.scheduler.active[s].num_generated < 4
+                for s in a._live_slots):
+            a.step()
+        cells = {}
+        for s in a._live_slots:
+            r = a.scheduler.active[s]
+            n = len(r.prompt_tokens) + r.num_generated - 1
+            cells[r.request_id] = (n, slot_cells(torch, a, s, n))
+        records = a.export_handoff()
+        snap = {rec["req"].request_id for rec in records
+                if rec["cache"] is not None}
+        del a
+        b = engine_4j(ns, params, **kw)
+        rows = []
+        inner = b._run_wave_group
+
+        def run_wave_group(bucket, cross, group):
+            rows.extend(job.req.request_id for job, _ in group)
+            return inner(bucket, cross, group)
+
+        b._run_wave_group = run_wave_group
+        for rec in records:
+            b.import_handoff(rec)
+        zero(wrappers)
+        b._plan_admissions()
+        same_cells = all(
+            all(torch.equal(x, y) for x, y in zip(
+                slot_cells(torch, b, s, cells[r.request_id][0]),
+                cells[r.request_id][1]))
+            for s, r in b.scheduler.active.items() if r.request_id in cells)
+        drive(torch, b, [], f"4j-f {label} on B")
+        launches = counted(wrappers)
+        require_engine_launches(launches, b, layout, f"4j-f {label} B")
+        same = [r.output_tokens for r in moving] == \
+            [r.output_tokens for r in undrained]
+        st = b.scheduler.stats
+        rec = {"records": len(records), "snapshots": len(snap),
+               "resumed": st.resumed, "b_prefill_rows_of_snapshots":
+               len(set(rows) & snap), "b_prefill_waves": st.prefill_waves,
+               "tokens_identical": same, "cells_identical": same_cells,
+               "launches": launches}
+        log(f"  4j-f {label}: {len(records)} records ({len(snap)} "
+            f"snapshots), B resumed {st.resumed}, B prefill rows of "
+            f"snapshotted requests {rec['b_prefill_rows_of_snapshots']} "
+            f"(waves {st.prefill_waves}, launches {launches}); resumed "
+            f"cells equal A's bit for bit {same_cells}; tokens identical "
+            f"to the undrained run {same}")
+        if len(records) != 10 or snap != set(cells) or st.resumed != 8 or \
+                rec["b_prefill_rows_of_snapshots"] or not same_cells or \
+                not same:
+            raise AssertionError(f"4j-f {label}: {rec}")
+        out[label] = rec
+        del b
     return out
 
 
@@ -2821,6 +3437,10 @@ def main() -> int:
     log("== 2. kernels against their plain versions")
     errs = check_kernels(torch, dec, fla, pag, qm)
 
+    wrappers = {"decode_attention": dec.decode_attention_cuda,
+                "flash_attention": fla.flash_attention_cuda,
+                "paged_attention": pag.paged_attention_cuda,
+                "quant_matmul": qm.quant_matmul_cuda}
     log("== 3. full-width models, float32, kernels vs plain versions")
     ns3 = types.SimpleNamespace(ops=ops, layers=layers, Model=Model,
                                 init_cache=init_cache, PagedKVPool=PagedKVPool,
@@ -2831,6 +3451,9 @@ def main() -> int:
 
     check_model(torch, ns3, f32("qwen2-0.5b"), reprefill=True)
     verify3 = check_model_verify(torch, ns3, f32("qwen2-0.5b"))
+    j4 = {"c_echo_f32": check_echo_f32(torch, ns3, f32("qwen2-0.5b"),
+                                       wrappers, InferenceEngine, Request,
+                                       SamplingParams)}
     verify3["vision"] = check_vision_model(torch, ops, get_config, Model,
                                            init_cache)
     moe3 = f32(MOE, num_layers=3)
@@ -2845,10 +3468,6 @@ def main() -> int:
     check_model(torch, ns3, f32("glm4-9b", num_layers=2), lengths=(600, 517),
                 cache_len=256, chunk=256, window=256)
 
-    wrappers = {"decode_attention": dec.decode_attention_cuda,
-                "flash_attention": fla.flash_attention_cuda,
-                "paged_attention": pag.paged_attention_cuda,
-                "quant_matmul": qm.quant_matmul_cuda}
     serving = (torch, get_config, InferenceEngine, EngineClient, OpenAIServer,
                ApiServer, wrappers)
     log("== 4a. serving qwen2-0.5b (bf16) over HTTP, dense KV")
@@ -2937,6 +3556,17 @@ def main() -> int:
     spec["c_draft"] = check_draft_engine(torch, get_config, InferenceEngine,
                                          Request, SamplingParams, wrappers,
                                          qwen_params)
+    log("== 4j-a. speculative wave filling: 24 staggered prompts (300-1500 "
+        "tokens) on 8 slots, fill on vs off, dense ring and fp pages")
+    j4["a_spec_fill"] = check_spec_fill(torch, ns, wrappers, qwen_params)
+    log("== 4j-b. shared-prefix n groups: n = 4 behind a ~600-token system "
+        "prompt, dense ring and fp pages")
+    j4["b_groups"] = check_groups(torch, ns, wrappers, qwen_params)
+    log("== 4j-d. chaos at the prefill, decode, codec and pool sites, then "
+        "a decode block that raises")
+    j4["d_chaos"] = check_chaos(torch, ns, wrappers, qwen_params)
+    log("== 4j-f. handoff between two engines: dense, fp pages, int8 pages")
+    j4["f_handoff"] = check_handoff(torch, ns, wrappers, qwen_params)
     del qwen_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -2944,6 +3574,9 @@ def main() -> int:
     admission = check_admission_serving(torch, serve_mod)
     log("== 4i-d. a launcher-built server with --spec-mode ngram")
     spec["d_launcher"] = check_spec_launcher(torch, serve_mod)
+    log("== 4j-e. the watchdog, echo over HTTP, drain and the drain cutoff "
+        "(launcher-built servers)")
+    j4["e_watchdog_drain"] = check_watchdog_drain(torch, serve_mod)
     spec["phase3_verify"] = verify3
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
@@ -3021,7 +3654,7 @@ def main() -> int:
              "moe_dense": moe_dense, "moe_paged": moe_paged,
              "moe_init_s": moe_init_s,
              "policy_preemption": policy_preempt, "pressure": pressure,
-             "admission": admission,
+             "admission": admission, "j4": j4,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
     print(json.dumps({"spec": spec, "card": card}))

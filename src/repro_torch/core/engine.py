@@ -77,16 +77,39 @@ rejection-sampled.  A slot whose ring would wrap inside a round, or whose
 budget leaves no draft, stages none; a step with nothing staged runs the
 ordinary decode block.
 
-Not ported yet (refused with ``NotImplementedError`` or ``ValueError``
-naming the ROADMAP item, or simply absent from ``/stats``): audio models,
-fault injection, drain and handoff, shared-prefix ``n`` groups (``n`` > 1
-runs independent prefills; refused for media requests), speculative wave
-filling, and echo / prompt logprobs.
+Speculative wave filling (``speculative_fill``, on by default): a wave
+group of k rows runs at the next power of two anyway, so its padding rows
+carry chunks of not-yet-admitted pending requests (slotless jobs, at most
+``max_spec_jobs``) in place of zero rows — no extra forward.  Their chunks
+publish to the prefix cache; admission adopts the job, or commits it from
+its staged logits when the whole prompt is already done.
+
+Shared-prefix ``n`` groups: the choices of one ``n`` > 1 text request
+prefill once — the leader — and the followers admit against the leader's
+committed prompt cache (its pages by incref'd reference on the paged
+arena, its row read back on the dense ring).  Media groups admit
+independently.  ``echo`` with ``logprobs`` adds a teacher-forced pass over
+the prompt at the first admission commit (``Request.prompt_logprobs``).
+
+Faults (``faults=``, :mod:`repro_torch.core.faults`): injection sites
+``pool``, ``prefill``, ``codec``, ``slow_step`` and ``decode``, and fault
+boundaries that fail only the requests the reference fails — one request,
+one wave group, one commit wave, or (a decode block or verify round that
+raised) every live slot, after which the pool and decode state are rebuilt
+and pending requests continue.  :meth:`drain_snapshot` publishes live
+slots as exact-sequence entries and aborts the rest;
+:meth:`export_handoff` / :meth:`import_handoff` move every open request to
+another engine (live text slots as dense snapshots, the rest re-prefill).
+
+Not ported yet (refused with ``NotImplementedError`` naming the ROADMAP
+item): audio models.  The router, the ASGI transport, SSM models,
+training and distribution are not ported either.
 """
 from __future__ import annotations
 
 import logging
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -97,6 +120,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.content_cache import (ContentCache, CrossKVEntry,
                                             EmbeddingEntry, MediaStats,
                                             content_hash, media_set_digest)
+from repro_torch.core.faults import FaultInjector
 from repro_torch.core.kv_cache import (SlotKVPool, admit_decode_state,
                                        concat_cache_rows, init_decode_state,
                                        slice_cache_row, tree_bytes)
@@ -115,7 +139,7 @@ from repro_torch.core.spec_decode import (DraftModelSource, DraftSource,
 from repro_torch.core.streaming import StopSequenceChecker, TokenStreamDecoder
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import not_ported
-from repro_torch.models.model import Model, tree_map
+from repro_torch.models.model import Model, init_cache, tree_map
 from repro_torch.serving.media import VisionEncoderStub, decode_media
 from repro_torch.serving.tokenizer import ByteTokenizer
 
@@ -153,8 +177,14 @@ class _PrefillJob:
     across chunks outside the pool, and the job re-enters the scheduler's
     chunk queue until the whole sequence is materialised.  ``tokens`` is
     the prompt, or prompt + generated history for a preempted request
-    whose eviction snapshot was lost."""
-    slot: int
+    whose eviction snapshot was lost.
+
+    ``slot is None`` marks a *speculative* job: its request is still
+    pending, and its chunks ride the padding rows of admitted waves from
+    the engine's ``_spec_jobs`` table.  Admission binds it to a slot; a job
+    that finished its whole prompt first keeps its last-position
+    ``logits``, which the commit samples with no extra pass."""
+    slot: Optional[int]
     req: Request
     tokens: List[int]
     cache: Any
@@ -165,6 +195,8 @@ class _PrefillJob:
     publish_xkv: bool                    # publish cross KV after 1st chunk
     t0: float
     partial_key: Optional[str] = None    # rolling chunk-boundary prefix entry
+    logits: Optional[torch.Tensor] = None   # staged last-row logits (a
+                                            # speculative job done early)
 
 
 @dataclass
@@ -223,7 +255,10 @@ class InferenceEngine:
         sched_policy: Union[str, SchedulingPolicy] = "fifo",
         preemption: bool = False,
         max_preemptions: int = 2,
+        speculative_fill: bool = True,
+        max_spec_jobs: Optional[int] = None,
         aging_s: Optional[float] = None,
+        faults: Optional[FaultInjector] = None,
         enable_prefix_cache: bool = True,
         prefix_block_size: int = 16,
         cache_max_bytes: int = 512 * 1024 * 1024,
@@ -285,6 +320,13 @@ class InferenceEngine:
         self.prefill_chunk = max(0, prefill_chunk)
         self.preemption = preemption
         self.max_preemptions = max(0, max_preemptions)
+        self.speculative_fill = speculative_fill
+        self.max_spec_jobs = (max_batch if max_spec_jobs is None
+                              else max(0, max_spec_jobs))
+        # deterministic fault injection (None = every hook inert); the
+        # step counter keys the slow_step and pool sites
+        self.faults = faults
+        self._fault_tick = 0
 
         # media geometry (the reference's defaults): the context window
         # holds MAX_MEDIA_ITEMS images; a video frame takes a quarter of an
@@ -327,13 +369,12 @@ class InferenceEngine:
             on_evict=self._on_content_evict if self._paged else None)
             if enable_content_cache else None)
         # batched vision encoding: per-request media jobs plus the
-        # singleflight table of unique in-flight encodes (hash -> task).
-        # The jobs' table bound is the reference's: 2 * max_batch plus its
-        # max_batch speculative jobs, so jobs open at the same steps
+        # singleflight table of unique in-flight encodes (hash -> task),
+        # bounded at 2 * max_batch plus the speculative jobs
         self.media_stats = MediaStats()
         self._media_jobs: Dict[int, _MediaJob] = {}
         self._encode_tasks: Dict[str, _EncodeTask] = {}
-        self._max_media_jobs = 3 * max_batch
+        self._max_media_jobs = 2 * max_batch + self.max_spec_jobs
         # terminal events of requests failed inside the admission predicate
         # (an undecodable media payload), drained at the end of step()
         self._fault_events: List[StreamEvent] = []
@@ -361,6 +402,18 @@ class InferenceEngine:
         # finished prefills whose pages the paged arena cannot take yet:
         # (job, last-position logits) in commit order, retried every step
         self._staged: List[Tuple[_PrefillJob, torch.Tensor]] = []
+        # speculative prefill jobs of pending requests (request_id -> job),
+        # at most max_spec_jobs; and those whose whole prompt finished
+        # before their slot came, committed with the next wave
+        self._spec_jobs: Dict[int, _PrefillJob] = {}
+        self._ready_jobs: List[_PrefillJob] = []
+        # shared-prefix admission groups (n > 1): leader request_id ->
+        # {"value": the leader's committed prompt cache or None,
+        # "remaining": followers still owed a share, "failed": the leader
+        # died before its commit}
+        self._prefill_groups: Dict[int, Dict[str, Any]] = {}
+        self.group_stats = {"groups": 0, "shared_admits": 0,
+                            "independent_fallbacks": 0}
 
         # power-of-two prefill buckets, floor raised until at most
         # max_prefill_buckets distinct shapes remain (reference :428-440)
@@ -550,6 +603,11 @@ class InferenceEngine:
             # embeddings needed); a lost snapshot re-encodes synchronously
             # at prefill open (:meth:`_media_pipeline`)
             return True
+        if req.request_id in self._spec_jobs:
+            # its speculative job assembled the resolved media set at open
+            # (the reference opens a second media job here, whose hits are
+            # counted again and which nothing drops until the request ends)
+            return True
         job = self._media_jobs.get(req.request_id)
         if job is None:
             if len(self._media_jobs) >= self._max_media_jobs:
@@ -561,6 +619,87 @@ class InferenceEngine:
                     req.request_id, f"media decode failed: {e!r}"))
                 return False
         return job.remaining == 0
+
+    # ------------------------------------------------------------------ #
+    # shared-prefix admission groups (n > 1 fan-out)
+    # ------------------------------------------------------------------ #
+    def _admissible(self, req: Request) -> bool:
+        """Admission predicate: media resolved and, for an ``n`` > 1
+        follower, the group leader's prompt cache committed."""
+        return self._media_admissible(req) and self._group_admissible(req)
+
+    def _group_admissible(self, req: Request) -> bool:
+        if req.group_leader is None or req.metadata.get("group_done"):
+            return True
+        if self._has_media(req):
+            # media groups admit independently (the shared value carries
+            # no context rows); the content cache dedups their encodes
+            return True
+        g = self._prefill_groups.get(req.group_leader)
+        if g is None:
+            # a leader this engine never saw (handoff, a direct add):
+            # admit independently rather than wait forever
+            return True
+        return g["value"] is not None or g["failed"]
+
+    def _group_value(self, req: Request) -> Optional[Dict[str, Any]]:
+        """The leader's committed prompt cache for an admissible follower
+        (None: prefill independently)."""
+        if (req.group_leader is None or req.metadata.get("group_done")
+                or req.num_generated or self._has_media(req)):
+            return None
+        g = self._prefill_groups.get(req.group_leader)
+        return None if g is None else g["value"]
+
+    def _group_consume(self, req: Request) -> None:
+        """One follower leaves the group (shared admission, independent
+        fallback or termination); the last one out releases the value's
+        page refs."""
+        if req.group_leader is None or req.metadata.get("group_done"):
+            return
+        req.metadata["group_done"] = True
+        g = self._prefill_groups.get(req.group_leader)
+        if g is None:
+            return
+        g["remaining"] -= 1
+        if g["remaining"] <= 0:
+            if g["value"] is not None:
+                self._release_snapshot_value(g["value"])
+            del self._prefill_groups[req.group_leader]
+
+    def _group_on_terminate(self, req: Request) -> None:
+        """A leader that dies before its commit turns the group to
+        independent admission; a dying follower consumes its share."""
+        if req.group_size > 1 and req.group_leader is None:
+            g = self._prefill_groups.get(req.request_id)
+            if g is not None and g["value"] is None:
+                g["failed"] = True
+        elif req.group_leader is not None:
+            self._group_consume(req)
+
+    def _group_publish(self, a: _Admission) -> None:
+        """A group leader's first (prompt-only) commit stages its prompt
+        cache as the group's shared value: the slot's prompt pages by
+        incref'd reference on the paged arena (zero copies), the row read
+        back from the pool on the dense ring (generated KV lands only in
+        later blocks, so the row is exactly the prompt's)."""
+        req = a.req
+        g = self._prefill_groups.get(req.request_id)
+        if (g is None or g["value"] is not None or g["remaining"] <= 0
+                or a.seq_len != len(req.prompt_tokens)
+                or self._has_media(req)):
+            return
+        if self._paged:
+            pub = list(self.pool.slot_pages(a.slot)[:a.seq_len
+                                                   // self.pool.page_size])
+            self.pool.incref_pages(pub)
+            # the dense shadow (followers resume their prefill from it) is
+            # cloned out of the wave cache it is a view of
+            g["value"] = {"pages": pub,
+                          "dense": tree_map(torch.clone, a.single_cache),
+                          "len": a.seq_len}
+        else:
+            g["value"] = {"cache": self.pool.read(a.slot), "len": a.seq_len}
 
     def _cancel_media_job(self, request_id: int) -> None:
         """Drop a request's media job (abort/failure): deregister it from
@@ -592,7 +731,13 @@ class InferenceEngine:
             del self._encode_tasks[task.hash]
             if not task.waiters:
                 continue
-            emb = task.encoder(task.pixels)
+            try:
+                emb = task.encoder(task.pixels)
+            except Exception as e:       # per-request fault boundary
+                for job in list(task.waiters):
+                    self._fault_events.extend(self._fail_request(
+                        job.req.request_id, f"media encode failed: {e}"))
+                continue
             self.media_stats.encoder_invocations += 1
             if self.content_cache is not None:
                 self.content_cache.put_embedding(
@@ -712,39 +857,67 @@ class InferenceEngine:
     def _admit_into_free_slots(self) -> None:
         while (self.pool.num_free and self.scheduler.pending
                and self.scheduler.num_active < self.scheduler.max_batch):
-            # requests whose embeddings are still resolving are skipped
-            # without losing their queue position; peeking also opens the
-            # media jobs of newly seen requests
-            if self.scheduler.peek_pending(self._media_admissible) is None:
+            # requests whose embeddings are still resolving (or whose group
+            # leader has not committed) are skipped without losing their
+            # queue position; peeking also opens new requests' media jobs
+            head = self.scheduler.peek_pending(self._admissible)
+            if head is None:
+                break
+            if (self.faults is not None
+                    and self.faults.fires("pool", head.request_id,
+                                          self._fault_tick)):
+                # transient slot-allocation failure: the request stays
+                # pending and retries next step (a fresh draw)
                 break
             slot = self.pool.allocate()
-            admitted = self.scheduler.admit([slot], self._media_admissible)
+            admitted = self.scheduler.admit([slot], self._admissible)
             if not admitted:
                 self.pool.free(slot)
                 break
             _, req = admitted[0]
-            self._bind_slot(slot, req)
+            try:
+                self._bind_slot(slot, req)
+            except Exception as e:  # per-request fault boundary (prefill)
+                self._fault_events.extend(self._fail_request(
+                    req.request_id, f"prefill open failed: {e}"))
 
     def _bind_slot(self, slot: int, req: Request) -> None:
         """Attach an admitted request to its slot: restore its eviction
-        snapshot (a preempted request), else open a prefill job — of the
-        prompt + generated history when the snapshot was lost (the commit
-        then samples the next token from the last position)."""
+        snapshot (a preempted request), adopt its speculative prefill
+        progress, or open a prefill job — of the prompt + generated history
+        when the snapshot was lost (the commit then samples the next token
+        from the last position)."""
         if ((req.preempt_count or req.request_id in self._evicted)
                 and self._try_resume(slot, req)):
+            return
+        job = self._spec_jobs.pop(req.request_id, None)
+        if job is not None:
+            job.slot = slot
+            req.status = RequestStatus.PREFILLING
+            self.scheduler.stats.spec_admitted += 1
+            if job.logits is not None:   # the whole prompt is materialised
+                self._ready_jobs.append(job)
+            else:
+                self.scheduler.enqueue_prefill(job)
             return
         tokens = (req.prompt_tokens + req.output_tokens
                   if req.preempt_count else None)
         self.scheduler.enqueue_prefill(
             self._open_prefill(slot, req, tokens=tokens))
 
-    def _open_prefill(self, slot: int, req: Request,
+    def _open_prefill(self, slot: Optional[int], req: Request,
                       tokens: Optional[List[int]] = None) -> _PrefillJob:
+        """Open a request's prefill job (``slot=None``: a speculative job
+        for a request that is still pending)."""
+        t0 = time.monotonic()
+        if self.faults is not None:
+            self.faults.check("prefill", req.request_id,
+                              detail=f"request {req.request_id}")
         tokens = list(req.prompt_tokens if tokens is None else tokens)
         if not tokens:
             raise ValueError("empty prompt")
-        t0 = time.monotonic()
-        req.status = RequestStatus.PREFILLING
+        if slot is not None:
+            req.status = RequestStatus.PREFILLING
         embeds = ctx_valid = set_digest = None
         if self.media_kind != "none":
             # resolved by encode waves / embedding-cache hits ahead of
@@ -761,27 +934,29 @@ class InferenceEngine:
                 embeds, ctx_valid, set_digest = self._assemble_media(
                     job.items)
         req.media_set_digest = set_digest
-        # Alg.2: longest cached prefix (cap: leave >=1 token for logits)
+        # n > 1 fan-out: a follower resumes from its group leader's
+        # committed prompt cache (an identical prompt, so the longest
+        # possible match, capped to leave >=1 token for the logits) — with
+        # the prefix cache off too
         matched, single = 0, None
-        if self.prefix_cache is not None:
+        gvalue = self._group_value(req)
+        if gvalue is not None and len(tokens) == len(req.prompt_tokens):
+            matched = min(gvalue["len"], len(tokens) - 1)
+            single = self._lease_value(req, gvalue, matched)
+            req.cached_prefix_len = matched
+            self.group_stats["shared_admits"] += 1
+            self._group_consume(req)
+        elif req.group_leader is not None \
+                and not req.metadata.get("group_done"):
+            # the group is gone (leader died, value dropped): independent
+            self.group_stats["independent_fallbacks"] += 1
+            self._group_consume(req)
+        # Alg.2: longest cached prefix (cap: leave >=1 token for logits)
+        if single is None and self.prefix_cache is not None:
             value, matched = self.prefix_cache.lookup(
                 tokens, salt=self._salt(req), max_len=len(tokens) - 1)
             if value is not None:
-                if "pages" in value:
-                    # paged entry: the dense shadow row resumes the prefill,
-                    # while the entry's full pages inside the match are
-                    # leased COW — pinned against eviction until the commit
-                    # transfers them to the slot (zero cache-copy admission)
-                    single = value["dense"]
-                    ps = self.pool.page_size
-                    shared = list(value["pages"][:min(matched // ps,
-                                                      len(value["pages"]))])
-                    if shared:
-                        self.pool.incref_pages(shared)
-                        self._release_lease(req.request_id)
-                        self._job_leases[req.request_id] = shared
-                else:
-                    single = value["cache"]
+                single = self._lease_value(req, value, matched)
                 req.cached_prefix_len = matched
             else:
                 matched = 0
@@ -805,10 +980,28 @@ class InferenceEngine:
                          and not cross_cached),
             t0=t0)
 
+    def _lease_value(self, req: Request, value: Dict[str, Any],
+                     matched: int) -> Any:
+        """The dense row a prefill resumes from, out of a prefix-cache or
+        group value.  A paged value's full pages inside the match are
+        leased COW — pinned against eviction until the commit transfers
+        them to the slot (zero cache-copy admission)."""
+        if "pages" not in value:
+            return value["cache"]
+        ps = self.pool.page_size
+        shared = list(value["pages"][:min(matched // ps, len(value["pages"]))])
+        if shared:
+            self.pool.incref_pages(shared)
+            self._release_lease(req.request_id)
+            self._job_leases[req.request_id] = shared
+        return value["dense"]
+
     def _dispatch_prefill_wave(self) -> List[Tuple[_PrefillJob, torch.Tensor]]:
         """Advance every queued prefill job by one chunk; returns (job,
         logits row) for jobs whose prompt is now fully materialised."""
         jobs = self.scheduler.pop_prefill_wave()
+        if not jobs:
+            return []
         groups: Dict[Tuple[int, bool], List[Tuple[_PrefillJob, int]]] = {}
         for job in jobs:
             remaining = len(job.tokens) - job.consumed
@@ -820,10 +1013,76 @@ class InferenceEngine:
             bucket = min(self._plan_bucket(take), self.pool.cache_len)
             groups.setdefault((bucket, job.cross_cached),
                               []).append((job, take))
+        if self.speculative_fill:
+            self._backfill_groups(groups)
         completed: List[Tuple[_PrefillJob, torch.Tensor]] = []
         for (bucket, cross_cached), rows in groups.items():
-            completed.extend(self._run_wave_group(bucket, cross_cached, rows))
+            try:
+                completed.extend(
+                    self._run_wave_group(bucket, cross_cached, rows))
+            except Exception as e:  # wave-group fault boundary
+                self._fail_wave(rows, e)
         return completed
+
+    def _fail_wave(self, rows: List[Tuple[_PrefillJob, int]],
+                   exc: Exception) -> None:
+        """One batched prefill pass raised: fail the slot-bound requests
+        riding it (their partial caches are lost) with typed ERROR events,
+        and drop its speculative rows back to pending — that work was
+        optional, so those requests simply prefill again later.  Other wave
+        groups and every decode slot are untouched."""
+        log.warning("prefill wave group failed (%d rows): %s", len(rows), exc)
+        for job, _ in rows:
+            if job.slot is not None:
+                self._fault_events.extend(self._fail_request(
+                    job.req.request_id, f"prefill wave failed: {exc}"))
+            else:
+                self._spec_jobs.pop(job.req.request_id, None)
+                self._release_lease(job.req.request_id)
+
+    def _backfill_groups(
+            self, groups: Dict[Tuple[int, bool],
+                               List[Tuple[_PrefillJob, int]]]) -> None:
+        """Speculative wave filling: a group of k rows runs at the next
+        power of two anyway, so its kp - k padding rows are free compute —
+        fill them with the next chunk of in-flight speculative jobs, then
+        the *first* chunk of the most urgent not-yet-admitted pending
+        requests (policy order).  A speculative chunk is capped at the
+        group's bucket; the forward's shape never changes, only dummy rows
+        are replaced."""
+        key = self.scheduler.policy.key
+        waiting = sorted((j for j in self._spec_jobs.values()
+                          if j.logits is None), key=lambda j: key(j.req))
+        fresh = [r for r in self.scheduler.pending_in_order()
+                 if r.request_id not in self._spec_jobs
+                 and not r.preempt_count and self._admissible(r)]
+        for (bucket, cross_cached), rows in groups.items():
+            kp = 1 << (len(rows) - 1).bit_length()
+            while len(rows) < kp:
+                job = next((j for j in waiting
+                            if j.cross_cached == cross_cached), None)
+                if job is not None:
+                    waiting.remove(job)
+                elif fresh and len(self._spec_jobs) < self.max_spec_jobs:
+                    req = fresh.pop(0)
+                    try:
+                        cand = self._open_prefill(None, req)
+                    except Exception as e:  # per-request fault boundary
+                        self._fault_events.extend(self._fail_request(
+                            req.request_id, f"prefill open failed: {e}"))
+                        continue
+                    self._spec_jobs[req.request_id] = cand
+                    self.scheduler.stats.spec_jobs += 1
+                    if cand.cross_cached != cross_cached:
+                        # parked for a later matching wave; hunting on for
+                        # a match could open a job per pending request
+                        break
+                    job = cand
+                else:
+                    break
+                rows.append((job, min(len(job.tokens) - job.consumed,
+                                      bucket)))
+                self.scheduler.stats.spec_chunks += 1
 
     def _run_wave_group(self, bucket: int, cross_cached: bool,
                         rows: List[Tuple[_PrefillJob, int]]
@@ -870,10 +1129,17 @@ class InferenceEngine:
             if job.publish_xkv:
                 self._publish_xkv(job)
             if job.consumed >= len(job.tokens):
-                done.append((job, logits[i]))
+                if job.slot is None:
+                    # a speculative job done before a slot freed: stage its
+                    # last-position logits; admission commits it directly
+                    job.logits = logits[i]
+                else:
+                    done.append((job, logits[i]))
                 continue
             self._publish_partial(job)
-            self.scheduler.enqueue_prefill(job)
+            if job.slot is not None:
+                self.scheduler.enqueue_prefill(job)
+            # a speculative job stays in _spec_jobs and rides a later wave
         return done
 
     def _publish_xkv(self, job: _PrefillJob) -> None:
@@ -979,6 +1245,8 @@ class InferenceEngine:
             self.pool.insert_many([a.slot for a in wave],
                                   [a.single_cache for a in wave])
         self._live_slots.update(a.slot for a in wave)
+        for a in wave:
+            self._group_publish(a)
         events: List[StreamEvent] = []
         for a in wave:
             # a request resumed by re-prefill keeps its streamer (its
@@ -990,8 +1258,12 @@ class InferenceEngine:
                     self._stopchk[a.req.request_id] = StopSequenceChecker(
                         list(a.req.sampling.stop_sequences))
             a.req.status = RequestStatus.DECODING
-            events.extend(self._emit_token(a.slot, a.req, a.first_token,
-                                           a.logprob, a.top_logprobs))
+            try:
+                events.extend(self._emit_token(a.slot, a.req, a.first_token,
+                                               a.logprob, a.top_logprobs))
+            except Exception as e:  # per-request fault boundary (codec)
+                self._fault_events.extend(self._fail_request(
+                    a.req.request_id, f"codec failure: {e}"))
         self._admit_rows_to_state(
             [(a.slot, a.req, a.first_token, a.seq_len, a.ctx_valid,
               not a.req.is_finished) for a in wave])
@@ -1070,6 +1342,12 @@ class InferenceEngine:
                     for _, req, *_ in rows],
             stop_tokens=stops,
             active=[act for *_, act in rows])
+        for _, req, *_ in rows:
+            # echo + logprobs: prompt-token logprobs are computed once, at
+            # the first admission commit (a resume keeps the stored list)
+            if (req.sampling.echo and req.sampling.logprobs
+                    and req.prompt_logprobs is None):
+                self._compute_prompt_logprobs(req)
         if self.spec_mode == "off":
             return
         # speculation joins at the same single admission point: the
@@ -1095,6 +1373,40 @@ class InferenceEngine:
                 [req.sample_key for _, req, *_ in rows],
                 [act for *_, act in rows])
 
+    def _compute_prompt_logprobs(self, req: Request) -> None:
+        """Teacher-forced prompt-token logprobs (OpenAI ``echo``): one
+        batch=1 prefill-mode forward from position 0 over the padded prompt
+        into a throwaway cache sized to the bucket — the admission
+        prefill's forward, through the same attention path.  Entry i is
+        log p(tok[i] | tok[:i]), gathered on the device so only the n - 1
+        values reach the host (not the [bucket, vocab] log-softmax); the
+        first entry is None."""
+        toks = req.prompt_tokens
+        n = len(toks)
+        if n <= 1:
+            req.prompt_logprobs = [None] * n
+            return
+        bucket = _next_bucket(n, floor=self._bucket_floor)
+        dev = self.device
+        padded = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+        padded[0, :n] = torch.as_tensor(toks, device=dev)
+        ar = torch.arange(bucket, device=dev)[None]
+        kw = {}
+        if self.media_kind != "none":    # text-only echo: an empty context
+            kw = dict(image_embeds=torch.zeros(
+                (1, self.ctx_len, self.embed_dim), device=dev),
+                ctx_valid=torch.zeros((1, self.ctx_len), dtype=torch.bool,
+                                      device=dev))
+        out = self.model.apply(
+            self.params, padded, mode="prefill", positions=ar,
+            cache=init_cache(self.cfg, 1, bucket, ctx_len=self.ctx_len,
+                             device=dev),
+            seq_valid=ar < n, **kw)
+        lp = torch.log_softmax(out.logits[0, :n - 1].float(), dim=-1)
+        tgt = torch.as_tensor(toks[1:], device=dev)[:, None]
+        picked = torch.gather(lp, 1, tgt)[:, 0].cpu().tolist()
+        req.prompt_logprobs = [None] + [float(v) for v in picked]
+
     # ------------------------------------------------------------------ #
     # emit / finish / abort (the host side of the request lifecycle)
     # ------------------------------------------------------------------ #
@@ -1104,6 +1416,12 @@ class InferenceEngine:
                     ) -> List[StreamEvent]:
         """Stream one sampled token: incremental detokenisation, host-side
         stop-sequence filtering, logprob attachment, and the finish checks."""
+        if self.faults is not None:
+            # keyed by (request, position): the same token of the same
+            # request fails in every replay, nothing else does
+            self.faults.check("codec", req.request_id, req.num_generated,
+                              detail=f"request {req.request_id} "
+                                     f"token {token}")
         text = self._streamers[req.request_id].push_token(token)
         chk = self._stopchk.get(req.request_id)
         stopped = False
@@ -1214,32 +1532,12 @@ class InferenceEngine:
                    detail: Optional[str] = None) -> List[StreamEvent]:
         """Abort (``reason`` ABORT) or fail (ERROR, with ``detail``) one
         request wherever it lives; every other request is untouched."""
-        slot = next((s for s, r in self.scheduler.active.items()
-                     if r.request_id == request_id), None)
-        if slot is not None:
-            req = self.scheduler.active[slot]
-            self.scheduler.drop_prefill_jobs(request_id)
-            self._staged = [(j, lg) for j, lg in self._staged
-                            if j.req.request_id != request_id]
-            self.scheduler.abort_slot(slot)
-            self.pool.free(slot)
-            self._live_slots.discard(slot)
-            self._spec_release(slot)
-            self._deactivate_slot(slot)
-        else:
-            req = self.scheduler.abort_pending(request_id)
-        self._release_lease(request_id)
+        req = self._release_request(request_id)
         if req is None or req.is_finished:
             return []
+        self._group_on_terminate(req)
         self._cancel_media_job(request_id)
-        meta = self._evicted.pop(request_id, None)
-        if meta is not None:
-            # drop the preemption snapshot (byte budget / page leases)
-            self._release_snapshot_value(meta["cache"])
-            if self.prefix_cache is not None:
-                self._release_snapshot_value(self.prefix_cache.take_exact(
-                    req.prompt_tokens + req.output_tokens,
-                    salt=self._salt(req)))
+        self._drop_snapshot(req)
         req.finish_reason = reason
         req.finish_time = time.monotonic()
         if reason is FinishReason.ABORT:
@@ -1253,6 +1551,214 @@ class InferenceEngine:
         self._stopchk.pop(request_id, None)
         return [StreamEvent(request_id, None, "", finished=True,
                             finish_reason=reason)]
+
+    def _release_request(self, request_id: int) -> Optional[Request]:
+        """Free what a request holds wherever it lives — its slot (freed,
+        device row frozen), its queued or staged prefill, its speculative
+        job, or its pending entry — and its page lease; returns the request
+        (None if unknown).  Shared by :meth:`_terminate` and
+        :meth:`_detach`."""
+        slot = next((s for s, r in self.scheduler.active.items()
+                     if r.request_id == request_id), None)
+        if slot is not None:
+            req = self.scheduler.active[slot]
+            self.scheduler.drop_prefill_jobs(request_id)
+            self._staged = [(j, lg) for j, lg in self._staged
+                            if j.req.request_id != request_id]
+            self._ready_jobs = [j for j in self._ready_jobs
+                                if j.req.request_id != request_id]
+            self.scheduler.abort_slot(slot)
+            self.pool.free(slot)
+            self._live_slots.discard(slot)
+            self._spec_release(slot)
+            self._deactivate_slot(slot)
+        else:
+            req = self.scheduler.abort_pending(request_id)
+            job = self._spec_jobs.pop(request_id, None)
+            if job is not None:
+                req = req or job.req
+        self._release_lease(request_id)
+        return req
+
+    def _drop_snapshot(self, req: Request) -> None:
+        """Release a request's preemption snapshot (byte budget, page
+        leases), if it has one."""
+        meta = self._evicted.pop(req.request_id, None)
+        if meta is None:
+            return
+        self._release_snapshot_value(meta["cache"])
+        if self.prefix_cache is not None:
+            self._release_snapshot_value(self.prefix_cache.take_exact(
+                req.prompt_tokens + req.output_tokens, salt=self._salt(req)))
+
+    def _recover_decode_block(self, exc: Exception) -> None:
+        """A decode block or verify round raised (not a per-request fault).
+        It writes the pool's cache, the decode state and the draft pool in
+        place, so all three are garbage now: every live request fails with
+        a typed ERROR event, the buffers are rebuilt from scratch, and
+        pending and mid-prefill requests — whose partial caches ride on
+        their jobs, outside the pool — continue.  Every reference to the
+        old arena is dropped before the fresh one is built, so the device
+        never holds two."""
+        log.error("decode block failed: %s — failing %d live request(s) "
+                  "and rebuilding device buffers", exc,
+                  len(self._live_slots))
+        # the raising frames hold the old cache: drop them first
+        traceback.clear_frames(exc.__traceback__)
+        exc.__traceback__ = None
+        old, self.pool.cache = self.pool, None
+        self.state = init_decode_state(old.max_batch, self.max_stop_tokens,
+                                       ctx_len=self.ctx_len,
+                                       spec_k=self.spec_k, device=self.device)
+        if isinstance(self._draft_source, DraftModelSource):
+            # the draft pool was written by the failed round too; slots
+            # re-prime at re-admission
+            self._draft_source.reset()
+        for slot in sorted(self._live_slots):
+            req = self.scheduler.active.get(slot)
+            if req is not None:
+                self._fault_events.extend(self._fail_request(
+                    req.request_id, f"decode block failed: {exc}"))
+        if self._paged:
+            # every page lease died with the arena: prefix-cache entries
+            # and job leases point into the old allocator, so they drop
+            # without release callbacks (clear() fires none); cross-KV
+            # entries keep their own buffers and lose only their leases;
+            # paged snapshots and group values lose their pages
+            if self.prefix_cache is not None:
+                self.prefix_cache.clear()
+            self._job_leases.clear()
+            if self.content_cache is not None:
+                self.content_cache.detach_page_leases()
+            self.media_stats.xkv_lease_pages = 0
+            for m in self._evicted.values():
+                if isinstance(m.get("cache"), dict) and \
+                        m["cache"].get("pages"):
+                    m["cache"] = None
+            for g in self._prefill_groups.values():
+                if isinstance(g.get("value"), dict) and \
+                        "pages" in g["value"]:
+                    g["value"]["pages"] = []
+            self.pool = PagedKVPool(
+                self.cfg, old.max_batch, old.cache_len, ctx_len=self.ctx_len,
+                page_size=old.page_size, num_pages=old.num_pages,
+                kv_dtype=old.kv_dtype, device=self.device)
+        else:
+            self.pool = SlotKVPool(self.cfg, old.max_batch, old.cache_len,
+                                   ctx_len=self.ctx_len, device=self.device)
+        # slot bookkeeping carries over: slots of mid-prefill requests stay
+        # used, and their commit lands in the fresh buffers
+        self.pool._free = list(old._free)
+        self.pool._used = set(old._used)
+
+    def drain_snapshot(self) -> List[StreamEvent]:
+        """The drain cutoff (:meth:`EngineClient.drain` timed out): publish
+        every live slot's exact sequence to the prefix cache — the entry a
+        preemption writes, on pages by incref'd reference — so a warm
+        restart resumes the work, then abort everything still open.  Every
+        open request gets its terminal ABORT event."""
+        if self.prefix_cache is not None:
+            for slot in sorted(self._live_slots):
+                req = self.scheduler.active[slot]
+                seq = req.prompt_tokens + req.output_tokens
+                if self._paged:
+                    pages = list(self.pool.slot_pages(slot))
+                    nonkv = self.pool.read_nonkv(slot)
+                    self.pool.incref_pages(pages)
+                    self.prefix_cache.insert_exact(
+                        seq, {"pages": pages, "nonkv": nonkv,
+                              "len": len(seq)},
+                        self.pool.pages_nbytes(len(pages))
+                        + tree_bytes(nonkv), salt=self._salt(req))
+                else:
+                    single = self.pool.read(slot)
+                    self.prefix_cache.insert_exact(
+                        seq, {"cache": single}, tree_bytes(single),
+                        salt=self._salt(req))
+        open_ids = [r.request_id for r in self.scheduler.active.values()]
+        open_ids += [r.request_id for r in self.scheduler.pending_in_order()]
+        open_ids += list(self._spec_jobs)
+        events: List[StreamEvent] = []
+        for rid in dict.fromkeys(open_ids):
+            events.extend(self.abort(rid))
+        events.extend(self._fault_events)
+        self._fault_events.clear()
+        return events
+
+    # ------------------------------------------------------------------ #
+    # handoff between engines (a rolling restart)
+    # ------------------------------------------------------------------ #
+    def export_handoff(self) -> List[Dict[str, Any]]:
+        """Capture every open request as a record another engine resumes
+        bit-identically, then detach them all without finish events (the
+        requests stay alive; their handles move with the records).
+
+        A live text slot exports a dense snapshot (``pool.read``: a paged
+        slot's pages gathered into one row) and its codec state
+        (mid-UTF-8 decoder, stop-sequence holdback); the successor restores
+        it through :meth:`_try_resume`, as a preemption resume.  Everything
+        else — pending, mid-prefill, speculative, preempted and media
+        requests — exports as a queue record that re-prefills its prompt +
+        history.  The sample key travels on the request itself."""
+        records: List[Dict[str, Any]] = []
+        for slot in sorted(self._live_slots):
+            req = self.scheduler.active.get(slot)
+            if req is None or req.is_finished or self._has_media(req):
+                continue                 # a media slot: a queue record
+            records.append({
+                "req": req, "cache": {"cache": self.pool.read(slot)},
+                "ctx_valid": None,
+                "streamer": self._streamers.get(req.request_id),
+                "stopchk": self._stopchk.get(req.request_id)})
+        seen = {r["req"].request_id for r in records}
+        others = list(self.scheduler.active.values())
+        others += self.scheduler.pending_in_order()
+        others += [j.req for j in self._spec_jobs.values()]
+        for req in others:
+            if req.request_id in seen or req.is_finished:
+                continue
+            seen.add(req.request_id)
+            records.append({
+                "req": req, "cache": None, "ctx_valid": None,
+                "streamer": self._streamers.get(req.request_id),
+                "stopchk": self._stopchk.get(req.request_id)})
+        for rec in records:
+            self._detach(rec["req"])
+        return records
+
+    def _detach(self, req: Request) -> None:
+        """Release everything a request holds — :meth:`abort`'s cleanup —
+        WITHOUT finishing it: no terminal event, status back to QUEUED."""
+        rid = req.request_id
+        self._release_request(rid)
+        self._group_on_terminate(req)
+        self._cancel_media_job(rid)
+        self._drop_snapshot(req)
+        self._streamers.pop(rid, None)
+        self._stopchk.pop(rid, None)
+        req.status = RequestStatus.QUEUED
+
+    def import_handoff(self, rec: Dict[str, Any]) -> None:
+        """Adopt one exported record: a record with a cache snapshot seeds
+        the eviction-resume table, so :meth:`_bind_slot` restores the slot
+        through :meth:`_try_resume` (no re-prefill); a record without one
+        re-prefills prompt + history.  The codec state is installed ahead
+        of admission; the request's sample key survives the hop."""
+        req = rec["req"]
+        rid = req.request_id
+        self._assign_sample_key(req)
+        if rec.get("streamer") is not None:
+            self._streamers[rid] = rec["streamer"]
+        if rec.get("stopchk") is not None:
+            self._stopchk[rid] = rec["stopchk"]
+        if rec.get("cache") is not None:
+            self._evicted[rid] = {"cache": rec["cache"],
+                                  "ctx_valid": rec.get("ctx_valid")}
+        elif req.output_tokens:
+            # mid-generation without a snapshot: re-prefill the history
+            req.preempt_count = max(1, req.preempt_count)
+        req.status = RequestStatus.QUEUED
+        self.scheduler.add(req)
 
     # ------------------------------------------------------------------ #
     # slot preemption (policy-gated eviction of live decode slots)
@@ -1274,7 +1780,7 @@ class InferenceEngine:
         loop ends; ``max_preemptions`` caps each request's evictions."""
         key = self.scheduler.policy.key
         while self.scheduler.pending and not self.pool.num_free:
-            head = self.scheduler.peek_pending(self._media_admissible)
+            head = self.scheduler.peek_pending(self._admissible)
             eligible = {s for s in self._live_slots if self._rebuildable(s)}
             victim = self.scheduler.select_victim(eligible,
                                                   self.max_preemptions)
@@ -1349,11 +1855,13 @@ class InferenceEngine:
                 req.prompt_tokens + req.output_tokens, salt=self._salt(req))
         if value is None:
             return False
-        if self._paged:
+        if self._paged and "pages" in value:
             # zero-copy resume: the snapshot's page refs move to the slot
             # (take_exact popped the entry without firing on_evict)
             self.pool.adopt(slot, value["pages"], value["nonkv"])
         else:
+            # a dense snapshot (the dense ring's eviction, or a handoff
+            # record imported into either layout)
             self.pool.insert(slot, value["cache"])
         self._admit_rows_to_state(
             [(slot, req, req.output_tokens[-1],
@@ -1506,13 +2014,8 @@ class InferenceEngine:
     def validate_request(self, req: Request) -> None:
         """Validate + normalise a request without enqueueing it: prompt
         length (truncate or raise), stop tokens / sequences, logprobs and
-        sampler ranges, and base-key binding.  Idempotent."""
-        if self._has_media(req) and req.group_size > 1:
-            raise ValueError("n > 1 with media is not ported yet (ROADMAP.md,"
-                             " port queue: shared-prefix groups and n "
-                             "sharing)")
-        if req.sampling.echo:
-            raise ValueError("echo (prompt logprobs) is not ported yet")
+        sampler ranges, echo (text only), base-key binding, and an ``n`` >
+        1 leader's group entry.  Idempotent."""
         n = len(req.prompt_tokens)
         if not self.cfg.sliding_window and n > self.pool.cache_len:
             if not self.truncate_long_prompts:
@@ -1535,7 +2038,21 @@ class InferenceEngine:
                 f"[0, max_top_logprobs={self.max_top_logprobs}]")
         validate_sampling_params(req.sampling.top_p, req.sampling.top_k,
                                  req.sampling.min_p, req.sampling.seed)
+        if req.sampling.echo and (req.images or req.video_frames
+                                  or req.audio is not None):
+            raise ValueError(
+                "echo is supported for text-only prompts (prompt logprobs "
+                "are teacher-forced over the token sequence alone)")
         self._assign_sample_key(req)
+        # an n > 1 leader opens its group here (at EngineClient.submit), so
+        # followers released later — maybe in another admission round —
+        # find it and wait for the shared value
+        if (req.group_size > 1 and req.group_leader is None
+                and req.request_id not in self._prefill_groups):
+            self._prefill_groups[req.request_id] = {
+                "value": None, "remaining": req.group_size - 1,
+                "failed": False}
+            self.group_stats["groups"] += 1
 
     def add_request(self, req: Request) -> None:
         self.validate_request(req)
@@ -1590,23 +2107,29 @@ class InferenceEngine:
     def _dispatch_spec_round(self, lens: np.ndarray,
                              drafts: Optional[np.ndarray], want_lp: bool,
                              any_stochastic: bool, any_mask: bool
-                             ) -> Dict[str, Any]:
+                             ) -> Optional[Dict[str, Any]]:
         """Stage the drafts (the n-gram proposals, or a draft-model round's)
         and run one verify round (in place); returns the block plan and the
-        per-slot accounting tensors."""
+        per-slot accounting tensors, or None when the round raised (the
+        recovery already ran)."""
         fix = q = None
         if self._paged:
             # the verify forward writes up to spec_k + 1 positions a slot
             self._ensure_paged_capacity(self.spec_k + 1)
-        if isinstance(self._draft_source, DraftModelSource):
-            snap, start_pos, drafts, q = \
-                self._draft_source.draft_round(self.spec_k)
-            fix = (snap, start_pos)
-        stage_drafts(self.state, drafts, lens)
-        toks, n_acc, n_emit, lps = self._spec_verify_fn(
-            self.params, self.pool.cache, self.state, q, spec_k=self.spec_k,
-            want_logprobs=want_lp, use_q=self._draft_source.uses_q,
-            any_stochastic=any_stochastic, any_mask=any_mask)
+        try:
+            if isinstance(self._draft_source, DraftModelSource):
+                snap, start_pos, drafts, q = \
+                    self._draft_source.draft_round(self.spec_k)
+                fix = (snap, start_pos)
+            stage_drafts(self.state, drafts, lens)
+            toks, n_acc, n_emit, lps = self._spec_verify_fn(
+                self.params, self.pool.cache, self.state, q,
+                spec_k=self.spec_k, want_logprobs=want_lp,
+                use_q=self._draft_source.uses_q,
+                any_stochastic=any_stochastic, any_mask=any_mask)
+        except Exception as e:      # the round raised: every live slot fails
+            self._recover_decode_block(e)
+            return None
         if fix is not None:
             self._draft_source.fixup(self.spec_k, *fix, self.state)
         return {"plan": (self.spec_k + 1, toks, lps),
@@ -1644,6 +2167,11 @@ class InferenceEngine:
         decode block is dispatched first and the prefill wave second, and
         only then does the host wait on the block's tokens."""
         events: List[StreamEvent] = []
+        self._fault_tick += 1
+        if (self.faults is not None
+                and self.faults.fires("slow_step", self._fault_tick)):
+            # an injected wedged step (drives the client watchdog)
+            time.sleep(self.faults.slow_step_s)
         self._plan_admissions()
 
         block_plan = spec_meta = None
@@ -1664,7 +2192,8 @@ class InferenceEngine:
                 # spec_k + 1 tokens per slot
                 spec_meta = self._dispatch_spec_round(
                     *spec_plan, want_lp, any_stochastic, any_mask)
-                block_plan = spec_meta["plan"]
+                if spec_meta is not None:
+                    block_plan = spec_meta["plan"]
             else:
                 num_steps = self.scheduler.plan_decode_block(
                     self.max_decode_block, reclaim_queued=reclaim_q)
@@ -1673,10 +2202,14 @@ class InferenceEngine:
                     # pages, under the pressure ladder (which can shrink
                     # the live set)
                     self._ensure_paged_capacity(num_steps)
-                toks, lps = self._decode_block(
-                    num_steps, want_logprobs=want_lp,
-                    any_stochastic=any_stochastic, any_mask=any_mask)
-                block_plan = (num_steps, toks, lps)
+                try:
+                    toks, lps = self._decode_block(
+                        num_steps, want_logprobs=want_lp,
+                        any_stochastic=any_stochastic, any_mask=any_mask)
+                except Exception as e:  # the block raised
+                    self._recover_decode_block(e)
+                else:
+                    block_plan = (num_steps, toks, lps)
 
         # the encode wave and the prefill wave run behind the dispatched
         # block; encodes resolved here make requests admissible next step
@@ -1705,6 +2238,20 @@ class InferenceEngine:
                     tok = int(block[k, slot])
                     if tok < 0:                    # frozen-slot sentinel
                         continue
+                    corrupt = tok >= self.cfg.vocab_size
+                    if corrupt or (self.faults is not None
+                                   and self.faults.fires(
+                                       "decode", req.request_id,
+                                       req.num_generated)):
+                        # a corrupt sampled token (or its injected stand-
+                        # in) fails this request only: neighbour slots are
+                        # independent and continue bit-identically
+                        self._fault_events.extend(self._fail_request(
+                            req.request_id,
+                            f"corrupt token {tok} at position "
+                            f"{req.num_generated}"
+                            + ("" if corrupt else " (injected decode fault)")))
+                        continue
                     req.output_tokens.append(tok)
                     self.scheduler.stats.tokens_generated += 1
                     logprob = top = None
@@ -1713,13 +2260,29 @@ class InferenceEngine:
                         ntop = req.sampling.top_logprobs
                         top = list(zip(lp_i[k, slot, :ntop].tolist(),
                                        lp_v[k, slot, :ntop].tolist()))
-                    events.extend(self._emit_token(slot, req, tok, logprob,
-                                                   top))
+                    try:
+                        events.extend(self._emit_token(slot, req, tok,
+                                                       logprob, top))
+                    except Exception as e:  # per-request boundary (codec)
+                        self._fault_events.extend(self._fail_request(
+                            req.request_id, f"codec failure: {e}"))
 
-        completed, self._staged = self._staged + completed, []
-        if self._paged:
-            completed = self._fit_commits(completed)
-        events.extend(self._commit_jobs(completed))
+        # finished prefills land (the next block picks the new slots up);
+        # speculative jobs whose slot came this step commit in the same
+        # call, their staged logits standing in for a wave row
+        ready = [(j, j.logits) for j in self._ready_jobs]
+        self._ready_jobs.clear()
+        completed, self._staged = self._staged + ready + completed, []
+        try:
+            if self._paged:
+                completed = self._fit_commits(completed)
+            events.extend(self._commit_jobs(completed))
+        except Exception as e:  # commit-wave fault boundary
+            log.warning("admission commit failed (%d jobs): %s",
+                        len(completed), e)
+            for job, _ in completed:
+                self._fault_events.extend(self._fail_request(
+                    job.req.request_id, f"admission commit failed: {e}"))
         if self._fault_events:
             events.extend(self._fault_events)
             self._fault_events.clear()

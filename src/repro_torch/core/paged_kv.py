@@ -306,6 +306,11 @@ class PagedKVPool:
     # ------------------------------------------------------------------ #
     # admission / publication
     # ------------------------------------------------------------------ #
+    def insert(self, slot: int, single_cache) -> None:
+        """Install one dense batch=1 row (a handoff snapshot) into a slot,
+        over freshly allocated pages."""
+        self.insert_many([slot], [single_cache])
+
     def insert_many(self, slots: Sequence[int], single_caches,
                     consumed: Optional[Sequence[int]] = None,
                     shared: Optional[Sequence[Sequence[int]]] = None) -> None:

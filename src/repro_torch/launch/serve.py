@@ -12,6 +12,8 @@ otherwise.
                                       # "speculation"); --spec-mode draft
                                       # --spec-draft-config NAME pairs a
                                       # draft model (reduced with --smoke)
+  ... --fault-rate decode=0.05 --fault-seed 1   # chaos: injected faults
+  ... --watchdog-timeout 60 --drain-timeout 30  # /readyz, POST /admin/drain
 
 Admission control is on unless ``--no-admission``: per-tenant rate limits
 (429), a bounded fair queue with queue-wait expiry, and load shedding (503),
@@ -23,11 +25,14 @@ text is gibberish: check the contract (finish_reason, usage, chunk framing).
 from __future__ import annotations
 
 import argparse
+import signal
+import sys
 import threading
 
 from repro_torch.configs import get_config
 from repro_torch.core.admission import AdmissionController, TenantConfig
 from repro_torch.core.engine import InferenceEngine
+from repro_torch.core.faults import FaultInjector, parse_fault_rates
 from repro_torch.serving.api import OpenAIServer
 from repro_torch.serving.client import EngineClient
 from repro_torch.serving.server import ApiServer
@@ -85,6 +90,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-preemptions", type=int, default=2,
                     help="max times one request may be evicted by the "
                          "policy (bounds preemption churn)")
+    ap.add_argument("--no-spec-fill", action="store_true",
+                    help="disable speculative wave filling (prefill "
+                         "padding rows carrying chunks of pending requests)")
+    ap.add_argument("--watchdog-timeout", type=float, default=60.0,
+                    help="seconds after which a wedged engine step flips "
+                         "/readyz to 503 (0 = no watchdog)")
+    ap.add_argument("--drain-timeout", type=float, default=30.0,
+                    help="graceful-drain budget (SIGTERM, POST /admin/drain "
+                         "without timeout_s): past it the live slots are "
+                         "snapshotted and every open request aborted")
+    ap.add_argument("--fault-rate", action="append", default=[],
+                    metavar="SITE=RATE",
+                    help="chaos: deterministic fault injection at a site "
+                         "(prefill, decode, codec, slow_step, pool; "
+                         "repeatable) — see core/faults.py")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the deterministic fault injector")
     ap.add_argument("--no-admission", action="store_true",
                     help="disable admission control (no rate limits, no "
                          "fair queue, no shedding: the engine's unbounded "
@@ -155,6 +177,9 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def build_server(args: argparse.Namespace) -> ApiServer:
     cfg = get_config(args.arch)
+    rates = parse_fault_rates(args.fault_rate)
+    faults = (FaultInjector(seed=args.fault_seed, rates=rates)
+              if rates else None)
     spec_draft = args.spec_draft_config
     if args.smoke:
         cfg = cfg.reduced()
@@ -170,6 +195,7 @@ def build_server(args: argparse.Namespace) -> ApiServer:
         max_prefill_buckets=args.max_prefill_buckets,
         sched_policy=args.sched_policy, preemption=args.preemption,
         max_preemptions=args.max_preemptions,
+        speculative_fill=not args.no_spec_fill, faults=faults,
         enable_prefix_cache=not args.no_prefix_cache,
         kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
         kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype,
@@ -189,8 +215,13 @@ def build_server(args: argparse.Namespace) -> ApiServer:
             queue_timeout_s=args.queue_timeout,
             shed_queue_depth=args.shed_queue_depth,
             shed_wait_s=args.shed_wait)
-    client = EngineClient(engine, admission=admission)
-    return ApiServer(OpenAIServer(client, cfg.name), port=args.port)
+    client = EngineClient(
+        engine, admission=admission,
+        watchdog_timeout_s=(args.watchdog_timeout
+                            if args.watchdog_timeout > 0 else None))
+    return ApiServer(OpenAIServer(client, cfg.name,
+                                  drain_timeout_s=args.drain_timeout),
+                     port=args.port)
 
 
 def main(argv=None) -> None:
@@ -201,12 +232,29 @@ def main(argv=None) -> None:
     print(f"serving {eng.cfg.name} ({eng.cfg.param_count() / 1e6:.1f}M "
           f"params) on {eng.device} at http://127.0.0.1:{server.port} "
           f"(chat + completions + models; stats: /stats; admission "
-          f"{'off' if args.no_admission else 'on'})", flush=True)
+          f"{'off' if args.no_admission else 'on'}; drain: POST "
+          f"/admin/drain or SIGTERM)", flush=True)
+    if eng.faults is not None:
+        print(f"chaos: fault injection {eng.faults.rates} (seed "
+              f"{args.fault_seed})", flush=True)
+    # SIGTERM: graceful drain (stop admitting, finish in-flight work within
+    # --drain-timeout, snapshot + abort the rest), then exit 0
+    drained = threading.Event()
+
+    def _sigterm(_sig, _frm):
+        print(f"SIGTERM: draining (timeout {args.drain_timeout:g}s)",
+              flush=True)
+        threading.Thread(target=lambda: (server.api.client.drain(
+            timeout=args.drain_timeout), drained.set()), daemon=True).start()
+
+    signal.signal(signal.SIGTERM, _sigterm)
     try:
-        threading.Event().wait()
+        while not drained.wait(timeout=1.0):
+            pass
+        print("drain complete; exiting", flush=True)
+        server.stop()
+        sys.exit(0)
     except KeyboardInterrupt:
-        pass
-    finally:
         server.stop()
         server.api.client.stop()
 

@@ -12,13 +12,17 @@ An admission rejection becomes the structured ``rate_limit_error`` (429) or
 ``overloaded_error`` (503) envelope with ``retry_after``; the OpenAI
 ``user`` field names the admission tenant.
 
-Not ported in this slice: drain, the router, and ``echo`` (rejected by the
-engine with a 400); ``/stats`` carries no block for those subsystems.
+``echo`` on a completion returns the prompt with the text and, with
+``logprobs``, the prompt tokens' teacher-forced logprobs ahead of the
+sampled ones.  :meth:`OpenAIServer.drain` (``POST /admin/drain``) starts a
+graceful drain in the background; ``/readyz`` is 503 while draining or
+wedged.  Not ported: the router and its ``/stats`` v2 envelope.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 import uuid
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
@@ -155,7 +159,7 @@ class OpenAIServer:
     """OpenAI codec over the :class:`EngineClient` lifecycle API."""
 
     def __init__(self, client: Union[EngineClient, InferenceEngine],
-                 model_name: str = "repro"):
+                 model_name: str = "repro", drain_timeout_s: float = 30.0):
         # a bare engine gets its own client: the codec never drives
         # engine.step() itself
         if isinstance(client, InferenceEngine):
@@ -163,6 +167,8 @@ class OpenAIServer:
         self.client = client
         self.engine = client.engine
         self.model_name = model_name
+        # a drain's budget when POST /admin/drain names none
+        self.drain_timeout_s = drain_timeout_s
         # determinism echo: a seeded request replays identically while this
         # fingerprint is unchanged (model identity, weight seed, decode
         # shape, sampler fallbacks, torch build and device)
@@ -319,13 +325,27 @@ class OpenAIServer:
             content.append(entry)
         return {"content": content}
 
-    def _completion_logprobs(self, tokens: List[int], logprobs) -> Dict[str, Any]:
+    def _completion_logprobs(self, tokens: List[int], logprobs,
+                             prompt_tokens: List[int] = (),
+                             prompt_logprobs: Optional[List[Optional[float]]] = None
+                             ) -> Dict[str, Any]:
         """Legacy completions logprobs block (offsets into the returned
-        text)."""
+        text).  With ``echo`` the prompt tokens lead the block: their
+        ``token_logprobs`` are the teacher-forced values (``None`` for the
+        first token) and their ``top_logprobs`` entries are ``None``."""
         tok = self.engine.tokenizer
         out: Dict[str, List[Any]] = {"tokens": [], "token_logprobs": [],
                                      "top_logprobs": [], "text_offset": []}
         offset = 0
+        if prompt_logprobs is None:
+            prompt_logprobs = [None] * len(prompt_tokens)
+        for token, lp in zip(prompt_tokens, prompt_logprobs):
+            text = tok.decode([token])
+            out["tokens"].append(text)
+            out["token_logprobs"].append(lp)
+            out["top_logprobs"].append(None)
+            out["text_offset"].append(offset)
+            offset += len(text)
         for token, (lp, top) in zip(tokens, logprobs):
             text = tok.decode([token])
             out["tokens"].append(text)
@@ -416,12 +436,21 @@ class OpenAIServer:
         usage = {"prompt_tokens": 0, "completion_tokens": 0, "total_tokens": 0}
         for p, (greq, handle) in enumerate(zip(greqs, handles)):
             result = handle.result()
+            echo = greq.sampling.echo
             for c in result.choices:
+                text = c.text
+                if echo:
+                    text = self.engine.tokenizer.decode(c.prompt_token_ids) + text
+                logprobs = None
+                if greq.sampling.logprobs:
+                    logprobs = self._completion_logprobs(
+                        c.tokens, c.logprobs,
+                        prompt_tokens=c.prompt_token_ids if echo else (),
+                        prompt_logprobs=c.prompt_logprobs if echo else None)
                 choices.append({
                     "index": p * greq.n + c.index,
-                    "text": c.text,
-                    "logprobs": (self._completion_logprobs(c.tokens, c.logprobs)
-                                 if greq.sampling.logprobs else None),
+                    "text": text,
+                    "logprobs": logprobs,
                     "finish_reason": c.finish_reason,
                 })
             for key, val in result.usage().items():
@@ -486,11 +515,14 @@ class OpenAIServer:
         counters with the ``content_cache`` block (media pipeline and
         content-cache counters), the ``speculation`` block (mode, k, rounds
         and drafted / accepted / rejected / emitted tokens, per-slot
-        acceptance EWMA, draft-pool bytes), the ``admission`` snapshot when
-        admission control is on, the engine's knobs, the ``prefix_cache``
-        block when the cache is on, and under the paged layout a
-        ``kv_pages`` block (arena occupancy and allocator counters); the
-        router, not ported yet, has no block."""
+        acceptance EWMA, draft-pool bytes), ``prefill_groups`` (n > 1
+        groups, shared admits, independent fallbacks), ``draining`` and the
+        ``watchdog`` block, the ``admission`` snapshot when admission
+        control is on, ``faults`` on a chaos run, the engine's knobs
+        (``speculative_fill`` among them), the ``prefix_cache`` block when
+        the cache is on, and under the paged layout a ``kv_pages`` block
+        (arena occupancy and allocator counters); the router, not ported
+        yet, has no block."""
         eng = self.engine
         out = dict(self.client.stats())
         out.update({
@@ -505,6 +537,7 @@ class OpenAIServer:
             "prefill_buckets_seen": sorted(eng._seen_buckets),
             "sched_policy": eng.scheduler.policy.name,
             "preemption": eng.preemption,
+            "speculative_fill": eng.speculative_fill,
         })
         if eng.prefix_cache is not None:
             out["prefix_cache"] = {
@@ -525,13 +558,27 @@ class OpenAIServer:
         return {"status": "ok" if ok else "dead", "ok": ok}, (200 if ok else 503)
 
     def readyz(self) -> Tuple[Dict[str, Any], int]:
-        """Readiness: 200 while the server should receive traffic, 503 once
-        it sheds all new work."""
+        """Readiness: 200 while the server should receive traffic; 503 while
+        draining, wedged past the watchdog, or shedding all new work."""
         ok = self.client.ready
         out: Dict[str, Any] = {"status": "ok" if ok else "not_ready",
-                               "ok": ok}
+                               "ok": ok, "draining": self.client.draining}
         if self.client._admission is not None:
             snap = self.client._admission.snapshot()
             out["level"] = snap["level_name"]
             out["queue_depth"] = snap["queue_depth"]
         return out, (200 if ok else 503)
+
+    def drain(self, timeout_s: Optional[float] = None) -> Dict[str, Any]:
+        """Start a graceful drain (``POST /admin/drain``) and return at
+        once: stop admitting, finish in-flight work, and snapshot + abort
+        what is left at the deadline, on a background thread.
+        Idempotent."""
+        timeout_s = self.drain_timeout_s if timeout_s is None else timeout_s
+        already = self.client.draining
+        if not already:
+            threading.Thread(target=self.client.drain,
+                             kwargs={"timeout": timeout_s},
+                             daemon=True).start()
+        return {"status": "draining", "already_draining": already,
+                "timeout_s": timeout_s}

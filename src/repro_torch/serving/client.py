@@ -1,6 +1,5 @@
 """EngineClient: the thread-safe request-lifecycle API over the engine (the
-port of the reference package's ``serving/client.py``, with admission
-control, without watchdog, drain or handoff).
+port of the reference package's ``serving/client.py``).
 
 ``submit(GenerationRequest) -> RequestHandle`` returns immediately; the
 handle exposes the lifecycle of one *logical* request (``n`` engine
@@ -22,6 +21,14 @@ typed 429/503 :class:`~repro_torch.core.admission.AdmissionError` — and the
 loop thread releases admitted requests into the engine once per iteration,
 in weighted-fair order, finishing the ones whose queue wait expired with a
 typed ``timeout`` event.
+
+Operations: a ``watchdog_timeout_s`` arms a sidecar thread that flips
+readiness while one ``engine.step()`` overruns it; :meth:`EngineClient.drain`
+stops admission (new submits get the 503 ``draining`` error), lets the
+in-flight requests finish and, past its timeout, snapshots the live slots
+and aborts the rest; :meth:`EngineClient.handoff_export` /
+:meth:`EngineClient.handoff_import` move every open request, with its
+handle, to another client.  The router over several clients is not ported.
 """
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
-from repro_torch.core.admission import LEVEL_SHED_ALL, AdmissionController
+from repro_torch.core.admission import (LEVEL_SHED_ALL, AdmissionController,
+                                        Overloaded)
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import (FinishReason, GenerationRequest,
                                       Request, RequestStatus, StreamEvent)
@@ -77,6 +85,10 @@ class ChoiceResult:
     tokens: List[int]
     finish_reason: Optional[str]
     logprobs: List[Tuple[float, List[Tuple[int, float]]]] = field(default_factory=list)
+    # completions `echo`: the prompt token ids and — when the request also
+    # asked for logprobs — their teacher-forced logprobs (first entry None)
+    prompt_token_ids: List[int] = field(default_factory=list)
+    prompt_logprobs: Optional[List[Optional[float]]] = None
 
 
 @dataclass
@@ -100,6 +112,23 @@ class GenerationResult:
             "completion_tokens": self.completion_tokens,
             "total_tokens": self.prompt_tokens + self.completion_tokens,
         }
+
+
+@dataclass
+class HandoffRecord:
+    """One open request leaving a draining client: the engine's record
+    (the live request, an optional cache snapshot, the streaming codec
+    state) and the client handle that moves with it.  Made by
+    :meth:`EngineClient.handoff_export`, taken by
+    :meth:`EngineClient.handoff_import`; in-process only (it carries live
+    objects, not bytes)."""
+
+    record: Dict[str, object]
+    handle: Optional["RequestHandle"] = None
+
+    @property
+    def request(self) -> Request:
+        return self.record["req"]  # type: ignore[return-value]
 
 
 class RequestHandle:
@@ -160,7 +189,10 @@ class RequestHandle:
                          tokens=list(r.output_tokens),
                          finish_reason=(r.finish_reason.value
                                         if r.finish_reason else None),
-                         logprobs=list(r.output_logprobs))
+                         logprobs=list(r.output_logprobs),
+                         prompt_token_ids=list(r.prompt_tokens),
+                         prompt_logprobs=(None if r.prompt_logprobs is None
+                                          else list(r.prompt_logprobs)))
             for i, r in enumerate(self._requests)]
         return GenerationResult(choices=choices,
                                 prompt_tokens=self.prompt_tokens)
@@ -202,11 +234,13 @@ class RequestHandle:
 class EngineClient:
     """Thread-safe request-lifecycle front end that owns the engine, with an
     optional admission controller in front of it.  The loop thread never
-    dies: an exception escaping ``engine.step()`` fails the requests the
-    engine holds with typed ERROR events and is logged."""
+    dies: request-scoped failures stay inside the engine's fault
+    boundaries, and an exception escaping ``engine.step()`` fails the
+    requests the engine holds with typed ERROR events and is logged."""
 
     def __init__(self, engine: InferenceEngine, *,
                  admission: Optional[AdmissionController] = None,
+                 watchdog_timeout_s: Optional[float] = None,
                  auto_start: bool = True):
         self.engine = engine
         self._admission = admission
@@ -216,6 +250,23 @@ class EngineClient:
         self._stop = False
         self._thread: Optional[threading.Thread] = None
         self._loop_errors = 0
+        # drain: _draining stops admission, _drain_cutoff runs the
+        # snapshot-and-abort path, _drained tells drain() the loop is done
+        self._draining = False
+        self._drain_cutoff = False
+        self._drained = threading.Event()
+        # handoff: the loop thread exports every open request at a block
+        # boundary, then ends (see handoff_export)
+        self._handoff_requested = False
+        self._handoff_records: List[HandoffRecord] = []
+        self._handoff_done = threading.Event()
+        # watchdog: _step_started is stamped around every loop body, and
+        # the sidecar thread sets _wedged while one body overruns
+        self.watchdog_timeout_s = watchdog_timeout_s
+        self._step_started: Optional[float] = None
+        self._wedged = False
+        self._watchdog_trips = 0
+        self._watchdog_thread: Optional[threading.Thread] = None
         # collapse the decode block to K=1 while an abort waits at the
         # boundary, so its slot is reclaimed after one device step
         engine.reclaim_hint = lambda: bool(self._aborts)
@@ -245,6 +296,10 @@ class EngineClient:
             return
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
+        if self.watchdog_timeout_s is not None and self._watchdog_thread is None:
+            self._watchdog_thread = threading.Thread(target=self._watchdog_run,
+                                                     daemon=True)
+            self._watchdog_thread.start()
 
     def submit(self, request: Union[GenerationRequest, Request]) -> RequestHandle:
         """Validate + enqueue; returns the lifecycle handle immediately.
@@ -260,6 +315,10 @@ class EngineClient:
         with self._cv:
             if self._stop:
                 raise RuntimeError("EngineClient is stopped")
+            if self._draining and self._admission is None:
+                raise Overloaded("server is draining; retry against "
+                                 "another replica", retry_after=1.0,
+                                 code="draining")
             admitted: List[Request] = []
             try:
                 if self._admission is not None:
@@ -297,8 +356,15 @@ class EngineClient:
         out["loop_errors"] = self._loop_errors
         out["content_cache"] = self.engine.content_cache_stats()
         out["speculation"] = self.engine.speculation_stats()
+        out["prefill_groups"] = dict(self.engine.group_stats)
+        out["draining"] = self._draining
+        out["watchdog"] = {"timeout_s": self.watchdog_timeout_s,
+                           "wedged": self._wedged,
+                           "trips": self._watchdog_trips}
         if self._admission is not None:
             out["admission"] = self._admission.snapshot()
+        if self.engine.faults is not None:
+            out["faults"] = self.engine.faults.snapshot()
         return out
 
     @property
@@ -307,10 +373,17 @@ class EngineClient:
 
     @property
     def ready(self) -> bool:
-        """Readiness: alive and not shedding all traffic (load balancers
-        route away before clients see 503 bodies)."""
-        return self.alive and (self._admission is None
-                               or self._admission.level < LEVEL_SHED_ALL)
+        """Readiness: alive, not wedged past the watchdog, not draining and
+        not shedding all traffic (load balancers route away before clients
+        see 503 bodies)."""
+        if not self.alive or self._wedged or self._draining:
+            return False
+        return (self._admission is None
+                or self._admission.level < LEVEL_SHED_ALL)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
 
     def _request_abort(self, request_ids: List[int]) -> None:
         with self._cv:
@@ -326,13 +399,35 @@ class EngineClient:
         while True:
             with self._cv:
                 while (not self._has_work() and not self._aborts
-                       and not self._stop):
+                       and not self._stop and not self._drain_cutoff
+                       and not self._draining):
                     self._cv.wait(timeout=0.5)
                 if self._stop:
                     self._shutdown_locked()
+                    self._drained.set()
+                    self._handoff_done.set()
                     return
+                if self._handoff_requested:
+                    # block boundary: the engine is quiescent, so export
+                    # every open request and end the loop; the handles
+                    # move with the records (no finish events)
+                    self._handoff_requested = False
+                    self._handoff_export_locked()
+                    self._stop = True
+                    self._drained.set()
+                    self._handoff_done.set()
+                    return
+                if (self._draining and not self._drain_cutoff
+                        and not self._has_work() and not self._aborts):
+                    # drained: everything in flight finished and the
+                    # admission queue is empty — park and tell drain()
+                    self._drained.set()
+                    self._cv.wait(timeout=0.5)
+                    continue
+                cutoff, self._drain_cutoff = self._drain_cutoff, False
                 aborts, self._aborts = self._aborts, []
             events: List[StreamEvent] = []
+            self._step_started = time.monotonic()
             try:
                 # aborts land at the block boundary, before the next
                 # admission plan: the freed slot is reusable in this step;
@@ -348,12 +443,16 @@ class EngineClient:
                         events.extend(engine.abort(rid))
                 if self._admission is not None:
                     events.extend(self._admission_round())
-                if engine.scheduler.has_work:
+                if cutoff:
+                    events.extend(self._drain_cutoff_events())
+                elif engine.scheduler.has_work:
                     events.extend(engine.step())
             except Exception:
                 log.exception("engine loop error: failing in-flight requests")
                 self._loop_errors += 1
                 events.extend(self._fail_all())
+            finally:
+                self._step_started = None
             with self._cv:
                 for ev in events:
                     handle = self._handles.get(ev.request_id)
@@ -361,6 +460,10 @@ class EngineClient:
                         handle._on_event(ev)
                         if ev.finished:
                             del self._handles[ev.request_id]
+                if cutoff:
+                    self._drained.set()
+            if cutoff:
+                return
 
     @staticmethod
     def _finish_unstarted(req: Request, reason: FinishReason,
@@ -391,6 +494,134 @@ class EngineClient:
         for req in ready:
             self.engine.add_request(req)       # validated at submit
         return events
+
+    def _drain_cutoff_events(self) -> List[StreamEvent]:
+        """The drain timed out: snapshot + abort everything in the engine,
+        and finish whatever still waits at admission."""
+        events = list(self.engine.drain_snapshot())
+        if self._admission is not None:
+            ready, expired = self._admission.poll(1 << 30)
+            for req in expired:
+                events.extend(self._finish_unstarted(
+                    req, FinishReason.TIMEOUT, RequestStatus.FAILED,
+                    error="queue-wait timeout at drain"))
+            for req in ready:
+                events.extend(self._finish_unstarted(
+                    req, FinishReason.ABORT, RequestStatus.ABORTED))
+        return events
+
+    def _watchdog_run(self) -> None:
+        """Sidecar thread: detect a wedged ``engine.step()`` (one loop body
+        overrunning ``watchdog_timeout_s``).  A thread cannot be killed
+        safely, so the watchdog's contract is visibility: flip readiness,
+        log, and recover once the step completes."""
+        timeout = self.watchdog_timeout_s
+        interval = max(0.005, min(0.5, timeout / 4))
+        while not self._stop:
+            t0 = self._step_started
+            if t0 is not None and time.monotonic() - t0 > timeout:
+                if not self._wedged:
+                    self._wedged = True
+                    self._watchdog_trips += 1
+                    log.error("engine step wedged for > %.3fs (watchdog): "
+                              "readiness flips until the step completes",
+                              timeout)
+            else:
+                self._wedged = False
+            time.sleep(interval)
+
+    def drain(self, timeout: Optional[float] = 30.0) -> bool:
+        """Graceful drain (``POST /admin/drain``, SIGTERM): stop admitting
+        (``submit`` raises the 503 ``draining`` error, ``/readyz`` flips),
+        let the in-flight requests finish, then stop the loop.  Past
+        ``timeout`` seconds the live slots are snapshotted to the prefix
+        cache and every open request ends with its typed event.  True when
+        the drain finished without the cutoff.  Idempotent."""
+        with self._cv:
+            if not self._draining:
+                self._draining = True
+                if self._admission is not None:
+                    self._admission.start_drain()
+            self._cv.notify_all()
+        finished = self._drained.wait(timeout)
+        if not finished:
+            with self._cv:
+                self._drain_cutoff = True
+                self._cv.notify_all()
+            self._drained.wait(10.0)
+        self.stop()
+        return finished
+
+    # ------------------------------------------------------------------ #
+    # handoff to another client (a rolling restart)
+    # ------------------------------------------------------------------ #
+    def handoff_export(self, timeout: Optional[float] = 30.0
+                       ) -> List[HandoffRecord]:
+        """Drain this client *into records*: stop admitting, let the loop
+        reach its next block boundary, export every open request (live
+        slots as cache snapshots, the rest as re-prefill records — see
+        :meth:`InferenceEngine.export_handoff`) and end the loop.  The
+        records carry the requests and their handles; a successor's
+        :meth:`handoff_import` resumes every stream, and no consumer sees
+        a finish event for the hop.  The client is stopped afterwards."""
+        with self._cv:
+            if self._stop:
+                return []
+            self._draining = True
+            if self._admission is not None:
+                self._admission.start_drain()
+            self._handoff_requested = True
+            self._cv.notify_all()
+        if not self._handoff_done.wait(timeout):
+            raise TimeoutError(f"handoff export not finished in {timeout}s")
+        records, self._handoff_records = self._handoff_records, []
+        return records
+
+    def _handoff_export_locked(self) -> None:
+        """The loop thread's half of :meth:`handoff_export` (holds _cv)."""
+        records: List[HandoffRecord] = []
+        # admission waiters first: overdue ones expire with their typed
+        # timeout, the rest become re-prefill records
+        if self._admission is not None:
+            ready, expired = self._admission.poll(1 << 30)
+            for req in expired:
+                for ev in self._finish_unstarted(
+                        req, FinishReason.TIMEOUT, RequestStatus.FAILED,
+                        error="queue-wait timeout at handoff"):
+                    handle = self._handles.pop(ev.request_id, None)
+                    if handle is not None:
+                        handle._on_event(ev)
+            for req in ready:
+                records.append(HandoffRecord(record={
+                    "req": req, "cache": None, "ctx_valid": None,
+                    "streamer": None, "stopchk": None}))
+        for rec in self.engine.export_handoff():
+            records.append(HandoffRecord(record=rec))
+        for hr in records:
+            hr.handle = self._handles.pop(hr.request.request_id, None)
+        self._handoff_records = records
+
+    def handoff_import(self, records: List[HandoffRecord]) -> int:
+        """Adopt another client's exported requests: the engine seeds its
+        resume tables (a cache snapshot restores through the preemption
+        resume path), and each handle re-binds to this client, so its
+        consumer keeps iterating the same stream.  Admission control is
+        bypassed (they were admitted once).  Returns the number adopted."""
+        adopted = 0
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("EngineClient is stopped")
+            for hr in records:
+                req = hr.request
+                if req.is_finished:
+                    continue
+                self.engine.import_handoff(hr.record)
+                if hr.handle is not None:
+                    hr.handle._client = self
+                    self._handles[req.request_id] = hr.handle
+                adopted += 1
+            self._cv.notify_all()
+        return adopted
 
     def _fail_all(self) -> List[StreamEvent]:
         """After an unexpected engine error the device state of every slot

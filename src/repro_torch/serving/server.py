@@ -4,8 +4,10 @@ reference package's threaded ``serving/server.py`` transport).
 Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions`` (with
 ``"stream": true`` -> SSE; the OpenAI ``user`` field or an ``x-tenant``
 header selects the admission tenant), ``GET /v1/models``, ``GET /stats``,
-``GET /healthz`` (liveness) and ``GET /readyz`` (readiness: 503 while
-shedding all traffic).  Every error is the structured OpenAI envelope
+``GET /healthz`` (liveness), ``GET /readyz`` (readiness: 503 while
+draining, wedged or shedding all traffic) and ``POST /admin/drain``
+(graceful drain, body ``{"timeout_s": ...}`` optional; returns 202 at
+once).  Every error is the structured OpenAI envelope
 ``{"error": {message, type, param, code}}`` with the matching HTTP status;
 an overload rejection (429/503) also carries a ``Retry-After`` header.  A client
 that disconnects during an SSE stream closes the chunk generator, which
@@ -91,6 +93,17 @@ def make_handler(api: OpenAIServer):
                 chunks.close()
 
         def do_POST(self):
+            if self.path == "/admin/drain":
+                try:
+                    body = self._read_body()
+                    timeout = body.get("timeout_s")
+                    self._send_json(api.drain(
+                        None if timeout is None else float(timeout)), 202)
+                except OpenAIError as e:
+                    self._send_error(e)
+                except (TypeError, ValueError) as e:
+                    self._send_error(OpenAIError(str(e), param="timeout_s"))
+                return
             routes = {
                 "/v1/chat/completions": (api.chat_completion,
                                          api.chat_completion_stream),

@@ -35,6 +35,7 @@ from repro_torch.launch import serve
 from repro_torch.serving.api import OpenAIServer
 from repro_torch.serving.client import EngineClient
 from repro_torch.serving.server import ApiServer
+from torch_threads import one_torch_thread  # noqa: F401
 
 PACKAGES = {"jax": (jadm, jreq), "torch": (tadm, treq)}
 
@@ -624,7 +625,8 @@ def test_launcher_builds_admission_by_default():
     off.start()
     try:
         assert off.api.client._admission is None
-        assert off.api.readyz() == ({"status": "ok", "ok": True}, 200)
+        assert off.api.readyz() == ({"status": "ok", "ok": True,
+                                     "draining": False}, 200)
     finally:
         off.stop()
         off.api.client.stop()

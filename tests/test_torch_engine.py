@@ -5,8 +5,8 @@ be identical — with ``prefill_chunk`` 0 and 32, with more requests than
 close (atol 1e-4, float32); and greedy tokens of the paper's dense
 stand-ins ``gemma3-4b-toy`` (sliding window, prompt longer than the ring)
 and ``llama-3.2-1b-toy``.  Both engines run with the same arguments,
-the prefix cache on; the reference's speculative wave filling (outside the
-port so far; it changes no greedy token) is off.  Also the sampler: the keep-set semantics against the
+the prefix cache on, speculative wave filling off (its parity with the
+JAX engine is ``tests/test_torch_fill_groups_echo.py``'s).  Also the sampler: the keep-set semantics against the
 reference's, and the stateless per-token stream.
 """
 import dataclasses
@@ -28,6 +28,7 @@ from repro_torch.core import sampling
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import FinishReason, Request, SamplingParams
 from repro_torch.models.convert import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 PROMPT_LENS = (5, 40, 70, 17, 3)
 
@@ -48,10 +49,11 @@ def _prompts():
 
 def _engines(weights, **kw):
     """Both engines with the same arguments (the prefix cache on, as by
-    default); speculative wave filling is off on the reference's side."""
+    default); speculative wave filling is off on both sides."""
     jcfg, tcfg, jp, tp = weights
     kw.setdefault("enable_prefix_cache", True)
-    je = JaxEngine(jcfg, jp, speculative_fill=False, **kw)
+    kw.setdefault("speculative_fill", False)
+    je = JaxEngine(jcfg, jp, **kw)
     te = InferenceEngine(tcfg, tp, device="cpu", **kw)
     return je, te
 
@@ -185,17 +187,22 @@ def audio_config():
 
 def test_requests_outside_the_slice_are_refused(weights):
     """A text model ignores media, as the reference does; ``n`` > 1 with
-    media on a vision model is refused, naming its ROADMAP item."""
+    media on a vision model is accepted (its choices admit on their own,
+    as in the reference), and so is ``echo`` on a text prompt, while
+    ``echo`` with media is refused, as the reference refuses it."""
     te = InferenceEngine(weights[1], weights[3], device="cpu", cache_len=64)
     te.add_request(Request(prompt_tokens=[1, 2], images=[np.zeros(3)]))
     vision = InferenceEngine(get_config("qwen3-vl-toy"), device="cpu",
                              cache_len=64)
-    with pytest.raises(ValueError, match="n > 1 with media"):
-        vision.add_request(Request(prompt_tokens=[1, 2], group_size=2,
-                                   images=[np.zeros((4, 4, 3))]))
+    vision.add_request(Request(prompt_tokens=[1, 2], group_size=2,
+                               images=[np.zeros((4, 4, 3))]))
+    assert vision.group_stats["groups"] == 1
     with pytest.raises(ValueError, match="echo"):
-        te.add_request(Request(prompt_tokens=[1, 2],
-                               sampling=SamplingParams(echo=True)))
+        vision.add_request(Request(prompt_tokens=[1, 2],
+                                   images=[np.zeros((4, 4, 3))],
+                                   sampling=SamplingParams(echo=True)))
+    te.add_request(Request(prompt_tokens=[1, 2],
+                           sampling=SamplingParams(echo=True, logprobs=True)))
     with pytest.raises(ValueError, match="KV cache holds"):
         te.add_request(Request(prompt_tokens=list(range(65))))
     with pytest.raises(ValueError, match="top_p"):

@@ -49,6 +49,7 @@ from repro_torch.kernels.quant_matmul import (k_split_bounds, plan_k_splits,
                                               quant_matmul_plain,
                                               quant_matmul_split_plain,
                                               quantize_int8, quantize_kv_int8)
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=2e-5, rtol=1e-3)
 CARD_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

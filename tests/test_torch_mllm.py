@@ -14,9 +14,8 @@ receive, and checks that a different image changes the logits.
 
 Tolerances: logits float32 atol 1e-4 (summation order; the logits are
 O(1)); tokens and counters exact.  Both engines run with the same
-arguments; the reference's speculative wave filling (not in the port; it
-changes no greedy token but opens prefills, and so cross-KV lookups, early)
-is off.
+arguments, speculative wave filling off (it changes no greedy token but
+opens prefills, and so cross-KV lookups, early).
 """
 import dataclasses
 
@@ -41,6 +40,7 @@ from repro_torch.core.request import FinishReason, Request, SamplingParams
 from repro_torch.models import model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serving import media
+from torch_threads import one_torch_thread  # noqa: F401
 
 CONFIGS = ("qwen3-vl-toy", "llama-3.2-vision-90b")
 GATE = 0.5
@@ -266,8 +266,8 @@ def _serve(engine, make, rounds):
 
 def _engines(weights, **kw):
     jcfg, tcfg, jp, tp, _ = weights
-    kw = {**ENGINE_KW, **kw}
-    return (JaxEngine(jcfg, jp, speculative_fill=False, **kw),
+    kw = {**ENGINE_KW, "speculative_fill": False, **kw}
+    return (JaxEngine(jcfg, jp, **kw),
             InferenceEngine(tcfg, tp, device="cpu", **kw))
 
 

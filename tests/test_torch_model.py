@@ -30,6 +30,7 @@ from repro_torch.core.kv_cache import SlotKVPool, init_decode_state
 from repro_torch.core.paged_kv import PagedKVPool
 from repro_torch.models import layers, model
 from repro_torch.models.convert import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = dict(atol=1e-4, rtol=1e-4)
 # the paged layer test holds arena cells to atol 1e-6, which float32

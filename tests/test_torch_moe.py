@@ -30,6 +30,7 @@ from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import Request, SamplingParams
 from repro_torch.models import layers, model
 from repro_torch.models.convert import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = dict(atol=1e-4, rtol=1e-4)
 DEEPSEEK = "deepseek-moe-16b"
@@ -299,7 +300,8 @@ def test_moe_engine_greedy_tokens_match_reference(qwen3_moe, layout,
           for p, s in zip(_prompts(), sampling)]
     tr = [Request(prompt_tokens=p, sampling=SamplingParams(**s))
           for p, s in zip(_prompts(), sampling)]
-    JaxEngine(jcfg, jp, speculative_fill=False, **kw).generate(jr)
+    kw["speculative_fill"] = False
+    JaxEngine(jcfg, jp, **kw).generate(jr)
     drops = _DropCounter(monkeypatch)
     InferenceEngine(tcfg, tp, device="cpu", **kw).generate(tr)
     for a, b in zip(jr, tr):

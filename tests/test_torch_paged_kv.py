@@ -47,6 +47,7 @@ from repro_torch.kernels.quant_matmul import quantize_kv_int8
 from repro_torch.models import model as tmodel
 from repro_torch.models.convert import params_from_jax
 from test_torch_kernels import _paged_case
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32 = dict(atol=2e-5, rtol=1e-3)
 TOK = ByteTokenizer()
@@ -356,8 +357,9 @@ def _prompts():
 
 def _run_pair(weights, sampling=None, **kw):
     jcfg, tcfg, jp, tp = weights
-    args = dict(max_batch=2, cache_len=128, prefill_chunk=32, **kw)
-    je = JaxEngine(jcfg, jp, speculative_fill=False, **args)
+    args = dict(max_batch=2, cache_len=128, prefill_chunk=32,
+                speculative_fill=False, **kw)
+    je = JaxEngine(jcfg, jp, **args)
     te = InferenceEngine(tcfg, tp, device="cpu", **args)
     sampling = sampling or [{"max_tokens": m} for m in (12, 7, 10, 16, 1)]
     jr = [JaxRequest(prompt_tokens=p, sampling=JaxSampling(**s))

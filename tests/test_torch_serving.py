@@ -1,6 +1,6 @@
 """The port's OpenAI server over HTTP on the CPU: the golden fixtures of
 ``tests/golden_openai`` (the ``chat_image_*`` ones against a vision model,
-as the reference's suite runs them; echo is not ported yet), chat,
+as the reference's suite runs them), chat,
 completions, SSE, ``n=2``, ``/stats`` with its ``content_cache`` block, and
 the launcher, dense, paged and on a vision model."""
 import json
@@ -15,8 +15,7 @@ from repro_torch.serving import media
 from repro_torch.serving.api import OpenAIServer
 from repro_torch.serving.server import ApiServer
 from test_openai_surface import GOLDEN, _request_json, _request_sse, match
-
-PORTED_GOLDEN = [p for p in GOLDEN if "echo" not in p.stem]
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +54,7 @@ def _chat(server, content, **extra):
                     **extra}})
 
 
-@pytest.mark.parametrize("path", PORTED_GOLDEN, ids=lambda p: p.stem)
+@pytest.mark.parametrize("path", GOLDEN, ids=lambda p: p.stem)
 def test_golden_fixture(request, path):
     server = request.getfixturevalue(
         "vl_server" if path.stem.startswith("chat_image") else "server")
@@ -116,7 +115,9 @@ def test_completion_logprobs_and_prompt_count(server):
 
 def test_requests_outside_the_slice_get_the_error_envelope(server):
     """An image sent to a text-only model is ignored, as the reference
-    answers it: 200, and the text of the same chat without the image."""
+    answers it: 200, and the text of the same chat without the image.
+    ``echo`` returns the prompt ahead of the text; with ``stream`` it gets
+    the 400 envelope."""
     status, body = _chat(server, [{"type": "image_url",
                                    "image_url": {"url": "synthetic://x"}}],
                          max_tokens=2)
@@ -128,6 +129,11 @@ def test_requests_outside_the_slice_get_the_error_envelope(server):
     status, body = _request_json(server, {
         "method": "POST", "path": "/v1/completions",
         "request": {"prompt": "x", "max_tokens": 2, "echo": True}})
+    assert status == 200 and body["choices"][0]["text"].startswith("x")
+    status, body = _request_json(server, {
+        "method": "POST", "path": "/v1/completions",
+        "request": {"prompt": "x", "max_tokens": 2, "echo": True,
+                    "stream": True}})
     assert status == 400 and "echo" in body["error"]["message"]
 
 
