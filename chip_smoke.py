@@ -32,10 +32,17 @@ Phases (any failure exits non-zero and prints no result line):
    ``yi-34b`` (G 7), all at D 128, for all three attention kernels (flash
    in the engine form over a 2048 ring, decode at S 2048, paged at 16-token
    pages, 128 a row, fp and int8), and flash with a 256 window over a
-   256-slot ring with rows past the window's reach (no live key);
+   256-slot ring with rows past the window's reach (no live key); the
+   ``rmsnorm`` kernel (the port's own) at 8, 40 and 512 rows of D 896 and
+   2048 against its plain version (bf16 2e-2, float32 1e-5) and against
+   itself, rows 0-7 of every call bit for bit equal to the 8 rows alone;
+   the threefry streams (bits, uniforms, folded step keys, categorical
+   draws) on the card bit for bit equal to the same functions on the CPU
+   at [8, 151936], Gumbel noise within 4 ulp;
 3. full-width models — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
-   model through the plain versions (max |Δlogit| <= 1e-3, argmax
+   model through the plain versions (attention and rmsnorm; max |Δlogit|
+   <= 1e-3, argmax
    agreement), over the dense ring and over a paged arena, and the paged
    run against the dense one through the kernels; the prompt + the 8
    decoded tokens prefilled as one sequence (how a preempted request whose
@@ -122,7 +129,9 @@ Phases (any failure exits non-zero and prints no result line):
    the layout's kernel, + 24 x 4 x draft rounds on decode in (c), flash
    24 x (prefill waves + the draft's prime prefills); it reads the share
    of texts equal to spec off, tokens/s of both, accepted tokens a round,
-   and forwards against emitted tokens; 4j — the rest of single-engine
+   and forwards against emitted tokens, and ``tools/spec_row_drift.py``'s
+   reading 2 through ``layers.rmsnorm`` (1600 rows normalised alone and
+   inside 5x as many: none may differ); 4j — the rest of single-engine
    serving on ``qwen2-0.5b`` (bf16, 24 layers, the served weights, the
    engine alone unless named): (a) 24 prompts of 300–1500 tokens on 8
    slots with speculative wave filling on and off, dense ring and fp
@@ -149,9 +158,26 @@ Phases (any failure exits non-zero and prints no result line):
    aborts all 10 requests, no page pinned; (f) export mid-decode from one
    engine and import into another, dense, fp and int8 pages: tokens equal
    an undrained run, the 8 snapshots resume with no flash launch, their
-   cells (int8 values and scales) equal the exporter's bit for bit.  An
-   ``error`` finish that names no injected fault fails the run in every
-   phase;
+   cells (int8 values and scales) equal the exporter's bit for bit; 4k —
+   multi-replica serving, servers built as ``launch/serve.py --replicas 2
+   --router-policy affinity --transport asgi`` builds them (``qwen2-0.5b``,
+   bf16, 24 layers, 8 slots each): (a) on fp pages, 16 chats in 8
+   ``x-session``s and 4b's 6 shared-prompt chats, twice: each session on
+   one replica, the shared-prompt chats on one replica by digest placement
+   with prefix-cache hits there, greedy texts equal to a one-replica
+   server's, usage right, no page pinned, the paged kernel 24 x and flash
+   24 x the replicas' decode steps and prefill waves, rmsnorm 49 x both;
+   read: tokens/s against one replica, the prefix-hit share against
+   ``--router-policy random``; (c) 32 concurrent SSE streams, a client
+   that disconnects mid-stream aborted within 2 s, ``batch`` of 8 equal to
+   8 single calls, the ASGI lifespan, and after ``POST /admin/drain`` a
+   stream's structured 503 ``draining`` with ``Retry-After``; (b)
+   ``Router.drain_replica(0)`` with 8 live and 4 queued requests, dense
+   and fp pages: outputs equal to an undrained engine, the live slots
+   resume with no flash launch, gapless streams, session pins moved; (d) a
+   seeded stochastic request (temperature 0.8, top-p 0.9, seed 1234) on
+   each replica and after the drain: the same tokens.  An ``error``
+   finish that names no injected fault fails the run in every phase;
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -161,11 +187,14 @@ Phases (any failure exits non-zero and prints no result line):
    kernel/SDPA ratio from the same call, each also device alone (the host's
    launch work hidden), and again at ``deepseek-moe-16b``'s shapes (the
    ``moe_*`` columns); decode's and paged's time against their number of
-   splits.
+   splits; ``rmsnorm`` at the decode step's 8 x 896 and a 512-row chunk
+   beside ``F.rms_norm`` and its byte bound; one ``masked_sample_inner``
+   step on [8, 151936] greedy, stochastic, and stochastic with top-p (the
+   threefry noise's cost).
 
-The last lines are one ``serve`` JSON line, one ``spec`` JSON line, one
-``{"kernels": [...]}`` JSON line, the card's ``nvidia-smi`` name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are one ``serve`` JSON line (4k under ``k4``), one ``spec``
+JSON line, one ``{"kernels": [...]}`` JSON line (five kernels), the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -193,7 +222,13 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
     "paged_attention": "src/repro/kernels/paged_attention.py:86",
     "quant_matmul": "src/repro/kernels/quant_matmul.py:42",
+    # no TPU kernel: the reference computes rmsnorm in plain jnp; the port's
+    # kernel exists to make a row's result independent of the call's rows
+    "rmsnorm": "src/repro/models/layers.py:41",
 }
+PEAK_F32_FLOPS = 67e12            # float32 outside the tensor cores
+RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
+RMS_WIDTHS = (896, 2048)          # qwen2-0.5b, deepseek-moe-16b
 # quant_matmul outputs grow with K: held relative to the largest output
 QMM_REL = {"bfloat16": 1e-2, "float32": 1e-4}
 VISION = "llama-3.2-vision-90b"
@@ -560,6 +595,83 @@ def check_kernels(torch, dec, fla, pag, qm):
     return errs
 
 
+def check_rmsnorm(torch, rms) -> float:
+    """The rmsnorm kernel against its plain version at the serving paths'
+    rows (8 decode rows, 40 verify rows, 512 prefill rows) and widths (D
+    896 and 2048), bf16 (atol 2e-2) and float32 (1e-5); then against
+    itself across call sizes, bit for bit: rows 0-7 alone equal the same
+    rows inside 40 and inside 512.  Returns the largest bf16 error."""
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for d in RMS_WIDTHS:
+            x = (torch.randn((512, d), generator=g, device="cuda") * 2
+                 ).to(dtype)
+            w = (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+                 ).to(dtype)
+            alone = rms.rmsnorm_cuda(x[:8].clone(), w)
+            for rows in (8, 40, 512):
+                got = rms.rmsnorm_cuda(x[:rows].clone(), w)
+                torch.cuda.synchronize()
+                err = max_err(torch, got, rms.rmsnorm_plain(x[:rows], w))
+                same = bool(torch.equal(got[:8], alone))
+                ok = err <= RMS_TOL[dname] and same and \
+                    bool(torch.isfinite(got).all())
+                log(f"  rmsnorm           {dname:8s} {rows:3d}x{d}: "
+                    f"max|kernel-plain| {err:.3e} (tol {RMS_TOL[dname]:g}); "
+                    f"rows 0-7 equal to 8 rows alone bit for bit {same} "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"rmsnorm {dname} {rows}x{d}: error "
+                                         f"{err}, row-invariant {same}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+    return worst
+
+
+def check_threefry(torch, sampling) -> dict:
+    """The threefry streams on the card against the same functions on the
+    CPU (which the CPU tests hold to JAX bit for bit): bits, uniforms and
+    folded step keys bit for bit at [8, 151936], Gumbel noise within 4 ulp
+    of max(1, |g|) (the card's log against the CPU's), and categorical
+    draws equal."""
+    import numpy as np
+    keys = np.stack([sampling.request_base_key(s) for s in
+                     (0, 1, 42, 1234, 2**31 + 7, 2**32 + 9, 2**40 + 3,
+                      2**63 - 1)]).astype(np.int64)
+    kc = torch.from_numpy(keys)
+    kg = kc.cuda()
+    v = 151936
+    pos = torch.tensor([0, 7, 300, 2047, 4095, 9, 65536, 3])
+    step_c = sampling.fold_step_keys(kc, pos)
+    step_g = sampling.fold_step_keys(kg, pos.cuda())
+    logits = torch.randn((8, v), generator=torch.Generator().manual_seed(5))
+    out = {
+        "step_keys_equal": bool(torch.equal(step_g.cpu(), step_c)),
+        "bits_equal": bool(torch.equal(sampling.random_bits(step_g, v).cpu(),
+                                       sampling.random_bits(step_c, v))),
+        "uniforms_equal": bool(torch.equal(
+            sampling.uniform(step_g, v).cpu().view(torch.int32),
+            sampling.uniform(step_c, v).view(torch.int32))),
+        "categorical_equal": bool(torch.equal(
+            sampling.categorical(step_g, logits.cuda()).cpu(),
+            sampling.categorical(step_c, logits))),
+    }
+    gg = sampling.gumbel(step_g, v).cpu()
+    gc_ = sampling.gumbel(step_c, v)
+    diff = ((gg - gc_).abs() / gc_.abs().clamp_min(1.0)).max().item()
+    out["gumbel_max_rel_to_max1"] = diff
+    ok = all(out[k] for k in ("step_keys_equal", "bits_equal",
+                              "uniforms_equal", "categorical_equal")) and \
+        diff <= 4 * 2.0 ** -23
+    log(f"  threefry on the card vs the CPU at [8, {v}]: {out} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"threefry card vs CPU: {out}")
+    return out
+
+
 def check_split_counts(torch, pag, qm, dtype):
     """The paged kernel (fp and int8 pages) with 1, 3 and the planned
     number of splits, and the bf16 ``quant_matmul`` with 1, 3 and the
@@ -600,17 +712,20 @@ def check_split_counts(torch, pag, qm, dtype):
 # --------------------------------------------------------------------------- #
 @contextmanager
 def plain_attention(ops):
-    """Route the layers' attention calls to the plain versions (the
-    comparison's reference side), whatever the tensors' device."""
-    saved = ops.flash_attention, ops.decode_attention, ops.paged_attention
+    """Route the layers' kernel calls (attention and rmsnorm) to the plain
+    versions (the comparison's reference side), whatever the tensors'
+    device."""
+    saved = (ops.flash_attention, ops.decode_attention, ops.paged_attention,
+             ops.rmsnorm)
     ops.flash_attention = ops._flash_plain
     ops.decode_attention = ops._decode_plain
     ops.paged_attention = ops._paged_plain
+    ops.rmsnorm = ops.rmsnorm_plain
     try:
         yield
     finally:
         (ops.flash_attention, ops.decode_attention,
-         ops.paged_attention) = saved
+         ops.paged_attention, ops.rmsnorm) = saved
 
 
 def phrase_prompt(torch, g, vocab, s, period=6):
@@ -832,7 +947,7 @@ def check_verify(torch, model, params, cache, last, lengths, *, what,
         admit_decode_state(st, list(range(b)), last_token=last.tolist(),
                            positions=lengths.tolist(), temps=[0.0] * b,
                            top_p=[1.0] * b, top_k=[0] * b, min_p=[0.0] * b,
-                           sample_key=[0] * b, budget=[100] * b,
+                           sample_key=[[0, 0]] * b, budget=[100] * b,
                            active=[True] * b,
                            **({} if ctx_valid is None
                               else {"ctx_valid": ctx_valid.cpu().numpy()}))
@@ -1281,6 +1396,16 @@ def require_launches(launches, serve, layers, *, decode_kernel, unused):
         raise AssertionError(f"launch counts {launches}, want {want}")
 
 
+def require_rmsnorm(launches, serve, layers):
+    """The counted round's rmsnorm launches: 2 per layer (before attention
+    and before the MLP) + 1 (the final norm) per forward, one forward per
+    decode step and per prefill wave."""
+    want = (2 * layers + 1) * (serve["decode_steps"] + serve["prefill_waves"])
+    if launches["rmsnorm"] != want or not want:
+        raise AssertionError(f"rmsnorm launches {launches['rmsnorm']}, want "
+                             f"{want}")
+
+
 def check_paged_serving(stats):
     """/stats after a paged round: prefix-cache hits, pages shared
     copy-on-write, no full copy, and no page pinned once every request
@@ -1416,8 +1541,12 @@ def row_drift(torch, params, cfg, rows=8, s=SPEC_K + 1) -> dict:
     the call carries more rows: each of layer 0's weight products and the
     LM head on ``rows`` random rows alone against the same rows inside a
     call of ``rows * s`` (a verify forward's M), max |Δ| (0: bit-identical);
-    and ``rmsnorm_var_rows``, the rows whose float32 mean of squares (the
-    variance inside ``layers.rmsnorm``) differs between the two calls."""
+    ``rmsnorm_var_rows``, the rows whose float32 ``torch.mean`` of squares
+    (the plain rmsnorm's variance) differs between the two calls; and
+    ``rmsnorm_kernel_rows``, ``tools/spec_row_drift.py``'s reading 2 through
+    ``layers.rmsnorm`` (the row-invariant kernel): of 200 x ``rows`` rows
+    in bf16 normalised alone and inside ``rows * s``, how many differ."""
+    from repro_torch.models import layers as lyr
     g = torch.Generator(device="cuda").manual_seed(5)
     layer = {k: v[0] for k, v in params["block"]["pos0"]["attn"].items()
              if k.startswith("w")}
@@ -1433,6 +1562,15 @@ def row_drift(torch, params, cfg, rows=8, s=SPEC_K + 1) -> dict:
     out["rmsnorm_var_rows"] = int(
         (torch.mean(x[:, :1].contiguous() ** 2, dim=-1)
          != torch.mean(x * x, dim=-1)[:, :1]).sum())
+    w = params["final_ln"]
+    differ = 0
+    for _ in range(200):
+        x = torch.randn((rows, s, cfg.d_model), generator=g,
+                        device="cuda").to(w.dtype)
+        differ += int((lyr.rmsnorm(x[:, :1].contiguous(), w, cfg.rms_eps)
+                       != lyr.rmsnorm(x, w, cfg.rms_eps)[:, :1]
+                       ).any(-1).sum())
+    out["rmsnorm_kernel_rows"] = [differ, 200 * rows]
     return out
 
 
@@ -1526,6 +1664,9 @@ def check_draft_engine(torch, get_config, InferenceEngine, Request,
     same = [a == b for a, b in zip(out["off"].pop("tokens"),
                                    out["draft"].pop("tokens"))]
     out["row_drift"] = row_drift(torch, params, cfg)
+    if out["row_drift"]["rmsnorm_kernel_rows"][0]:
+        raise AssertionError(f"4i-c: layers.rmsnorm gives rows another value "
+                             f"inside a larger call: {out['row_drift']}")
     on, off = out["draft"], out["off"]
     log(f"  4i-c draft = target weights: spec {on['speculation']}; greedy "
         f"acceptance {on['reading']['acceptance']:.3f}, "
@@ -2225,6 +2366,8 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
     else:
         want.update(paged_attention=0,
                     decode_attention=(n_self + n_cross) * steps)
+    # two norms a layer (self- or cross-attention, then the MLP) + the final
+    want["rmsnorm"] = (2 * (n_self + n_cross) + 1) * (steps + waves)
     log(f"  {layout}: 13 media requests, {tokens} completion tokens in "
         f"{wall:.3f} s, {waves} prefill waves, {steps} decode steps, "
         f"launches {launches} (flash: {n_self} causal + {n_cross} "
@@ -2983,6 +3126,387 @@ def check_handoff(torch, ns, wrappers, params):
 
 
 # --------------------------------------------------------------------------- #
+# phase 4k: multi-replica serving (router, ASGI transport, async client,
+# batch) on qwen2-0.5b, bf16, 24 layers
+# --------------------------------------------------------------------------- #
+SEED_BODY = {"temperature": 0.8, "top_p": 0.9, "seed": 1234}
+
+
+def launcher_4k(serve_mod, *extra):
+    """A server built as ``launch/serve.py --replicas 2 --router-policy
+    affinity --transport asgi`` builds it (8 slots, a 2048 ring, the seeded
+    weights every phase serves, admission on with ``--shed-wait 0``), not
+    started; ``extra`` adds or overrides flags."""
+    return serve_mod.build_server(serve_mod.parse_args(
+        ["--arch", QWEN, "--port", "0", "--max-batch", "8", "--cache-len",
+         "2048", "--shed-wait", "0", "--replicas", "2", "--router-policy",
+         "affinity", "--transport", "asgi", *extra]))
+
+
+def mix_4k():
+    """(headers, kind, body) of 4k-a's mix: 16 chats in 8 ``x-session``s
+    (two turns each, greedy) and 4b's 6 shared-system-prompt chats."""
+    out = [({"x-session": f"sess-{i % 8}"}, "chat",
+            chat(f"[{i % 8}] session {i % 8}, turn {i // 8}: describe part "
+                 f"{100 + i} of the catalogue", max_tokens=10 + i))
+           for i in range(16)]
+    return out + [({}, kind, body) for kind, body in shared_prompt_chats()]
+
+
+def send_4k(port, items, tok):
+    """All items at once, a thread each; every response checked (status,
+    finish_reason, usage).  Returns (texts, completion tokens, wall s)."""
+    out = [None] * len(items)
+
+    def one(i):
+        hdr, kind, body = items[i]
+        path = "/v1/chat/completions" if kind == "chat" else "/v1/completions"
+        out[i] = http(port, path, body, hdr)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    done = 0
+    for (hdr, kind, body), res in zip(items, out):
+        if res is None or res[0] != 200:
+            raise AssertionError(f"4k: {body} failed: {res}")
+        done += check_response(kind, body, res[2], tok)
+    return [text_of(b, r[2]) for (_, _, b), r in zip(items, out)], done, wall
+
+
+def recording(router) -> list:
+    """Wrap each replica's ``submit``: every request placed on replica i
+    appends (i, session, prompt) to the returned list."""
+    placed = []
+    for i, rep in enumerate(router.replicas):
+        inner = rep.client.submit
+
+        def submit(greq, i=i, inner=inner):
+            placed.append((i, greq.session, greq.prompt))
+            return inner(greq)
+
+        rep.client.submit = submit
+    return placed
+
+
+def replicas_4k(stats) -> dict:
+    """Per replica: (device steps, prefill waves, prefix-cache hits and
+    misses, retired, requests the router placed there: 0 without one)
+    from a /stats v2 ``replicas[]``."""
+    return {r["name"]: {"device_steps": r["device_steps"],
+                        "prefill_waves": r["prefill_waves"],
+                        "hits": r["prefix_cache"]["hits"],
+                        "misses": r["prefix_cache"]["misses"],
+                        "retired": r["retired"],
+                        "submitted": r.get("submitted", 0)}
+            for r in stats["replicas"]}
+
+
+def round_4k(torch, srv, wrappers, tok, *, count=False):
+    """The 4k-a mix twice (the first takes the first-call costs); the
+    second is counted: launches zeroed just before and read just after,
+    per-replica counters read from /stats v2 around it.  Returns (texts,
+    completion tokens, wall, launches, per-replica deltas, /stats)."""
+    send_4k(srv.port, mix_4k(), tok)
+    before = replicas_4k(http(srv.port, "/stats")[2])
+    if count:
+        zero(wrappers)
+    texts, done, wall = send_4k(srv.port, mix_4k(), tok)
+    torch.cuda.synchronize()
+    launches = counted(wrappers) if count else None
+    stats = http(srv.port, "/stats")[2]
+    after = replicas_4k(stats)
+    delta = {n: {k: after[n][k] - before[n][k] for k in after[n]}
+             for n in after}
+    return texts, done, wall, launches, delta, stats
+
+
+def check_router_serving(torch, serve_mod, wrappers):
+    """4k-a (fp pages) and the readings: the mix served twice by two
+    replicas behind the affinity router over HTTP (ASGI); each session's
+    turns on one replica, the shared-prompt chats on one replica with
+    digest placements and prefix-cache hits there, greedy texts equal to a
+    single-replica server's, usage right, no page pinned, the kernels as
+    counted over both replicas.  Readings: tokens/s against one replica,
+    the prefix-hit share against ``--router-policy random``.  Returns the
+    record and the still-running affinity server (4k-c runs on it)."""
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    paged = ("--kv-layout", "paged", "--kv-page-size", "16")
+    rec = {}
+    single = launcher_4k(serve_mod, *paged, "--replicas", "1")
+    single.start()
+    try:
+        want, n1, wall1, _, _, _ = round_4k(torch, single, wrappers, tok)
+    finally:
+        single.stop()
+        single.api.client.stop()
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = launcher_4k(serve_mod, *paged)
+    router = srv.api.client
+    placed = recording(router)
+    srv.start()
+    texts, n2, wall2, launches, delta, stats = round_4k(
+        torch, srv, wrappers, tok, count=True)
+    layers = srv.api.engine.cfg.num_layers
+    steps = sum(d["device_steps"] for d in delta.values())
+    waves = sum(d["prefill_waves"] for d in delta.values())
+    want_l = {"paged_attention": layers * steps, "decode_attention": 0,
+              "flash_attention": layers * waves,
+              "rmsnorm": (2 * layers + 1) * (steps + waves)}
+    if any(launches[k] != v for k, v in want_l.items()) or not steps:
+        raise AssertionError(f"4k-a launches {launches}, want {want_l}")
+    sessions = {}
+    for i, sess, _ in placed:
+        if sess is not None:
+            sessions.setdefault(sess, set()).add(i)
+    system = shared_prompt_chats()[0][1]["messages"][0]["content"]
+    shared = {i for i, _, p in placed if system in p}
+    warm = f"replica-{next(iter(shared))}" if len(shared) == 1 else None
+    rstats = stats["router"]
+    pages = [r["kv_pages"] for r in stats["replicas"]]
+    rec["a_paged"] = {
+        "placements": rstats["placements"],
+        "sessions_pinned": rstats["sessions_pinned"],
+        "session_replicas": {k: sorted(v) for k, v in sessions.items()},
+        "shared_prompt_replicas": sorted(shared), "replicas": delta,
+        "texts_equal_single_replica": sum(a == b for a, b in
+                                          zip(texts, want)),
+        "requests": len(texts), "completion_tokens": n2,
+        "tokens_per_s": n2 / wall2, "single_replica_tokens_per_s":
+            n1 / wall1, "launches": launches,
+        "pinned_pages": [p["pinned"] for p in pages]}
+    log(f"  4k-a: 2 replicas (affinity, fp pages, ASGI): placements "
+        f"{rstats['placements']}, {rstats['sessions_pinned']} sessions "
+        f"pinned, each on one replica {all(len(v) == 1 for v in sessions.values())}"
+        f"; shared-prompt chats on {sorted(shared)}; per replica {delta}; "
+        f"texts equal to one replica {rec['a_paged']['texts_equal_single_replica']}"
+        f"/{len(texts)}; {n2 / wall2:.1f} tokens/s vs {n1 / wall1:.1f} "
+        f"with one replica; launches {launches}")
+    if len(sessions) != 8 or any(len(v) != 1 for v in sessions.values()) \
+            or rstats["sessions_pinned"] != 8 or warm is None \
+            or rstats["placements"]["session"] < 24 \
+            or rstats["placements"]["prefix"] < 11 \
+            or delta[warm]["hits"] < 6 or texts != want \
+            or any(p["pinned"] or p["free"] + p["reclaimable"] != p["total"]
+                   for p in pages):
+        raise AssertionError(f"4k-a: {rec['a_paged']}, pages {pages}")
+    rnd = launcher_4k(serve_mod, *paged, "--router-policy", "random")
+    rnd.start()
+    try:
+        _, _, _, _, rdelta, _ = round_4k(torch, rnd, wrappers, tok)
+    finally:
+        rnd.stop()
+        rnd.api.client.stop()
+    del rnd
+    gc.collect()
+
+    def share(d):
+        hits = sum(r["hits"] for r in d.values())
+        return hits / max(1, hits + sum(r["misses"] for r in d.values()))
+
+    rec["prefix_hit_share"] = {"affinity": share(delta),
+                               "random": share(rdelta)}
+    log(f"  4k readings: prefix-hit share affinity "
+        f"{share(delta):.3f} vs random {share(rdelta):.3f}")
+    return rec, srv
+
+
+def check_asgi_4k(torch, srv):
+    """4k-c on the affinity server of 4k-a: 32 concurrent SSE streams all
+    finish; a client that disconnects mid-stream raises /stats ``aborted``
+    within 2 s; ``batch`` of 8 bodies equals 8 single calls; the ASGI
+    lifespan protocol; after ``POST /admin/drain`` a new stream gets the
+    structured 503 ``draining`` envelope with ``Retry-After``."""
+    import asyncio
+    import socket
+
+    from repro_torch.serving.asgi import build_app
+    api, port = srv.api, srv.port
+    try:
+        streams = [None] * 32
+
+        def one(i):
+            streams[i] = post(port, "/v1/chat/completions",
+                              chat(f"stream {i}", max_tokens=8, stream=True))
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        finished = sum(1 for r in streams if r and any(
+            c["choices"] and c["choices"][0]["finish_reason"] for c in r))
+        before = http(port, "/stats")[2]["aborted"]
+        body = json.dumps(chat("never ending", max_tokens=1500,
+                               stream=True)).encode()
+        sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+        sock.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nhost: x\r\n"
+                     b"content-type: application/json\r\ncontent-length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        sock.recv(1)
+        sock.close()
+        t0 = time.perf_counter()
+        wait_for(lambda: http(port, "/stats")[2]["aborted"] > before,
+                 "the disconnect's abort", timeout=30, phase="4k-c")
+        abort_s = time.perf_counter() - t0
+        bodies = [chat(f"batch question {i}", max_tokens=6 + i)
+                  for i in range(8)]
+        batch = api.batch(bodies)
+        singles = [api.chat_completion(b) for b in bodies]
+        batch_same = [a["choices"][0]["message"] == b["choices"][0]["message"]
+                      and a["usage"] == b["usage"]
+                      for a, b in zip(batch, singles)]
+        sent = []
+        msgs = iter([{"type": "lifespan.startup"},
+                     {"type": "lifespan.shutdown"}])
+
+        async def receive():
+            return next(msgs)
+
+        async def send(msg):
+            sent.append(msg["type"])
+
+        asyncio.run(build_app(api)({"type": "lifespan"}, receive, send))
+        code, _, out = http(port, "/admin/drain", {"timeout_s": 30})
+        if code != 202:
+            raise AssertionError(f"4k-c: drain answered {code} {out}")
+        code, hdrs, err = http(port, "/v1/chat/completions",
+                               chat("too late", stream=True))
+    finally:
+        srv.stop()
+        api.client.stop()
+    rec = {"sse_streams_finished": finished, "disconnect_abort_s": abort_s,
+           "batch_equal_singles": sum(batch_same),
+           "lifespan": sent, "post_drain": [code, err.get("error", {}).get(
+               "code"), hdrs.get("Retry-After")]}
+    log(f"  4k-c: {finished}/32 SSE streams finished; disconnect aborted in "
+        f"{abort_s:.3f} s; batch of 8 equal to single calls "
+        f"{sum(batch_same)}/8; lifespan {sent}; after /admin/drain a stream "
+        f"got {rec['post_drain']}")
+    if finished != 32 or abort_s > 2.0 or not all(batch_same) or \
+            sent != ["lifespan.startup.complete",
+                     "lifespan.shutdown.complete"] or \
+            rec["post_drain"][:2] != [503, "draining"] or \
+            not rec["post_drain"][2]:
+        raise AssertionError(f"4k-c: {rec}")
+    return rec
+
+
+def check_router_drain(torch, ns, serve_mod, wrappers):
+    """4k-b and 4k-d, on the dense ring and on fp pages: a seeded
+    stochastic request (temperature 0.8, top-p 0.9, seed 1234) served on
+    each replica; 12 requests placed on replica 0 (8 live, 4 queued, each
+    in a session of its own), then ``Router.drain_replica(0)``: every
+    output equals an undrained single engine's, the migrated live slots
+    resume with no flash launch (replica 1 prefills the queued requests
+    alone), each handle's stream carries every token and one finish, the
+    session pins move to replica 1, and the seeded request served again
+    after the drain gives the same tokens."""
+    from repro_torch.core.request import GenerationRequest
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    prompts = random_prompts(ns, 12, 200, 600, seed=29)
+    # under one 16-token prefix block, so no replica serves it from its
+    # prefix cache (every run prefills it whole, as the first)
+    seeded = GenerationRequest(
+        prompt=tok.encode("seeded request"),
+        sampling=ns.SamplingParams(max_tokens=24, **SEED_BODY))
+    out = {}
+    for label, flags in (("dense", ()), ("paged", ("--kv-layout", "paged",
+                                                   "--kv-page-size", "16"))):
+        srv = launcher_4k(serve_mod, *flags)
+        router = srv.api.client
+        try:
+            reps = router.replicas
+            seeded_tokens = [rep.client.submit(seeded).result(
+                timeout=600).choices[0].tokens for rep in reps]
+            reps[1].state = "draining"            # place all on replica 0
+            handles = [router.submit(GenerationRequest(
+                prompt=list(p), session=f"drain-{label}-{i}",
+                sampling=ns.SamplingParams(max_tokens=48)))
+                for i, p in enumerate(prompts)]
+            reps[1].state = "up"
+            wait_for(lambda: sum(h._requests[0].num_generated >= 4
+                                 for h in handles) >= 8,
+                     "8 live slots 4 tokens in", phase="4k-b")
+            live = {h._requests[0].request_id for h in handles
+                    if h._requests[0].num_generated > 0}
+            b_engine = reps[1].client.engine
+            rows = []
+            inner = b_engine._run_wave_group
+
+            def run_wave_group(bucket, cross, group):
+                rows.extend(job.req.request_id for job, _ in group)
+                return inner(bucket, cross, group)
+
+            b_engine._run_wave_group = run_wave_group
+            waves0 = b_engine.scheduler.stats.prefill_waves
+            zero(wrappers)
+            info = router.drain_replica(0)
+            results = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            launches = counted(wrappers)
+            waves = b_engine.scheduler.stats.prefill_waves - waves0
+            layers = b_engine.cfg.num_layers
+            streams = [list(h.stream()) for h in handles]
+            gapless = all(
+                [e.token for e in ev if type(e).__name__ == "TokenEvent"]
+                == r.choices[0].tokens and sum(
+                    type(e).__name__ == "FinishEvent" for e in ev) == 1
+                for ev, r in zip(streams, results))
+            pins = {router._sessions[f"drain-{label}-{i}"]
+                    for i in range(len(prompts))}
+            seeded_tokens.append(router.submit(seeded).result(
+                timeout=600).choices[0].tokens)
+            undrained = [ns.Request(prompt_tokens=list(p),
+                                    sampling=ns.SamplingParams(max_tokens=48))
+                         for p in prompts]
+            kw = {} if label == "dense" else LAYOUTS_4J["paged"]
+            drive(torch, engine_4j(ns, reps[0].client.engine.params, **kw),
+                  undrained, f"4k-b {label} undrained")
+        finally:
+            router.stop()
+        same = [r.choices[0].tokens for r in results] == \
+            [r.output_tokens for r in undrained]
+        rec = {"exported": info["exported"], "adopted": info["adopted"],
+               "live_at_drain": len(live), "b_prefill_rows_of_live":
+               len(set(rows) & live), "b_prefill_waves": waves,
+               "launches": launches, "tokens_identical": same,
+               "streams_gapless": gapless, "pins": sorted(pins),
+               "seeded_identical": all(t == seeded_tokens[0]
+                                       for t in seeded_tokens),
+               "seeded_len": len(seeded_tokens[0])}
+        log(f"  4k-b/d {label}: drained {info}; {len(live)} live at the "
+            f"drain, replica 1 prefill rows of them "
+            f"{rec['b_prefill_rows_of_live']} ({waves} waves, launches "
+            f"{launches}); outputs equal to an undrained engine {same}; "
+            f"streams gapless {gapless}; session pins {sorted(pins)}; "
+            f"seeded request on replica 0, 1 and after the drain identical "
+            f"{rec['seeded_identical']}")
+        used = "decode_attention" if label == "dense" else "paged_attention"
+        if info["exported"] != 12 or info["adopted"] != 12 or \
+                len(live) != 8 or rec["b_prefill_rows_of_live"] or not same \
+                or not gapless or pins != {1} \
+                or not rec["seeded_identical"] or len(seeded_tokens[0]) != 24 \
+                or launches["flash_attention"] != layers * waves \
+                or not launches[used]:
+            raise AssertionError(f"4k-b {label}: {rec}")
+        out[label] = rec
+        del srv, router
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: times
 # --------------------------------------------------------------------------- #
 def time_ms(torch, fn, n_sets: int, cycles: int = 2) -> float:
@@ -3025,6 +3549,12 @@ def device_ms(torch, fn, n_sets: int) -> float:
         torch.cuda.synchronize()
         if host_ms < asleep.elapsed_time(start):
             return start.elapsed_time(end) / n
+        if cycles_asleep > 2**33:       # several seconds asleep: the host
+            # waits on the card (a full launch queue), so the sleep can
+            # never hide the host's work
+            raise RuntimeError(f"device_ms: {n} calls never queued within "
+                               f"{asleep.elapsed_time(start):.0f} ms of "
+                               "sleep; fewer input sets are needed")
         cycles_asleep *= 4
 
 
@@ -3032,10 +3562,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(byts: float, flops: float) -> dict:
+def bound(byts: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> dict:
     """The least time for the work: the larger of the bytes over the memory
-    rate and the operations over the bf16 tensor-core peak."""
-    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    rate and the operations over ``peak`` (the bf16 tensor-core rate
+    unless the work runs outside the tensor cores)."""
+    t_bytes, t_ops = byts / HBM_BYTES_PER_S, flops / peak
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -3063,6 +3594,93 @@ def time_kernels(torch, dec, fla, pag, qm):
     for name, t in moe.items():
         out[name].update({f"moe_{k}": v for k, v in t.items()})
     out["quant_matmul"] = time_qmm(torch, qm)
+    return out
+
+
+def time_rmsnorm(torch, rms, F):
+    """The rmsnorm kernel at the decode step's rows (8 x 896, bf16, what
+    each of a step's 49 launches normalises) and at a 512-row prefill
+    chunk, its plain version, and ``F.rms_norm`` as the library call, on
+    rotating input sets; the bound reads x and w once and writes y once
+    (bytes; the 4 flops an element count against the float32 rate).  At
+    most 64 input sets: :func:`device_ms` queues two passes behind a
+    sleeping kernel, and more launches than the card's queue holds would
+    block the host until the sleep ends (8 decode rows are 30 KB, and a
+    step's norm reads a residual the step just wrote, hot in L2 anyway)."""
+    out = {}
+    for rows in (8, 512):
+        d = 896
+        one = (rows * d * 2) * 2 + d * 2
+        n_sets = min(64, max(2, 2 * L2_BYTES // one + 1))
+        g = torch.Generator(device="cuda").manual_seed(rows)
+        sets = [((torch.randn((rows, d), generator=g, device="cuda") * 2
+                  ).to(torch.bfloat16),
+                 (1 + 0.1 * torch.randn((d,), generator=g, device="cuda")
+                  ).to(torch.bfloat16)) for _ in range(n_sets)]
+        kern = lambda i: rms.rmsnorm_cuda(*sets[i], 1e-6)  # noqa: E731
+        lib = lambda i: F.rms_norm(sets[i][0], (d,), sets[i][1],  # noqa: E731
+                                   1e-6)
+        x, w = sets[0]
+        row = {"ms": time_ms(torch, kern, n_sets),
+               "device_ms": device_ms(torch, kern, n_sets),
+               "plain_ms": time_ms(torch, lambda i: rms.rmsnorm_plain(
+                   *sets[i], 1e-6), n_sets),
+               "library_ms": time_ms(torch, lib, n_sets),
+               "library_device_ms": device_ms(torch, lib, n_sets),
+               "library": "torch.nn.functional.rms_norm",
+               **bound(nbytes(x, w, x), 4 * rows * d, PEAK_F32_FLOPS),
+               "shape": f"{rows}x{d} bf16, {n_sets} sets"}
+        out[rows] = row
+        log(f"  rmsnorm {row['shape']}: kernel {row['ms']:.4f} ms (device "
+            f"alone {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+            f"F.rms_norm {row['library_ms']:.4f} ms (device alone "
+            f"{row['library_device_ms']:.4f}), bound {row['bound_ms']:.5f} "
+            f"ms ({row['bound_by']})")
+        del sets
+    main = dict(out[8])
+    main["prefill_512"] = out[512]
+    return main
+
+
+def time_sampler(torch, sampling) -> dict:
+    """One ``masked_sample_inner`` step on [8, 151936] float32 logits:
+    greedy (the all-greedy skip), stochastic with temperature 0.8 alone
+    (the mask skip), and with top-p 0.9 (the sort pipeline) — the last two
+    pay the threefry noise over every logit.  Host clock around 20 steps
+    ending in a synchronize (the step's host dispatch included)."""
+    import numpy as np
+    b, v = 8, 151936
+    g = torch.Generator(device="cuda").manual_seed(17)
+    logits = torch.randn((b, v), generator=g, device="cuda") * 3
+    keys = torch.from_numpy(np.stack([sampling.request_base_key(i)
+                                      for i in range(b)]).astype(np.int64)
+                            ).cuda()
+    pos = torch.arange(b, device="cuda") + 100
+    ones, zeros = torch.ones(b, device="cuda"), torch.zeros(b, device="cuda")
+    kz = torch.zeros(b, dtype=torch.int64, device="cuda")
+
+    def run(temps, top_p, stochastic, mask):
+        def step():
+            return sampling.masked_sample_inner(
+                logits, keys, pos, temps, top_p, kz, zeros,
+                any_stochastic=stochastic, any_mask=mask)
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 20
+
+    out = {"greedy_ms": run(zeros, ones, False, False),
+           "stochastic_ms": run(ones * 0.8, ones, True, False),
+           "stochastic_top_p_ms": run(ones * 0.8, ones * 0.9, True, True),
+           "shape": f"[{b}, {v}] float32"}
+    out["noise_and_draw_ms"] = out["stochastic_ms"] - out["greedy_ms"]
+    log(f"  masked_sample_inner {out['shape']}: greedy "
+        f"{out['greedy_ms']:.4f} ms, stochastic {out['stochastic_ms']:.4f} "
+        f"ms, stochastic + top-p {out['stochastic_top_p_ms']:.4f} ms a step")
     return out
 
 
@@ -3401,6 +4019,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import paged_attention as pag
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.core import sampling
     from repro_torch.core.kv_cache import slice_cache_row
     from repro_torch.core.paged_kv import PagedKVPool
     from repro_torch.core.request import Request, SamplingParams
@@ -3436,11 +4056,14 @@ def main() -> int:
 
     log("== 2. kernels against their plain versions")
     errs = check_kernels(torch, dec, fla, pag, qm)
+    errs["rmsnorm"] = check_rmsnorm(torch, rms)
+    threefry = check_threefry(torch, sampling)
 
     wrappers = {"decode_attention": dec.decode_attention_cuda,
                 "flash_attention": fla.flash_attention_cuda,
                 "paged_attention": pag.paged_attention_cuda,
-                "quant_matmul": qm.quant_matmul_cuda}
+                "quant_matmul": qm.quant_matmul_cuda,
+                "rmsnorm": rms.rmsnorm_cuda}
     log("== 3. full-width models, float32, kernels vs plain versions")
     ns3 = types.SimpleNamespace(ops=ops, layers=layers, Model=Model,
                                 init_cache=init_cache, PagedKVPool=PagedKVPool,
@@ -3476,6 +4099,7 @@ def main() -> int:
     require_launches(dense_launches, dense, layers,
                      decode_kernel="decode_attention",
                      unused="paged_attention")
+    require_rmsnorm(dense_launches, dense, layers)
     log("== 4b. serving over HTTP, paged KV (fp pages, 16-token pages)")
     paged_launches, paged, stats, _ = check_serving(
         *serving, bodies=serve_requests() + shared_prompt_chats(),
@@ -3483,6 +4107,7 @@ def main() -> int:
     require_launches(paged_launches, paged, layers,
                      decode_kernel="paged_attention",
                      unused="decode_attention")
+    require_rmsnorm(paged_launches, paged, layers)
     if paged["profiled_round"]["decode_attention_share"] != 0:
         raise AssertionError("the paged round's profile credits device time "
                              "to decode_attention, which it never launches")
@@ -3577,16 +4202,35 @@ def main() -> int:
     log("== 4j-e. the watchdog, echo over HTTP, drain and the drain cutoff "
         "(launcher-built servers)")
     j4["e_watchdog_drain"] = check_watchdog_drain(torch, serve_mod)
+    log("== 4k-a. two replicas of qwen2-0.5b behind launch/serve.py "
+        "--replicas 2 --router-policy affinity --transport asgi: sessions, "
+        "shared prompts, fp pages; one replica and --router-policy random "
+        "beside it")
+    k4, k4_srv = check_router_serving(torch, serve_mod, wrappers)
+    log("== 4k-c. the ASGI transport: SSE streams, a mid-stream disconnect, "
+        "batch, lifespan, the post-drain 503")
+    k4["c_asgi"] = check_asgi_4k(torch, k4_srv)
+    del k4_srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 4k-b/d. Router.drain_replica(0) with 8 live and 4 queued "
+        "requests, dense ring and fp pages; a seeded request on each replica "
+        "and after the drain")
+    k4["b_drain"] = check_router_drain(torch, ns, serve_mod, wrappers)
     spec["phase3_verify"] = verify3
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
                 "flash_attention": paged_launches["flash_attention"],
                 "paged_attention": paged_launches["paged_attention"],
-                "quant_matmul": qmm_launches}
+                "quant_matmul": qmm_launches,
+                "rmsnorm": dense_launches["rmsnorm"]}
 
     log("== 5. times at the serving shapes (CUDA events)")
     times = time_kernels(torch, dec, fla, pag, qm)
     times["decode_attention"]["split_sweep"] = split_sweep(torch, dec)
+    import torch.nn.functional as F
+    times["rmsnorm"] = time_rmsnorm(torch, rms, F)
+    sampler_step = time_sampler(torch, sampling)
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
@@ -3608,13 +4252,16 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
+            **({"replaces_note": "no TPU kernel: the reference's rmsnorm "
+                "is plain jnp; a kernel of the port's own, row-invariant"}
+               if name == "rmsnorm" else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tensor_core_instructions": mma.get(name),
             **{k: v for k, v in t.items()
                if k.startswith(("sdpa_on", "int8_pages", "cross_", "moe_",
-                                "shapes",
+                                "shapes", "prefill_",
                                 "library", "split_sweep", "device_ms"))},
             **({"spec_round_launches": {
                     "ngram_dense": spec["a_dense"]["ngram"]["launches"][name],
@@ -3654,7 +4301,8 @@ def main() -> int:
              "moe_dense": moe_dense, "moe_paged": moe_paged,
              "moe_init_s": moe_init_s,
              "policy_preemption": policy_preempt, "pressure": pressure,
-             "admission": admission, "j4": j4,
+             "admission": admission, "j4": j4, "k4": k4,
+             "threefry_card_vs_cpu": threefry, "sampler_step": sampler_step,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
     print(json.dumps({"spec": spec, "card": card}))

@@ -24,7 +24,7 @@ Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
      ``scheduler.plan_decode_block`` and collapses to 1 while requests or
      prefill chunks wait.
   3. **Run an encode wave, then dispatch a prefill wave**: up to
-     ``ENCODE_WAVE`` unique pending encodes (singleflight on the content
+     ``encode_wave`` unique pending encodes (singleflight on the content
      hash: N requests with one image cost one encoder call), then every
      queued job's next chunk, packed into right-padded ``[k, bucket]``
      forward passes (per-row positions and a ``seq_valid`` length mask),
@@ -128,7 +128,8 @@ from repro_torch.core.paged_kv import PagedKVPool, PagePoolExhausted
 from repro_torch.core.prefix_cache import TextPrefixCache
 from repro_torch.core.request import (FinishReason, PromptTooLongError,
                                       Request, RequestStatus, StreamEvent)
-from repro_torch.core.sampling import (masked_sample_inner, request_base_key,
+from repro_torch.core.sampling import (keys_array, masked_sample_inner,
+                                       prng_key, request_base_key, split,
                                        validate_sampling_params)
 from repro_torch.core.scheduler import (ContinuousBatchingScheduler,
                                         SchedulingPolicy)
@@ -147,7 +148,6 @@ from repro_torch.serving.tokenizer import ByteTokenizer
 log = logging.getLogger("repro_torch.engine")
 
 MAX_MEDIA_ITEMS = 4     # images the cross-attention context window holds
-ENCODE_WAVE = 4         # unique encodes per step: a video streams across
 
 
 def _next_bucket(n: int, floor: int = 16) -> int:
@@ -271,6 +271,7 @@ class InferenceEngine:
         cache_vision_kv: bool = True,
         content_cache_bytes: Optional[int] = None,  # None = cache_max_bytes
         vision_work_iters: int = 8,
+        encode_wave: int = 4,            # unique encodes per step (0 = all)
         spec_mode: str = "off",          # 'off' | 'ngram' | 'draft'
         spec_k: int = 4,                 # max drafted tokens per round
         spec_draft_config: Optional[Any] = None,  # name | ModelConfig
@@ -333,6 +334,9 @@ class InferenceEngine:
         # image's slots
         self.media_kind = "vision" if cfg.vision is not None else "none"
         self.ctx_len = 0
+        # unique media encodes per step (0 = all pending): a video's frames
+        # stream across steps instead of monopolising one
+        self.encode_wave = max(0, encode_wave)
         if self.media_kind == "vision":
             self.image_tokens = cfg.vision.num_image_tokens
             self.frame_tokens = max(4, self.image_tokens // 4)
@@ -388,9 +392,10 @@ class InferenceEngine:
                                        ctx_len=self.ctx_len,
                                        spec_k=self.spec_k,
                                        device=self.device)
-        # unseeded requests draw their base key from this engine-owned
-        # stream (deterministic for a fixed engine seed + add order)
-        self._request_rng = np.random.default_rng(seed + 1)
+        # unseeded requests take their base key from this engine-owned key
+        # chain, PRNGKey(seed + 1) split once per add (the reference's,
+        # deterministic for a fixed engine seed + add order)
+        self._request_rng = prng_key(seed + 1)
         self._streamers: Dict[int, TokenStreamDecoder] = {}
         self._stopchk: Dict[int, StopSequenceChecker] = {}
         self._live_slots: set = set()        # slots committed to DecodeState
@@ -717,7 +722,7 @@ class InferenceEngine:
                 del self._encode_tasks[h]
 
     def _dispatch_encode_wave(self) -> None:
-        """Run up to ``ENCODE_WAVE`` unique pending encodes (most urgent
+        """Run up to ``encode_wave`` unique pending encodes (most urgent
         waiter first, policy order), delivering each embedding to *all*
         waiters.  Called between the decode-block dispatch and the token
         sync, so the host encoder work overlaps the device block."""
@@ -727,7 +732,7 @@ class InferenceEngine:
         order = sorted(self._encode_tasks.values(),
                        key=lambda t: min(key(j.req) for j in t.waiters))
         self.media_stats.encode_waves += 1
-        for task in order[:ENCODE_WAVE]:
+        for task in order[:self.encode_wave or len(order)]:
             del self._encode_tasks[task.hash]
             if not task.waiters:
                 continue
@@ -824,14 +829,16 @@ class InferenceEngine:
     # admission pipeline
     # ------------------------------------------------------------------ #
     def _assign_sample_key(self, req: Request) -> None:
-        """Bind the request's base key once, at add_request: the seed for
-        seeded requests, a draw from the engine's stream otherwise."""
+        """Bind the request's base key once, at add_request: a function of
+        the seed alone for seeded requests, a split of the engine's key
+        chain otherwise.  The key lives on the request, so a resume after
+        preemption or a handoff replays the same per-token stream."""
         if req.sample_key is not None:
             return
         if req.sampling.seed is not None:
             req.sample_key = request_base_key(req.sampling.seed)
         else:
-            req.sample_key = int(self._request_rng.integers(0, 2**63 - 1))
+            self._request_rng, req.sample_key = split(self._request_rng)
 
     def _resolve_sampling(self, req: Request) -> Tuple[float, float, int, float]:
         """Effective (temperature, top_p, top_k, min_p): per-request values
@@ -1189,13 +1196,14 @@ class InferenceEngine:
             return []
         jobs = [j for j, _ in completed]
         logits = torch.stack([lg for _, lg in completed]).float()   # [k, V]
-        # first tokens use the decode block's sampler: key = hash(base,
+        # first tokens use the decode block's sampler: key = fold_in(base,
         # position-of-the-new-token), parameters through the same fallbacks
         samp = [self._resolve_sampling(j.req) for j in jobs]
         dev = self.device
         firsts = masked_sample_inner(
             logits,
-            torch.tensor([j.req.sample_key for j in jobs], device=dev),
+            torch.from_numpy(keys_array([j.req.sample_key for j in jobs])
+                             ).to(dev),
             torch.tensor([len(j.tokens) for j in jobs], device=dev),
             torch.tensor([s[0] for s in samp], device=dev),
             torch.tensor([s[1] for s in samp], device=dev),

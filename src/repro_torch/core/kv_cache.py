@@ -26,6 +26,7 @@ from typing import Any, List, Optional, Sequence, Set
 import torch
 
 from repro_torch.configs import ModelConfig
+from repro_torch.core.sampling import keys_array
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import init_cache, tree_leaves, tree_map
 
@@ -46,9 +47,10 @@ class DecodeState:
     token id); ``active`` is the on-device finished-mask — a slot freezes
     when it samples a stop token or exhausts its budget, and stays frozen
     (masked cache writes, no position advance) until the host re-admits into
-    the slot.  ``sample_key`` is the request's base key (a 63-bit integer);
-    the sampler hashes the token position into it per step, so one slot's
-    stream never depends on its neighbours or on K."""
+    the slot.  ``sample_key`` is the request's base PRNG key (two uint32
+    words in int64); the sampler folds the token position into it per step
+    (``fold_in(key, position)``), so one slot's stream never depends on its
+    neighbours or on K."""
 
     last_token: torch.Tensor   # [B] int64 — input to the next decode step
     positions: torch.Tensor    # [B] int64 — absolute position of last_token
@@ -56,7 +58,7 @@ class DecodeState:
     top_p: torch.Tensor        # [B] float32 — 1 = off
     top_k: torch.Tensor        # [B] int64 — 0 = off
     min_p: torch.Tensor        # [B] float32 — 0 = off
-    sample_key: torch.Tensor   # [B] int64 — per-request base key
+    sample_key: torch.Tensor   # [B, 2] int64 — per-request base key words
     ctx_valid: torch.Tensor    # [B, T] bool — media context liveness
     budget: torch.Tensor       # [B] int64 — tokens left before LENGTH stop
     stop_tokens: torch.Tensor  # [B, S] int64 — per-slot stop ids, -1 pad
@@ -80,7 +82,8 @@ def init_decode_state(max_batch: int, max_stop: int, *, ctx_len: int = 0,
         last_token=z(torch.int64), positions=z(torch.int64),
         temps=z(torch.float32), top_p=z(torch.float32, 1.0),
         top_k=z(torch.int64), min_p=z(torch.float32),
-        sample_key=z(torch.int64),
+        sample_key=torch.zeros((max_batch, 2), dtype=torch.int64,
+                               device=device),
         ctx_valid=torch.zeros((max_batch, max(ctx_len, 1)), dtype=torch.bool,
                               device=device),
         budget=z(torch.int64),
@@ -96,12 +99,15 @@ def admit_decode_state(state: DecodeState, slots: Sequence[int],
                        **rows: Sequence) -> None:
     """Scatter one admission wave (k slots) into the decode state in place:
     ``rows`` maps each :class:`DecodeState` field to its k new values (host
-    lists or arrays, uploaded here in one copy per field).  The slots'
-    staged drafts are cleared, as in the reference."""
+    lists or arrays, uploaded here in one copy per field; ``sample_key``
+    rows are uint32 ``[2]`` keys).  The slots' staged drafts are cleared,
+    as in the reference."""
     dev = state.active.device
     idx = torch.as_tensor(list(slots), dtype=torch.int64, device=dev)
     for name, values in rows.items():
         dst = getattr(state, name)
+        if name == "sample_key":
+            values = keys_array(values)
         dst[idx] = torch.as_tensor(values, dtype=dst.dtype, device=dev)
     state.draft_tokens[idx] = 0
     state.draft_len[idx] = 0

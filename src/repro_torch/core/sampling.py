@@ -17,49 +17,155 @@ Semantics (the reference's, unchanged):
   — never on batch neighbours, the decode block size K, or whether
   logprobs are collected.
 
-What differs from the reference: the stream is a counter-based hash
-(:func:`uniform_noise`), turned into a categorical draw by the Gumbel-max
-rule, not JAX's threefry generator, so a seeded request draws other tokens
-than it does in the reference package (bit-replay of those streams is a
-ROADMAP item).  Greedy tokens are unaffected.  The speculative verifier's
-auxiliary draws (accept test, correction, draft sampling) come from salted
-streams on the same hash (:func:`salted_keys`), never from the plain one.
+The random streams are JAX's, bit for bit: :func:`threefry2x32` is the
+Threefry-2x32 hash of JAX's ``prng`` module on int64 tensors holding uint32
+words, and :func:`fold_in`, :func:`split`, :func:`random_bits`,
+:func:`uniform`, :func:`gumbel` and :func:`categorical` replay
+JAX's ``random`` module under its default ``threefry2x32`` implementation with
+``jax_threefry_partitionable`` on (the counters of element ``i`` are the
+words ``(0, i)``).  A seeded request therefore draws the same tokens as in
+the reference package, and so does an unseeded one given the same engine
+seed and add order.  The bits and the uniforms are exact; ``log`` may
+differ from XLA's in the last place, so the Gumbel noise agrees within a
+few ulp (tokens agree unless two perturbed logits tie that closely).  The
+speculative verifier's auxiliary draws (accept test, correction, draft
+sampling) come from salted keys ``fold_in(fold_in(base, salt), position)``
+(:func:`fold_salted_keys`), never from the plain stream.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 _MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY = float(np.finfo(np.float32).tiny)
 
 
-def request_base_key(seed: int) -> int:
-    """Base key of a seeded request: the seed itself (a 63-bit integer), so
-    seeded replay holds across runs, processes and batch compositions."""
-    return int(seed)
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds) of the counter words ``(x0, x1)`` under the
+    key words ``(k0, k1)``: int64 tensors holding values in [0, 2**32),
+    broadcast together.  Every add and rotate is masked back to 32 bits, so
+    no intermediate reaches 2**63."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = x0 ^ (((x1 << r) & _MASK32) | (x1 >> (32 - r)))
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (lowbias32) on int64 tensors holding values in
-    [0, 2**32): every product stays below 2**63, so nothing overflows."""
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _MASK32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _MASK32
-    return x ^ (x >> 16)
+def _words(keys) -> torch.Tensor:
+    """Keys as an int64 tensor of uint32 words ``[..., 2]``."""
+    if isinstance(keys, torch.Tensor):
+        return keys
+    return torch.from_numpy(np.asarray(keys, np.uint32).astype(np.int64))
 
 
-def uniform_noise(base_keys: torch.Tensor, positions: torch.Tensor,
-                  vocab: int) -> torch.Tensor:
-    """[B, V] float32 uniforms in (0, 1), a pure function of (key, position,
-    token id): the stateless per-token stream."""
-    lo, hi = base_keys & _MASK32, (base_keys >> 32) & _MASK32
-    h = _mix32(_mix32(lo ^ _mix32(hi)) ^ (positions & _MASK32))     # [B]
-    ids = torch.arange(vocab, device=base_keys.device, dtype=torch.int64)
-    bits = _mix32(h[:, None] ^ _mix32((ids + 0x9E3779B9) & _MASK32)[None, :])
-    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+def keys_array(keys: Sequence) -> np.ndarray:
+    """Host keys (uint32 ``[2]`` arrays, one per row) as the ``[k, 2]``
+    int64 words the samplers' tensors hold."""
+    return np.asarray(np.stack([np.asarray(k) for k in keys]),
+                      np.int64).reshape(-1, 2)
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """JAX's ``random.PRNGKey(seed)`` for a seed in [0, 2**32): the words
+    ``(0, seed)``."""
+    if not 0 <= seed <= _MASK32:
+        raise ValueError(f"prng_key takes a seed in [0, 2**32), got {seed}")
+    return np.asarray([0, seed], np.uint32)
+
+
+def fold_in(keys, data) -> torch.Tensor:
+    """JAX's ``random.fold_in`` per row: ``keys [..., 2]`` with ``data [...]``
+    (or a Python int for every row) folded in as the counter ``(0, data)``."""
+    keys = _words(keys)
+    if isinstance(data, int):        # no host-to-device copy for a constant
+        data = torch.full_like(keys[..., 0], data & _MASK32)
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],
+                          torch.zeros_like(data), data & _MASK32)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def split(key, num: int = 2) -> np.ndarray:
+    """JAX's ``random.split(key, num)`` of one host key: ``[num, 2]`` uint32."""
+    k = _words(key)
+    ids = torch.arange(num, dtype=torch.int64)
+    y0, y1 = threefry2x32(k[0], k[1], torch.zeros_like(ids), ids)
+    return torch.stack([y0, y1], dim=-1).numpy().astype(np.uint32)
+
+
+def random_bits(keys: torch.Tensor, shape) -> torch.Tensor:
+    """JAX's ``random.bits(key, shape)`` per row of ``keys [B, 2]``:
+    ``[B, *shape]`` int64 holding uint32 values, element ``i`` of the
+    flattened shape from the counter ``(0, i)`` (so shape ``()`` is element
+    0 of any other shape)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    ids = torch.arange(math.prod(shape), dtype=torch.int64,
+                       device=keys.device)[None, :]
+    y0, y1 = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(ids),
+                          ids)
+    return (y0 ^ y1).reshape(keys.shape[0], *shape)
+
+
+def uniform(keys: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """JAX's ``random.uniform(key, shape, float32, minval, maxval)`` per row:
+    23 random mantissa bits under the exponent of 1.0, minus 1, scaled to
+    ``[minval, maxval)`` and clamped below at ``minval`` in float32."""
+    bits = random_bits(keys, shape)
+    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+         - 1.0)
+    # float32 scalars (a Python scalar enters a float32 op as float32)
+    lo = float(np.float32(minval))
+    scale = float(np.float32(maxval) - np.float32(minval))
+    return (f * scale + lo).clamp_min(lo)
+
+
+def gumbel(keys: torch.Tensor, shape) -> torch.Tensor:
+    """JAX's ``random.gumbel(key, shape)`` per row (mode ``low``):
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    return -torch.log(-torch.log(uniform(keys, shape, _TINY, 1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """JAX's ``random.categorical`` under ``vmap``: per row the argmax of
+    Gumbel noise plus ``logits [B, V]`` (-inf entries are never drawn)."""
+    return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+def request_base_key(seed: int) -> np.ndarray:
+    """Base key of a seeded request (uint32 ``[2]``), a function of the seed
+    alone: ``PRNGKey`` of its low word, with the high word folded in when
+    it is not 0, so every seed in [0, 2**63) maps to its own key."""
+    low, high = seed & _MASK32, seed >> 32
+    key = prng_key(low)
+    if high:
+        key = fold_in(key, high).numpy().astype(np.uint32)
+    return key
+
+
+def fold_step_keys(base_keys: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """Per-slot step keys ``fold_in(base, position)``: the stateless
+    per-token stream."""
+    return fold_in(base_keys, positions)
+
+
+def fold_salted_keys(base_keys: torch.Tensor, salt: int,
+                     positions: torch.Tensor) -> torch.Tensor:
+    """Per-slot auxiliary keys ``fold_in(fold_in(base, salt), position)``:
+    a stream that shares no draw with the plain one."""
+    return fold_in(fold_in(base_keys, salt), positions)
 
 
 def mask_scaled_logits(
@@ -112,39 +218,26 @@ def masked_probs(
                        torch.softmax(masked, dim=-1), greedy)
 
 
-def salted_keys(base_keys: torch.Tensor, salt: int) -> torch.Tensor:
-    """[B] int64 base keys of an auxiliary stream: ``(base key, salt)``
-    hashed into a new 63-bit key, so ``uniform_noise(salted_keys(k, s),
-    position, ·)`` is a function of (base key, salt, position) that shares
-    no draw with the plain stream ``uniform_noise(k, position, ·)``, which
-    stays reserved for the tokens themselves."""
-    s = _mix32(torch.full_like(base_keys, salt & _MASK32))
-    lo, hi = base_keys & _MASK32, (base_keys >> 32) & _MASK32
-    new_lo = _mix32(lo ^ s)
-    new_hi = _mix32(hi ^ _mix32(s ^ 0x2545F491))
-    return ((new_hi >> 1) << 32) | new_lo
-
-
 def salted_uniform(base_keys: torch.Tensor, salt: int,
                    positions: torch.Tensor) -> torch.Tensor:
-    """[B] float32 uniforms in (0, 1), one per (slot, position), from the
-    ``salt`` stream (the accept test's ``u``)."""
-    return uniform_noise(salted_keys(base_keys, salt), positions, 1)[:, 0]
+    """[B] float32 uniforms on [0, 1), one per (slot, position), from the
+    ``salt`` stream (the accept test's ``u``: JAX's ``random.uniform`` of
+    shape ``()``)."""
+    return uniform(fold_salted_keys(base_keys, salt, positions), 1)[:, 0]
 
 
 def salted_categorical(base_keys: torch.Tensor, salt: int,
                        positions: torch.Tensor,
                        log_probs: torch.Tensor) -> torch.Tensor:
-    """[B] one draw per slot from ``softmax(log_probs)`` by the Gumbel-max
-    rule over the ``salt`` stream (-inf entries are never drawn)."""
-    u = uniform_noise(salted_keys(base_keys, salt), positions,
-                      log_probs.shape[-1])
-    return torch.argmax(log_probs - torch.log(-torch.log(u)), dim=-1)
+    """[B] one draw per slot from ``softmax(log_probs)`` on the ``salt``
+    stream (-inf entries are never drawn)."""
+    return categorical(fold_salted_keys(base_keys, salt, positions),
+                       log_probs)
 
 
 def masked_sample_inner(
     logits: torch.Tensor,        # [B, V]
-    base_keys: torch.Tensor,     # [B] int64 — per-slot base keys
+    base_keys: torch.Tensor,     # [B, 2] int64 — per-slot base key words
     positions: torch.Tensor,     # [B] int64 — position of the sampled token
     temperatures: torch.Tensor,  # [B] f32 (0 = greedy)
     top_p: torch.Tensor,         # [B] f32 (1 = off)
@@ -169,8 +262,7 @@ def masked_sample_inner(
     scaled = logits / temperatures.clamp_min(1e-6)[:, None]
     if any_mask:
         scaled = mask_scaled_logits(scaled, top_p, top_k, min_p)
-    u = uniform_noise(base_keys, positions, logits.shape[-1])
-    sampled = torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
+    sampled = categorical(fold_step_keys(base_keys, positions), scaled)
     return torch.where(temperatures > 0, sampled, greedy)
 
 

@@ -24,12 +24,13 @@ its emitted stream is the spec-off stream token for token; speculation
 changes only how many tokens one forward commits.  Draft-model stochastic
 rows run the accept test ``u · q(d) < p(d)`` on *salted* streams
 (:data:`ACCEPT_SALT` and the others, :func:`repro_torch.core.sampling.
-salted_keys`), never the plain one, which stays reserved for the tokens.
+fold_salted_keys`), never the plain one, which stays reserved for the
+tokens.  Every stream is JAX's threefry stream
+(:mod:`repro_torch.core.sampling`), so seeded rows draw the reference's
+tokens on every rung.
 
 What differs from the reference: the state and caches are updated in place
-(no donation), and the streams are the port's counter hash, not threefry,
-so a stochastic draft-model row draws other tokens than the reference's
-(greedy rows are unaffected).
+(no donation).
 """
 from __future__ import annotations
 
@@ -43,15 +44,14 @@ from repro_torch.core.kv_cache import (DecodeState, SlotKVPool,
                                        admit_decode_state, gather_ring_cells,
                                        init_decode_state, restore_ring_cells)
 from repro_torch.core.paged_kv import gather_page_cells, restore_page_cells
-from repro_torch.core.sampling import (keep_set_reference, masked_probs,
-                                       masked_sample_inner,
-                                       salted_categorical, salted_uniform,
-                                       uniform_noise)
+from repro_torch.core.sampling import (fold_in, gumbel, keep_set_reference,
+                                       masked_probs, masked_sample_inner,
+                                       salted_categorical, salted_uniform)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model, init_cache
 
 # Salts of the auxiliary streams (accept test, correction draw, draft-model
-# sampling), the reference's values: each is hashed into the request's base
+# sampling), the reference's values: each is folded into the request's base
 # key before the token position, so no auxiliary draw shares a value with
 # the plain per-token stream.
 ACCEPT_SALT = 0x5BEC0001
@@ -532,7 +532,7 @@ class DraftModelSource(DraftSource):
 # host reference (property tests)
 # --------------------------------------------------------------------------- #
 def verify_reference(logits_rows: np.ndarray, drafts: Sequence[int],
-                     q_rows: Optional[np.ndarray], base_key: int,
+                     q_rows: Optional[np.ndarray], base_key,
                      start_pos: int, temperature: float, top_p: float,
                      top_k: int, min_p: float, use_q: bool) -> List[int]:
     """Host mirror of one verify round for ONE slot, given the target's
@@ -546,7 +546,7 @@ def verify_reference(logits_rows: np.ndarray, drafts: Sequence[int],
     are the port's functions."""
     s = logits_rows.shape[0]
     k = s - 1
-    key = torch.tensor([int(base_key)], dtype=torch.int64)
+    key = torch.from_numpy(np.asarray(base_key, np.int64).reshape(1, 2))
 
     def at(j):
         return torch.tensor([start_pos + 1 + j], dtype=torch.int64)
@@ -568,9 +568,8 @@ def verify_reference(logits_rows: np.ndarray, drafts: Sequence[int],
             return int(np.argmax(row))
         keep = keep_set_reference(row, temperature, top_p, top_k, min_p)
         scaled = row / np.float32(max(temperature, 1e-6))
-        u = uniform_noise(key, at(j), row.size)[0]
-        gumbel = (-torch.log(-torch.log(u))).numpy()
-        return int(np.argmax(np.where(keep, scaled + gumbel, -np.inf)))
+        noise = gumbel(fold_in(key, at(j)), row.size)[0].numpy()
+        return int(np.argmax(np.where(keep, noise + scaled, -np.inf)))
 
     x = [plain_sample(j) for j in range(s)]
     emitted: List[int] = []

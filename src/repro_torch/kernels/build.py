@@ -13,6 +13,12 @@ Every C entry point takes its pointers and the CUDA stream as ``void*``
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
 non-zero code.  Nothing here falls back: a missing ``nvcc`` or a failed build
 raises.
+
+:func:`load` is safe to call from several threads (replicas of the engine,
+each on its own loop thread, reach a kernel's first use together): one lock
+covers build and load, so a library is compiled once per process.
+:func:`count_launch` is the wrappers' launch counter, under a lock for the
+same reason.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -38,6 +45,8 @@ SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
                         [_PTR] * 9 + [_INT] * 9 + [_LL] * 13 + [_PTR]),
     "quant_matmul": ("quant_matmul_launch", [_PTR] * 5 + [_INT] * 6 + [_PTR]),
+    "rmsnorm": ("rmsnorm_launch",
+                [_PTR] * 3 + [_INT] * 4 + [_LL] * 2 + [ctypes.c_float, _PTR]),
 }
 KERNELS = tuple(SIGNATURES)
 CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env
@@ -46,6 +55,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -122,15 +133,24 @@ def load(name: str):
     and the library itself."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        entry, argtypes = SIGNATURES[name]
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = ctypes.c_int
-        lib.kernel_error_string.argtypes = [ctypes.c_int]
-        lib.kernel_error_string.restype = ctypes.c_char_p
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                entry, argtypes = SIGNATURES[name]
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
+                lib.kernel_error_string.argtypes = [ctypes.c_int]
+                lib.kernel_error_string.restype = ctypes.c_char_p
+                _LIBS[name] = lib
     return getattr(lib, SIGNATURES[name][0]), lib
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's ``launches`` (atomic across threads)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

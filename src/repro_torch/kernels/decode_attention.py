@@ -179,7 +179,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     _check(q, k_cache, v_cache, kv_valid)
     out = _launch(q, k_cache, v_cache, kv_valid, plan_splits(
         k_cache.shape[1], q.shape[0] * k_cache.shape[2], sm_count(q.device)))
-    decode_attention_cuda.launches += 1
+    build.count_launch(decode_attention_cuda)
     return out
 
 

@@ -219,7 +219,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         b, sq, skv, h, hkv, d, _DTYPES[q.dtype], int(causal), int(window),
         int(q_offset), *k.stride()[:3], *v.stride()[:3], stream)
     build.check(lib, code, "flash_attention")
-    flash_attention_cuda.launches += 1
+    build.count_launch(flash_attention_cuda)
     if window > 0:
         # without a window every engine row sees a key (key 0 under causal)
         # or an all-zero context (a text row of a vision model), where the

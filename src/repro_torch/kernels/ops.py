@@ -7,11 +7,14 @@ switch and no fallback: a kernel or build failure on the card propagates.
 ``_flash_plain`` and ``_decode_plain`` are the torch forms of the
 reference's ``_flash_jnp`` and ``_decode_jnp``, ``_paged_plain`` that of the
 CPU path of its ``paged_attention``, ``_qmm_plain`` the arithmetic of its
-``_qmm_kernel``; the kernels themselves live in
+``_qmm_kernel``, ``rmsnorm_plain`` the body of its ``rmsnorm`` (the one
+kernel of the port's own, row-invariant on the card); the kernels
+themselves live in
 :mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.decode_attention`,
-:mod:`repro_torch.kernels.paged_attention` and
-:mod:`repro_torch.kernels.quant_matmul`, each beside its plain version.
+:mod:`repro_torch.kernels.paged_attention`,
+:mod:`repro_torch.kernels.quant_matmul` and
+:mod:`repro_torch.kernels.rmsnorm`, each beside its plain version.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.kernels.paged_attention import (paged_attention_cuda,
 from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
                                               quant_matmul_plain,
                                               quantize_int8)  # noqa: F401
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
 
 _flash_plain = flash_attention_plain
 _decode_plain = decode_attention_plain
@@ -92,3 +96,12 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
     if x.is_cuda:
         return quant_matmul_cuda(x, w_q, scales)
     return _qmm_plain(x, w_q, scales)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """``x [..., D] * rsqrt(mean(x^2) + eps) * w [D]`` in float32, cast to
+    x's dtype; on the card each row's sum runs in one fixed order whatever
+    the number of rows."""
+    if x.is_cuda:
+        return rmsnorm_cuda(x, w, eps)
+    return rmsnorm_plain(x, w, eps)

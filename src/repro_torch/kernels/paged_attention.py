@@ -182,7 +182,7 @@ def paged_attention_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                            q.shape[0] * k_pages.shape[2], sm_count(q.device))
     out = _launch(q, k_pages, v_pages, page_table, positions, k_scale,
                   v_scale, n_splits)
-    paged_attention_cuda.launches += 1
+    build.count_launch(paged_attention_cuda)
     return out
 
 

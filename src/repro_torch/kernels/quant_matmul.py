@@ -177,7 +177,7 @@ def quant_matmul_cuda(x: torch.Tensor, w_q: torch.Tensor,
     element by element otherwise."""
     _check(x, w_q, scales)
     out = _launch(x, w_q, scales, planned_splits(x, w_q))
-    quant_matmul_cuda.launches += 1
+    build.count_launch(quant_matmul_cuda)
     return out
 
 

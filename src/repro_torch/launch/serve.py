@@ -14,6 +14,9 @@ otherwise.
                                       # draft model (reduced with --smoke)
   ... --fault-rate decode=0.05 --fault-seed 1   # chaos: injected faults
   ... --watchdog-timeout 60 --drain-timeout 30  # /readyz, POST /admin/drain
+  ... --replicas 2 --router-policy affinity --transport asgi
+                  # N engines behind the router on the bundled asyncio
+                  # server; /stats is the v2 envelope (router, replicas[])
 
 Admission control is on unless ``--no-admission``: per-tenant rate limits
 (429), a bounded fair queue with queue-wait expiry, and load shedding (503),
@@ -34,7 +37,9 @@ from repro_torch.core.admission import AdmissionController, TenantConfig
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.faults import FaultInjector, parse_fault_rates
 from repro_torch.serving.api import OpenAIServer
+from repro_torch.serving.asgi import AsgiServer
 from repro_torch.serving.client import EngineClient
+from repro_torch.serving.router import ROUTER_POLICIES, Router
 from repro_torch.serving.server import ApiServer
 
 
@@ -63,6 +68,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--cache-len", type=int, default=2048)
     ap.add_argument("--port", type=int, default=8177)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="in-process engine replicas behind the router "
+                         "(1 = single engine, no router layer)")
+    ap.add_argument("--router-policy", choices=ROUTER_POLICIES,
+                    default="affinity",
+                    help="replica placement: affinity (session pin -> "
+                         "prefix-digest match -> least outstanding "
+                         "tokens), least_loaded, round_robin, random")
+    ap.add_argument("--transport", choices=("asgi", "threaded"),
+                    default="asgi",
+                    help="HTTP transport: the asyncio-native ASGI app on "
+                         "the bundled asyncio server (no thread per SSE "
+                         "connection), or the thread-per-connection "
+                         "stdlib server")
     ap.add_argument("--max-decode-block", type=int, default=8,
                     help="decode tokens per host sync (1 = per-token loop)")
     ap.add_argument("--top-p", type=float, default=1.0,
@@ -129,6 +148,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="per-tenant fair-share weight and rate limits "
                          "(repeatable); a request names its tenant in the "
                          "OpenAI 'user' field or an x-tenant header")
+    ap.add_argument("--aging-s", type=float, default=None,
+                    help="anti-starvation aging horizon for priority/edf "
+                         "policies: a request's effective priority rises "
+                         "one level per aging-s seconds waited "
+                         "(default: policy-specific; 0 disables)")
     ap.add_argument("--no-prefix-cache", action="store_true")
     ap.add_argument("--kv-layout", choices=("dense", "paged"),
                     default="dense",
@@ -159,6 +183,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--vision-work-iters", type=int, default=8,
                     help="vision encoder work multiplier (stubbed encoder "
                          "cost; higher = heavier encode, larger cache wins)")
+    ap.add_argument("--encode-wave", type=int, default=4,
+                    help="unique media encodes per engine step (0 = "
+                         "unbounded): batches concurrent encoder work "
+                         "behind the decode block and streams large video "
+                         "frame-sets across steps")
     ap.add_argument("--spec-mode", choices=("off", "ngram", "draft"),
                     default="off",
                     help="speculative decoding: off, self-speculative "
@@ -175,7 +204,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def build_server(args: argparse.Namespace) -> ApiServer:
+def build_server(args: argparse.Namespace):
+    """The server ``args`` describe, not started: ``--replicas`` engines
+    from one ``build_replica`` (the same seed, so weight-identical, which
+    a drain's bit-identical handoff rests on; they share the one set of
+    read-only weight tensors, each with its own arena), behind a
+    :class:`Router` when there is more than one, served by the ASGI app
+    (``--transport asgi``) or the threaded server."""
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
     cfg = get_config(args.arch)
     rates = parse_fault_rates(args.fault_rate)
     faults = (FaultInjector(seed=args.fault_seed, rates=rates)
@@ -187,41 +224,57 @@ def build_server(args: argparse.Namespace) -> ApiServer:
             # shrink the draft alongside the target, or its full-size vocab
             # can never match the reduced target's
             spec_draft = get_config(spec_draft).reduced()
-    engine = InferenceEngine(
-        cfg, device=args.device, max_batch=args.max_batch,
-        cache_len=args.cache_len, seed=args.seed,
-        max_decode_block=args.max_decode_block, top_p=args.top_p,
-        top_k=args.top_k, min_p=args.min_p, prefill_chunk=args.prefill_chunk,
-        max_prefill_buckets=args.max_prefill_buckets,
-        sched_policy=args.sched_policy, preemption=args.preemption,
-        max_preemptions=args.max_preemptions,
-        speculative_fill=not args.no_spec_fill, faults=faults,
-        enable_prefix_cache=not args.no_prefix_cache,
-        kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
-        kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype,
-        enable_content_cache=not args.no_content_cache,
-        cache_vision_embeddings=not args.no_vision_embed_cache,
-        cache_vision_kv=not args.no_vision_kv_cache,
-        content_cache_bytes=(None if args.content_cache_mb is None
-                             else args.content_cache_mb * 1024 * 1024),
-        vision_work_iters=args.vision_work_iters,
-        spec_mode=args.spec_mode, spec_k=args.spec_k,
-        spec_draft_config=spec_draft)
-    admission = None
-    if not args.no_admission:
-        admission = AdmissionController(
-            tenants=dict(parse_tenant_spec(s) for s in args.tenant),
-            max_queue_depth=args.max_queue_depth,
-            queue_timeout_s=args.queue_timeout,
-            shed_queue_depth=args.shed_queue_depth,
-            shed_wait_s=args.shed_wait)
-    client = EngineClient(
-        engine, admission=admission,
-        watchdog_timeout_s=(args.watchdog_timeout
-                            if args.watchdog_timeout > 0 else None))
-    return ApiServer(OpenAIServer(client, cfg.name,
-                                  drain_timeout_s=args.drain_timeout),
-                     port=args.port)
+    shared = {}
+
+    def build_replica() -> EngineClient:
+        """One engine, its admission controller and its client."""
+        engine = InferenceEngine(
+            cfg, shared.get("params"), device=args.device,
+            max_batch=args.max_batch,
+            cache_len=args.cache_len, seed=args.seed,
+            max_decode_block=args.max_decode_block, top_p=args.top_p,
+            top_k=args.top_k, min_p=args.min_p,
+            prefill_chunk=args.prefill_chunk,
+            max_prefill_buckets=args.max_prefill_buckets,
+            sched_policy=args.sched_policy, preemption=args.preemption,
+            max_preemptions=args.max_preemptions,
+            speculative_fill=not args.no_spec_fill, aging_s=args.aging_s,
+            faults=faults,
+            enable_prefix_cache=not args.no_prefix_cache,
+            kv_layout=args.kv_layout, kv_page_size=args.kv_page_size,
+            kv_num_pages=args.kv_num_pages, kv_dtype=args.kv_dtype,
+            enable_content_cache=not args.no_content_cache,
+            cache_vision_embeddings=not args.no_vision_embed_cache,
+            cache_vision_kv=not args.no_vision_kv_cache,
+            content_cache_bytes=(None if args.content_cache_mb is None
+                                 else args.content_cache_mb * 1024 * 1024),
+            vision_work_iters=args.vision_work_iters,
+            encode_wave=args.encode_wave,
+            spec_mode=args.spec_mode, spec_k=args.spec_k,
+            spec_draft_config=spec_draft)
+        shared.setdefault("params", engine.params)
+        admission = None
+        if not args.no_admission:
+            admission = AdmissionController(
+                tenants=dict(parse_tenant_spec(s) for s in args.tenant),
+                max_queue_depth=args.max_queue_depth,
+                queue_timeout_s=args.queue_timeout,
+                shed_queue_depth=args.shed_queue_depth,
+                shed_wait_s=args.shed_wait)
+        return EngineClient(
+            engine, admission=admission,
+            watchdog_timeout_s=(args.watchdog_timeout
+                                if args.watchdog_timeout > 0 else None))
+
+    if args.replicas > 1:
+        client = Router([build_replica() for _ in range(args.replicas)],
+                        policy=args.router_policy, seed=args.seed)
+    else:
+        client = build_replica()
+    api = OpenAIServer(client, cfg.name, drain_timeout_s=args.drain_timeout)
+    if args.transport == "asgi":
+        return AsgiServer(api, port=args.port)
+    return ApiServer(api, port=args.port)
 
 
 def main(argv=None) -> None:
@@ -231,6 +284,9 @@ def main(argv=None) -> None:
     eng = server.api.engine
     print(f"serving {eng.cfg.name} ({eng.cfg.param_count() / 1e6:.1f}M "
           f"params) on {eng.device} at http://127.0.0.1:{server.port} "
+          f"[{args.transport}; {args.replicas} replica(s)"
+          + (f", router policy {args.router_policy}" if args.replicas > 1
+             else "") + "] "
           f"(chat + completions + models; stats: /stats; admission "
           f"{'off' if args.no_admission else 'on'}; drain: POST "
           f"/admin/drain or SIGTERM)", flush=True)

@@ -16,7 +16,18 @@ An admission rejection becomes the structured ``rate_limit_error`` (429) or
 ``logprobs``, the prompt tokens' teacher-forced logprobs ahead of the
 sampled ones.  :meth:`OpenAIServer.drain` (``POST /admin/drain``) starts a
 graceful drain in the background; ``/readyz`` is 503 while draining or
-wedged.  Not ported: the router and its ``/stats`` v2 envelope.
+wedged.
+
+Every request method has an asyncio twin (``chat_completion_async``,
+``chat_completion_stream_async``, ``completion_async``,
+``completion_stream_async``) for the ASGI transport: awaiting parks on the
+handle's engine-thread waker, not on a worker thread.  ``batch`` serves
+many chat bodies at once.  The codec runs over an :class:`EngineClient` or
+over a :class:`repro_torch.serving.router.Router` of several (the
+``session`` body field, or an ``x-session`` header, pins a conversation to
+one replica); ``GET /stats`` is the schema-version-2 envelope with
+``router`` and ``replicas[]`` sections and the flat per-engine keys
+mirrored at the top level.
 """
 from __future__ import annotations
 
@@ -221,10 +232,16 @@ class OpenAIServer:
         user = body.get("user")
         if user is not None and not isinstance(user, str):
             raise OpenAIError("'user' must be a string", param="user")
+        # router session affinity (the HTTP servers map an ``x-session``
+        # header here): a conversation's turns carrying one session id pin
+        # to one replica, whose prefix cache holds the conversation so far
+        session = body.get("session")
+        if session is not None and not isinstance(session, str):
+            raise OpenAIError("'session' must be a string", param="session")
         return GenerationRequest(prompt=prompt, sampling=sampling, n=n,
                                  images=list(images or []), priority=priority,
                                  deadline_ms=deadline_ms,
-                                 tenant=user or "default")
+                                 tenant=user or "default", session=session)
 
     def _decode_chat(self, body: Dict[str, Any]) -> GenerationRequest:
         messages = body.get("messages")
@@ -372,9 +389,7 @@ class OpenAIServer:
     # ------------------------------------------------------------------ #
     # chat completions
     # ------------------------------------------------------------------ #
-    def chat_completion(self, body: Dict[str, Any]) -> Dict[str, Any]:
-        greq = self._decode_chat(body)
-        result = self._submit(greq).result()
+    def _encode_chat_result(self, greq: GenerationRequest, result) -> Dict[str, Any]:
         choices = [{
             "index": c.index,
             "message": {"role": "assistant", "content": c.text},
@@ -386,9 +401,21 @@ class OpenAIServer:
                               f"chatcmpl-{uuid.uuid4().hex[:12]}",
                               int(time.time()), choices, usage=result.usage())
 
-    def chat_completion_stream(self, body: Dict[str, Any]) -> Iterator[Dict[str, Any]]:
-        """SSE-style chunk dicts.  Closing the generator early (client
-        disconnect) aborts the underlying request."""
+    def chat_completion(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        greq = self._decode_chat(body)
+        return self._encode_chat_result(greq, self._submit(greq).result())
+
+    async def chat_completion_async(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """:meth:`chat_completion` for an event loop: the await parks on the
+        handle's engine-thread waker, not on a worker thread."""
+        greq = self._decode_chat(body)
+        handle = self._submit(greq)
+        return self._encode_chat_result(greq, await handle.result_async())
+
+    def _chat_stream_codec(self, body: Dict[str, Any]):
+        """Decode, submit, and the chunk encoders shared by the sync and
+        async chat streams: ``(handle, head_chunks, event_chunks,
+        tail_chunks)``, the last three pure functions over one chunk id."""
         greq = self._decode_chat(body)
         include_usage = self._include_usage(body)
         handle = self._submit(greq)
@@ -400,31 +427,71 @@ class OpenAIServer:
                 "index": index, "delta": delta, "logprobs": logprobs,
                 "finish_reason": finish}], **extra)
 
+        def head_chunks() -> List[Dict[str, Any]]:
+            return [chunk(i, {"role": "assistant", "content": ""})
+                    for i in range(greq.n)]
+
+        def event_chunks(ev) -> List[Dict[str, Any]]:
+            if isinstance(ev, TokenEvent):
+                logprobs = None
+                if greq.sampling.logprobs:
+                    logprobs = self._chat_logprobs(
+                        [ev.token], [(ev.logprob, ev.top_logprobs or [])])
+                if ev.text or logprobs:
+                    return [chunk(ev.index, {"content": ev.text},
+                                  logprobs=logprobs)]
+                return []
+            if isinstance(ev, FinishEvent):
+                delta = {"content": ev.text} if ev.text else {}
+                return [chunk(ev.index, delta, finish=ev.finish_reason)]
+            return []
+
+        def tail_chunks() -> List[Dict[str, Any]]:
+            if not include_usage:
+                return []
+            return [{"id": cid, "object": "chat.completion.chunk",
+                     "created": created, "model": self.model_name,
+                     "choices": [], "usage": handle.usage()}]
+
+        return handle, head_chunks, event_chunks, tail_chunks
+
+    def chat_completion_stream(self, body: Dict[str, Any]) -> Iterator[Dict[str, Any]]:
+        """SSE-style chunk dicts.  Closing the generator early (client
+        disconnect) aborts the underlying request."""
+        handle, head, event_chunks, tail = self._chat_stream_codec(body)
+
         def gen() -> Iterator[Dict[str, Any]]:
             try:
-                for i in range(greq.n):
-                    yield chunk(i, {"role": "assistant", "content": ""})
+                yield from head()
                 for ev in handle.stream():
-                    if isinstance(ev, TokenEvent):
-                        logprobs = None
-                        if greq.sampling.logprobs:
-                            logprobs = self._chat_logprobs(
-                                [ev.token], [(ev.logprob, ev.top_logprobs or [])])
-                        if ev.text or logprobs:
-                            yield chunk(ev.index, {"content": ev.text},
-                                        logprobs=logprobs)
-                    elif isinstance(ev, FinishEvent):
-                        delta = {"content": ev.text} if ev.text else {}
-                        yield chunk(ev.index, delta, finish=ev.finish_reason)
-                if include_usage:
-                    yield {"id": cid, "object": "chat.completion.chunk",
-                           "created": created, "model": self.model_name,
-                           "choices": [], "usage": handle.usage()}
+                    yield from event_chunks(ev)
+                yield from tail()
             finally:
                 if not handle.finished:
                     handle.abort(wait=False)
 
         return gen()
+
+    def chat_completion_stream_async(self, body: Dict[str, Any]):
+        """:meth:`chat_completion_stream` as an async generator (the ASGI
+        transport's): ``async for`` over the handle rides the engine-thread
+        waker.  Closing it aborts the request, as the sync path does."""
+        handle, head, event_chunks, tail = self._chat_stream_codec(body)
+
+        async def agen():
+            try:
+                for c in head():
+                    yield c
+                async for ev in handle.stream():
+                    for c in event_chunks(ev):
+                        yield c
+                for c in tail():
+                    yield c
+            finally:
+                if not handle.finished:
+                    handle.abort(wait=False)
+
+        return agen()
 
     # ------------------------------------------------------------------ #
     # legacy completions
@@ -432,10 +499,21 @@ class OpenAIServer:
     def completion(self, body: Dict[str, Any]) -> Dict[str, Any]:
         greqs = self._decode_completion(body)
         handles = self._submit_all(greqs)
+        return self._encode_completion_results(
+            greqs, [handle.result() for handle in handles])
+
+    async def completion_async(self, body: Dict[str, Any]) -> Dict[str, Any]:
+        """:meth:`completion` for an event loop (see
+        :meth:`chat_completion_async`)."""
+        greqs = self._decode_completion(body)
+        handles = self._submit_all(greqs)
+        return self._encode_completion_results(
+            greqs, [await handle.result_async() for handle in handles])
+
+    def _encode_completion_results(self, greqs, results) -> Dict[str, Any]:
         choices = []
         usage = {"prompt_tokens": 0, "completion_tokens": 0, "total_tokens": 0}
-        for p, (greq, handle) in enumerate(zip(greqs, handles)):
-            result = handle.result()
+        for p, (greq, result) in enumerate(zip(greqs, results)):
             echo = greq.sampling.echo
             for c in result.choices:
                 text = c.text
@@ -458,7 +536,9 @@ class OpenAIServer:
         return self._envelope("text_completion", f"cmpl-{uuid.uuid4().hex[:12]}",
                               int(time.time()), choices, usage=usage)
 
-    def completion_stream(self, body: Dict[str, Any]) -> Iterator[Dict[str, Any]]:
+    def _completion_stream_codec(self, body: Dict[str, Any]):
+        """Decode, submit, and the chunk encoders shared by the sync and
+        async completion streams (see :meth:`_chat_stream_codec`)."""
         greqs = self._decode_completion(body, stream=True)
         include_usage = self._include_usage(body)
         handles = self._submit_all(greqs)
@@ -470,31 +550,43 @@ class OpenAIServer:
                 "index": index, "text": text, "logprobs": logprobs,
                 "finish_reason": finish}], **extra)
 
+        def event_chunks(greq, base, ev) -> List[Dict[str, Any]]:
+            if isinstance(ev, TokenEvent):
+                logprobs = None
+                if greq.sampling.logprobs:
+                    logprobs = self._completion_logprobs(
+                        [ev.token], [(ev.logprob, ev.top_logprobs or [])])
+                if ev.text or logprobs:
+                    return [chunk(base + ev.index, ev.text, logprobs=logprobs)]
+                return []
+            if isinstance(ev, FinishEvent):
+                return [chunk(base + ev.index, ev.text,
+                              finish=ev.finish_reason)]
+            return []
+
+        def tail_chunks() -> List[Dict[str, Any]]:
+            if not include_usage:
+                return []
+            usage = {"prompt_tokens": 0, "completion_tokens": 0,
+                     "total_tokens": 0}
+            for handle in handles:
+                for key, val in handle.usage().items():
+                    usage[key] += val
+            return [{"id": cid, "object": "text_completion",
+                     "created": created, "model": self.model_name,
+                     "choices": [], "usage": usage}]
+
+        return greqs, handles, event_chunks, tail_chunks
+
+    def completion_stream(self, body: Dict[str, Any]) -> Iterator[Dict[str, Any]]:
+        greqs, handles, event_chunks, tail = self._completion_stream_codec(body)
+
         def gen() -> Iterator[Dict[str, Any]]:
             try:
                 for p, (greq, handle) in enumerate(zip(greqs, handles)):
-                    base = p * greq.n
                     for ev in handle.stream():
-                        if isinstance(ev, TokenEvent):
-                            logprobs = None
-                            if greq.sampling.logprobs:
-                                logprobs = self._completion_logprobs(
-                                    [ev.token], [(ev.logprob, ev.top_logprobs or [])])
-                            if ev.text or logprobs:
-                                yield chunk(base + ev.index, ev.text,
-                                            logprobs=logprobs)
-                        elif isinstance(ev, FinishEvent):
-                            yield chunk(base + ev.index, ev.text,
-                                        finish=ev.finish_reason)
-                if include_usage:
-                    usage = {"prompt_tokens": 0, "completion_tokens": 0,
-                             "total_tokens": 0}
-                    for handle in handles:
-                        for key, val in handle.usage().items():
-                            usage[key] += val
-                    yield {"id": cid, "object": "text_completion",
-                           "created": created, "model": self.model_name,
-                           "choices": [], "usage": usage}
+                        yield from event_chunks(greq, p * greq.n, ev)
+                yield from tail()
             finally:
                 for handle in handles:
                     if not handle.finished:
@@ -502,30 +594,64 @@ class OpenAIServer:
 
         return gen()
 
+    def completion_stream_async(self, body: Dict[str, Any]):
+        """:meth:`completion_stream` as an async generator (the ASGI
+        transport's)."""
+        greqs, handles, event_chunks, tail = self._completion_stream_codec(body)
+
+        async def agen():
+            try:
+                for p, (greq, handle) in enumerate(zip(greqs, handles)):
+                    async for ev in handle.stream():
+                        for c in event_chunks(greq, p * greq.n, ev):
+                            yield c
+                for c in tail():
+                    yield c
+            finally:
+                for handle in handles:
+                    if not handle.finished:
+                        handle.abort(wait=False)
+
+        return agen()
+
     # ------------------------------------------------------------------ #
-    # models / stats / health
+    # models / stats / health / batch
     # ------------------------------------------------------------------ #
     def models(self) -> Dict[str, Any]:
         return {"object": "list", "data": [{
             "id": self.model_name, "object": "model",
             "created": int(time.time()), "owned_by": "repro"}]}
 
-    def stats(self) -> Dict[str, Any]:
-        """Serving observability (``GET /stats``): scheduler and client
-        counters with the ``content_cache`` block (media pipeline and
-        content-cache counters), the ``speculation`` block (mode, k, rounds
-        and drafted / accepted / rejected / emitted tokens, per-slot
-        acceptance EWMA, draft-pool bytes), ``prefill_groups`` (n > 1
-        groups, shared admits, independent fallbacks), ``draining`` and the
-        ``watchdog`` block, the ``admission`` snapshot when admission
-        control is on, ``faults`` on a chaos run, the engine's knobs
-        (``speculative_fill`` among them), the ``prefix_cache`` block when
-        the cache is on, and under the paged layout a ``kv_pages`` block
-        (arena occupancy and allocator counters); the router, not ported
-        yet, has no block."""
-        eng = self.engine
+    #: ``GET /stats`` envelope version: v2 namespaces the payload into
+    #: ``router`` / ``replicas[]``; the flat per-engine keys stay mirrored
+    #: at the top level for one release
+    STATS_SCHEMA_VERSION = 2
+
+    _STATS_DEPRECATION = (
+        "flat top-level engine keys are deprecated since schema_version 2; "
+        "read replicas[] (per-engine) and router (placement) instead — the "
+        "flat mirror is kept for one release and then removed")
+
+    def _engine_flat_stats(self) -> Dict[str, Any]:
+        """The flat per-engine payload: the client's counters with the
+        ``content_cache`` block (media pipeline and content-cache counters),
+        the ``speculation`` block (mode, k, rounds and drafted / accepted /
+        rejected / emitted tokens, per-slot acceptance EWMA, draft-pool
+        bytes), ``prefill_groups``, ``draining`` and the ``watchdog`` block,
+        the ``admission`` snapshot when admission control is on, ``faults``
+        on a chaos run; then :meth:`_engine_view`.  Behind a router the
+        client's part sums the replicas' counters (the router's own
+        ``stats``) and the engine view is the first replica's."""
         out = dict(self.client.stats())
-        out.update({
+        out.update(self._engine_view(self.engine))
+        return out
+
+    def _engine_view(self, eng: InferenceEngine) -> Dict[str, Any]:
+        """One engine's knobs (``speculative_fill`` among them), the
+        ``prefix_cache`` block when the cache is on, and under the paged
+        layout a ``kv_pages`` block (arena occupancy and allocator
+        counters)."""
+        out: Dict[str, Any] = {
             "model": self.model_name,
             "device": device_name(eng.device),
             "max_batch": eng.scheduler.max_batch,
@@ -538,7 +664,7 @@ class OpenAIServer:
             "sched_policy": eng.scheduler.policy.name,
             "preemption": eng.preemption,
             "speculative_fill": eng.speculative_fill,
-        })
+        }
         if eng.prefix_cache is not None:
             out["prefix_cache"] = {
                 "entries": len(eng.prefix_cache),
@@ -550,6 +676,31 @@ class OpenAIServer:
                                "kv_dtype": eng.pool.kv_dtype,
                                **eng.pool.page_occupancy(),
                                **dataclasses.asdict(eng.pool.stats)}
+        return out
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving observability (``GET /stats``), schema_version 2: a
+        ``router`` section (placement counters; None without a router),
+        ``replicas[]`` (one per-engine snapshot each; behind a router each
+        carries the client's counters of its replica, its state, queue
+        depth, outstanding tokens and digest-index size, with its engine's
+        :meth:`_engine_view`: ``prefix_cache``, ``kv_pages``), and the flat
+        per-engine keys of :meth:`_engine_flat_stats` mirrored at the top
+        level (deprecated, kept one release)."""
+        out: Dict[str, Any] = {"schema_version": self.STATS_SCHEMA_VERSION,
+                               "model": self.model_name}
+        if hasattr(self.client, "stats_v2"):
+            v2 = self.client.stats_v2()
+            out["router"] = v2["router"]
+            out["replicas"] = [
+                dict(r, **self._engine_view(rep.client.engine))
+                for r, rep in zip(v2["replicas"], self.client.replicas)]
+        else:
+            out["router"] = None
+            out["replicas"] = [dict(self._engine_flat_stats(),
+                                    name="replica-0")]
+        out.update(self._engine_flat_stats())
+        out["deprecation"] = self._STATS_DEPRECATION
         return out
 
     def healthz(self) -> Tuple[Dict[str, Any], int]:
@@ -577,8 +728,34 @@ class OpenAIServer:
         timeout_s = self.drain_timeout_s if timeout_s is None else timeout_s
         already = self.client.draining
         if not already:
-            threading.Thread(target=self.client.drain,
-                             kwargs={"timeout": timeout_s},
-                             daemon=True).start()
+            t = threading.Thread(target=self.client.drain,
+                                 kwargs={"timeout": timeout_s}, daemon=True)
+            t.start()
+            # answer once admission has stopped, so a request sent after
+            # the 202 is refused (the drain itself goes on in the thread)
+            deadline = time.monotonic() + 1.0
+            while (not self.client.draining and t.is_alive()
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
         return {"status": "draining", "already_draining": already,
                 "timeout_s": timeout_s}
+
+    def batch(self, bodies: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+        """Serve many chat bodies at once (continuous batching): every
+        request is submitted before the first result is awaited; one
+        chat.completion dict per body, in order (first choice, no
+        logprobs)."""
+        handles = self._submit_all([self._decode_chat(b) for b in bodies])
+        out = []
+        for handle in handles:
+            result = handle.result()
+            c = result.choices[0]
+            out.append(self._envelope(
+                "chat.completion", f"chatcmpl-{uuid.uuid4().hex[:12]}",
+                int(time.time()), [{
+                    "index": 0,
+                    "message": {"role": "assistant", "content": c.text},
+                    "logprobs": None,
+                    "finish_reason": c.finish_reason}],
+                usage=result.usage()))
+        return out

@@ -6,12 +6,20 @@ handle exposes the lifecycle of one *logical* request (``n`` engine
 requests for OpenAI-style multi-choice sampling):
 
 * ``handle.stream()`` — typed :class:`TokenEvent` / :class:`FinishEvent`
-  stream (a plain iterator);
-* ``handle.result()`` — block until every choice finished, then return a
-  :class:`GenerationResult`;
-* ``handle.abort()`` — cancellation, applied by the engine thread at the
-  next block boundary (the live slot is freed and its device row frozen);
-* ``handle.status`` — coarsest in-flight choice state.
+  stream, a plain iterator **and** an async iterator (``async for`` parks
+  on an ``asyncio.Event`` the engine thread sets through
+  ``loop.call_soon_threadsafe``, so one event loop holds many open streams
+  without a worker thread each);
+* ``handle.result()`` / ``await handle.result_async()`` — wait until every
+  choice finished, then return a :class:`GenerationResult`;
+* ``handle.abort()`` / ``await handle.abort_async()`` — cancellation,
+  applied by the engine thread at the next block boundary (the live slot
+  is freed and its device row frozen);
+* ``handle.status`` / ``handle.statuses`` — coarsest in-flight choice state
+  and each choice's.
+
+No torch call runs on an event loop's thread: the loop thread owns the
+engine, and the async surface only waits on events it delivers.
 
 One loop thread owns the engine and drives ``engine.step()``; submissions
 and aborts are thread-safe and land at block boundaries.  With an
@@ -28,16 +36,18 @@ stops admission (new submits get the 503 ``draining`` error), lets the
 in-flight requests finish and, past its timeout, snapshots the live slots
 and aborts the rest; :meth:`EngineClient.handoff_export` /
 :meth:`EngineClient.handoff_import` move every open request, with its
-handle, to another client.  The router over several clients is not ported.
+handle, to another client (what :meth:`repro_torch.serving.router.Router.
+drain_replica` is built on).
 """
 from __future__ import annotations
 
+import asyncio
 import logging
 import queue
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 from repro_torch.core.admission import (LEVEL_SHED_ALL, AdmissionController,
                                         Overloaded)
@@ -131,6 +141,56 @@ class HandoffRecord:
         return self.record["req"]  # type: ignore[return-value]
 
 
+class HandleStream:
+    """Single-consumer event stream of a handle: iterate synchronously or
+    with ``async for``.  The async path waits on a per-consumer
+    ``asyncio.Event`` that the engine thread sets with
+    ``call_soon_threadsafe`` on every delivered event, so no worker thread
+    is parked per open stream."""
+
+    def __init__(self, q: "queue.Queue[Optional[object]]",
+                 handle: "RequestHandle") -> None:
+        self._q = q
+        self._handle = handle
+        self._ended = False
+
+    def __iter__(self) -> "HandleStream":
+        return self
+
+    def __next__(self) -> object:
+        if self._ended:
+            raise StopIteration
+        ev = self._q.get()
+        if ev is None:
+            self._ended = True
+            raise StopIteration
+        return ev
+
+    def __aiter__(self):
+        return self._agen()
+
+    async def _agen(self):
+        waker = self._handle._register_waker()
+        try:
+            while True:
+                try:
+                    ev = self._q.get_nowait()
+                except queue.Empty:
+                    waker.clear()
+                    # check again after the clear: an event put between
+                    # get_nowait and clear would otherwise be missed
+                    try:
+                        ev = self._q.get_nowait()
+                    except queue.Empty:
+                        await waker.wait()
+                        continue
+                if ev is None:
+                    return
+                yield ev
+        finally:
+            self._handle._unregister_waker(waker)
+
+
 class RequestHandle:
     """Lifecycle handle for one submitted :class:`GenerationRequest`."""
 
@@ -142,6 +202,10 @@ class RequestHandle:
         self._done = threading.Event()
         self._open = len(requests)
         self._lock = threading.Lock()
+        # asyncio consumers: (loop, Event) pairs the engine thread wakes on
+        # every delivered event (see HandleStream._agen)
+        self._wakers: List[Tuple[asyncio.AbstractEventLoop,
+                                 asyncio.Event]] = []
 
     @property
     def request_ids(self) -> List[int]:
@@ -156,10 +220,15 @@ class RequestHandle:
         return len(self._requests[0].prompt_tokens)
 
     @property
+    def statuses(self) -> List[RequestStatus]:
+        """Each choice's state."""
+        return [r.status for r in self._requests]
+
+    @property
     def status(self) -> RequestStatus:
         """Aggregate state: the least-advanced unfinished choice; terminal
         only when every choice is (ABORTED if any was aborted)."""
-        states = [r.status for r in self._requests]
+        states = self.statuses
         running = [s for s in states if _PROGRESS[s] < 3]
         if running:
             return min(running, key=lambda s: _PROGRESS[s])
@@ -172,18 +241,56 @@ class RequestHandle:
     def finished(self) -> bool:
         return self._done.is_set()
 
-    def stream(self) -> Iterator[object]:
-        """The handle's typed event stream (single consumer)."""
-        while True:
-            ev = self._queue.get()
-            if ev is None:
-                return
-            yield ev
+    def stream(self) -> HandleStream:
+        """The handle's typed event stream (single consumer), sync or
+        async."""
+        return HandleStream(self._queue, self)
 
     def result(self, timeout: Optional[float] = None) -> GenerationResult:
         """Block until every choice finished (or aborted)."""
         if not self._done.wait(timeout):
             raise TimeoutError(f"request not finished within {timeout}s")
+        return self._result()
+
+    async def result_async(self) -> GenerationResult:
+        """Await completion without blocking a thread: the engine thread
+        wakes this coroutine through the handle's waker list."""
+        if not self._done.is_set():
+            waker = self._register_waker()
+            try:
+                while not self._done.is_set():
+                    waker.clear()
+                    if self._done.is_set():
+                        break
+                    await waker.wait()
+            finally:
+                self._unregister_waker(waker)
+        return self._result()
+
+    # -- asyncio wakers (engine thread -> event loops) ------------------- #
+    def _register_waker(self) -> asyncio.Event:
+        loop = asyncio.get_running_loop()
+        waker = asyncio.Event()
+        with self._lock:
+            self._wakers.append((loop, waker))
+            waker.set()                  # force a first look at the queue
+        return waker
+
+    def _unregister_waker(self, waker: asyncio.Event) -> None:
+        with self._lock:
+            self._wakers = [(lp, w) for lp, w in self._wakers
+                            if w is not waker]
+
+    def _wake(self) -> None:
+        with self._lock:
+            wakers = list(self._wakers)
+        for loop, waker in wakers:
+            try:
+                loop.call_soon_threadsafe(waker.set)
+            except RuntimeError:         # the consumer's loop is closed
+                pass
+
+    def _result(self) -> GenerationResult:
         choices = [
             ChoiceResult(index=i, text=r.output_text,
                          tokens=list(r.output_tokens),
@@ -214,6 +321,11 @@ class RequestHandle:
             return True
         return self._done.wait(timeout)
 
+    async def abort_async(self) -> bool:
+        """:meth:`abort` (waiting for the ABORT events) off the event
+        loop's thread."""
+        return await asyncio.to_thread(self.abort)
+
     def _on_event(self, ev: StreamEvent) -> None:
         """Fan one engine event into the typed stream (engine thread)."""
         idx = self._index[ev.request_id]
@@ -229,6 +341,9 @@ class RequestHandle:
         elif ev.token is not None:
             self._queue.put(TokenEvent(idx, ev.token, ev.text, ev.logprob,
                                        ev.top_logprobs))
+        else:
+            return
+        self._wake()
 
 
 class EngineClient:

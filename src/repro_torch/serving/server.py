@@ -3,7 +3,8 @@ reference package's threaded ``serving/server.py`` transport).
 
 Routes: ``POST /v1/chat/completions`` and ``POST /v1/completions`` (with
 ``"stream": true`` -> SSE; the OpenAI ``user`` field or an ``x-tenant``
-header selects the admission tenant), ``GET /v1/models``, ``GET /stats``,
+header selects the admission tenant, an ``x-session`` header the
+router's session), ``GET /v1/models``, ``GET /stats``,
 ``GET /healthz`` (liveness), ``GET /readyz`` (readiness: 503 while
 draining, wedged or shedding all traffic) and ``POST /admin/drain``
 (graceful drain, body ``{"timeout_s": ...}`` optional; returns 202 at
@@ -121,6 +122,11 @@ def make_handler(api: OpenAIServer):
                 tenant = self.headers.get("x-tenant")
                 if tenant and "user" not in body:
                     body["user"] = tenant
+                # the x-session header maps to the router's `session`
+                # affinity key (a conversation pins to one replica)
+                session = self.headers.get("x-session")
+                if session and "session" not in body:
+                    body["session"] = session
                 if body.get("stream"):
                     self._stream_sse(streaming(body))
                 else:

@@ -245,9 +245,10 @@ def test_mask_semantics_match_reference_keep_set():
 
 
 def test_sampler_draws_follow_the_distribution():
-    """Gumbel-max over the hashed noise samples softmax(logits / T)."""
+    """Gumbel-max over the threefry noise samples softmax(logits / T)."""
     logits = torch.tensor([[2.0, 1.0, 0.0, -1.0]]).repeat(4000, 1)
-    keys = torch.arange(4000, dtype=torch.int64) * 7919
+    keys = torch.from_numpy(
+        sampling.split(sampling.prng_key(0), 4000).astype(np.int64))
     toks = sampling.masked_sample_inner(
         logits, keys, torch.full((4000,), 3), torch.ones(4000),
         torch.ones(4000), torch.zeros(4000, dtype=torch.int64),

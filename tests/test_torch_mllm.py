@@ -369,3 +369,55 @@ def test_paged_pool_keeps_cross_kv_dense_per_slot():
                 torch.testing.assert_close(got["block"][pos]["k"][:, :, :n],
                                            sub["k"][:, :, :n], atol=0,
                                            rtol=0)
+
+
+def test_chaos_survivors_bit_identical_with_content_cache(weights):
+    """``tests/test_mllm_serving.py``'s chaos test: under injected decode
+    faults (one seed for both engines) the port fails the same requests as
+    the JAX engine, and the surviving image requests keep the tokens of a
+    fault-free run (equal to the JAX engine's); the content cache and the
+    encode waves never leak one request's failure into a neighbour, and
+    the failed requests' media jobs leave the tables."""
+    from repro.core.faults import FaultInjector as JaxFaultInjector
+    from repro_torch.core.faults import FaultInjector
+    shared = _image(41)
+
+    def traffic():
+        rng = np.random.default_rng(3)
+        return [([int(t) for t in rng.integers(1, 256, 8 + 2 * i)],
+                 [shared if i % 2 == 0 else _image(500 + i)], 940_000 + i)
+                for i in range(6)]
+
+    def run(engine, make):
+        return engine.generate([make(p, imgs, rid)
+                                for p, imgs, rid in traffic()])
+
+    def jax_req(p, imgs, rid):
+        return JaxRequest(prompt_tokens=p, images=imgs, request_id=rid,
+                          sampling=JaxSampling(max_tokens=6))
+
+    def port_req(p, imgs, rid):
+        return Request(prompt_tokens=p, images=imgs, request_id=rid,
+                       sampling=SamplingParams(max_tokens=6))
+
+    kw = dict(max_batch=4, cache_len=128, vision_work_iters=1)
+    jclean, tclean = _engines(weights, **kw)
+    baseline = {r.request_id: list(r.output_tokens)
+                for r in run(tclean, port_req)}
+    assert all(baseline.values())
+    assert baseline == {r.request_id: list(r.output_tokens)
+                        for r in run(jclean, jax_req)}
+    jchaos, tchaos = _engines(weights, **kw)
+    jchaos.faults = JaxFaultInjector(seed=3, rates={"decode": 0.25})
+    tchaos.faults = FaultInjector(seed=3, rates={"decode": 0.25})
+    out = run(tchaos, port_req)
+    failed = {r.request_id for r in out
+              if r.finish_reason is FinishReason.ERROR}
+    survivors = [r for r in out if r.finish_reason in (FinishReason.STOP,
+                                                       FinishReason.LENGTH)]
+    assert failed and survivors
+    assert failed == {r.request_id for r in run(jchaos, jax_req)
+                      if r.finish_reason.value == "error"}
+    for r in survivors:
+        assert r.output_tokens == baseline[r.request_id]
+    assert not tchaos._encode_tasks and not tchaos._media_jobs

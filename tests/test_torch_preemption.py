@@ -6,8 +6,8 @@ scenarios of ``tests/test_sched_policy.py`` (bit-identical to FIFO, the
 engine-side snapshot, resume after the snapshot is LRU-evicted, FIFO never
 preempts, no preemption of ring-wrapped slots) and ``tests/test_paged_kv.py``
 (paged resume with the prefix cache on and off on fp and int8 pages).
-Seeded sampling replays across a preemption port against port (the port's
-random stream is a counter hash, not threefry).  Both engines take the
+Seeded sampling replays across a preemption, token for token with the
+JAX engine (both draw from threefry streams).  Both engines take the
 same arguments, speculative wave filling off.  The page-pressure ladder,
 the pools' snapshot primitives, media and the ``gpu`` test are in
 ``tests/test_torch_preemption_ladder.py``, which imports this harness.
@@ -278,11 +278,13 @@ def test_engine_side_snapshots_bounded_by_pool_size(weights):
 @pytest.mark.parametrize("layout", ["dense", "paged-fp"])
 def test_seeded_sampling_replays_across_preemption(weights, layout):
     """A stochastic seeded request evicted mid-decode resumes its exact
-    stream (the draw depends on the base key and position only), port
-    against port."""
+    stream (the draw depends on the base key and position only): the same
+    tokens as the JAX engine through the preemption, and as a FIFO run."""
     samp = {"max_tokens": 24, "temperature": 0.9, "top_p": 0.9, "seed": 1234}
-    p, (_, tb), (_, tu) = _preempt_scenario(weights, batch_sampling=samp,
-                                            with_jax=False, **LAYOUTS[layout])
+    p, (jb, tb), (ju, tu) = _preempt_scenario(weights, batch_sampling=samp,
+                                              **LAYOUTS[layout])
+    _same(jb, tb)
+    _same(ju, tu)
     assert p.te.scheduler.stats.preemptions >= 1
     assert p.te.scheduler.stats.resumed >= 1
     _, (_, fb), (_, fu) = _preempt_scenario(

@@ -144,8 +144,10 @@ def test_stats_and_health(server):
     assert stats["tokens_generated"] >= 1 and stats["aborted"] == 0
     assert set(stats["prefix_cache"]) == {"entries", "hits", "misses"}
     assert stats["content_cache"]["encoder_invocations"] == 0
-    for absent in ("kv_pages", "admission", "router"):
+    for absent in ("kv_pages", "admission"):
         assert absent not in stats
+    assert stats["schema_version"] == 2 and stats["router"] is None
+    assert [r["name"] for r in stats["replicas"]] == ["replica-0"]
     assert stats["speculation"]["mode"] == "off"
     assert stats["speculation"]["rounds"] == 0
     _, health = _request_json(server, {"method": "GET", "path": "/healthz"})

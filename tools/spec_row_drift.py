@@ -10,12 +10,13 @@ layers, published widths, seeded random weights):
    the same rows inside 40 (a verify round's rows at ``max_batch`` 8 and
    ``spec_k`` 4): max |Δ|;
 2. ``torch.mean`` over the last dimension in float32 (the variance inside
-   ``layers.rmsnorm``) on 8 rows alone against the same rows inside 40:
-   how many rows get another value;
+   the plain ``rmsnorm``) on 8 rows alone against the same rows inside 40:
+   how many rows get another value; and the same through
+   ``layers.rmsnorm`` (the row-invariant ``rmsnorm`` kernel, bf16);
 3. the 8 greedy requests of ``chip_smoke.py`` 4i-c served with n-gram
-   speculation and with it off, with the port's ``rmsnorm`` and with an
-   ``rmsnorm`` that reduces each row in a call of its own: how many
-   outputs are equal.
+   speculation and with it off, with the port's ``rmsnorm`` (the kernel)
+   and with an ``rmsnorm`` that reduces each row in a call of its own:
+   how many outputs are equal.
 
 Run from the repository root on a machine with one H100::
 
@@ -67,6 +68,19 @@ def main() -> int:
     out["mean_rows_differing"] = [differ, rows]
     print(f"float32 mean over {cfg.d_model}: {differ} of {rows} rows differ "
           "between 8 rows alone and inside 40", flush=True)
+    w = params["final_ln"]
+    differ = rows = 0
+    for _ in range(200):
+        x = torch.randn((8, 5, cfg.d_model), generator=g,
+                        device="cuda").to(w.dtype)
+        alone = layers.rmsnorm(x[:, :1].contiguous(), w, cfg.rms_eps)
+        inside = layers.rmsnorm(x, w, cfg.rms_eps)[:, :1]
+        differ += int((alone != inside).any(-1).sum())
+        rows += 8
+    out["rmsnorm_kernel_rows_differing"] = [differ, rows]
+    print(f"layers.rmsnorm (the kernel, bf16) over {cfg.d_model}: {differ} "
+          f"of {rows} rows differ between 8 rows alone and inside 40",
+          flush=True)
 
     tok = ByteTokenizer()
     texts = [cs.prompt_text(k, b) for k, b in
