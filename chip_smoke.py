@@ -38,7 +38,14 @@ Phases (any failure exits non-zero and prints no result line):
    itself, rows 0-7 of every call bit for bit equal to the 8 rows alone;
    the threefry streams (bits, uniforms, folded step keys, categorical
    draws) on the card bit for bit equal to the same functions on the CPU
-   at [8, 151936], Gumbel noise within 4 ulp;
+   at [8, 151936], Gumbel noise within 4 ulp; the ``categorical`` kernel
+   (the port's own: threefry Gumbel noise + argmax in one pass) against
+   its plain version at B 8 over V 151936, 1000, 102400 and 128256,
+   unsalted and on the three salted streams, with a masked row, a row of
+   one live entry and an all -inf row: draws equal, rows 0-7 equal inside
+   40 rows and row 0 alone, the same draws at 256- and 8192-element
+   chunks; its noise (``gumbel_noise``) against ``sampling.gumbel`` bit
+   for bit or within 4 ulp (the gap recorded);
 3. full-width models — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (attention and rmsnorm; max |Δlogit|
@@ -121,7 +128,10 @@ Phases (any failure exits non-zero and prints no result line):
    the prefix cache on (no page pinned or copied, every page free or a
    cache lease); (c) a draft model with the target's own weights, the
    engine alone on 8 greedy requests (acceptance > 0.3, draft pool > 0
-   bytes) and a seeded stochastic request replayed; (d) a server built
+   bytes) and a seeded stochastic request replayed twice through the
+   categorical kernel (its salted draft and correction draws) and once
+   with ``ops.categorical`` routed to the plain version, all identical;
+   (d) a server built
    by ``launch/serve.py --spec-mode ngram`` over HTTP (one request
    streamed) with the ``/stats`` ``speculation`` block.  Each requires
    rounds > 0, accepted > 0 and drafted = accepted + rejected, and counts
@@ -176,8 +186,16 @@ Phases (any failure exits non-zero and prints no result line):
    and fp pages: outputs equal to an undrained engine, the live slots
    resume with no flash launch, gapless streams, session pins moved; (d) a
    seeded stochastic request (temperature 0.8, top-p 0.9, seed 1234) on
-   each replica and after the drain: the same tokens.  An ``error``
-   finish that names no injected fault fails the run in every phase;
+   each replica and after the drain: the same tokens; 4l — 4a's 12 prompts
+   as sampled requests (temperature 0.8, top-p 0.95 on half, a seed each)
+   on ``qwen2-0.5b`` (bf16, 24 layers, dense ring, the engine alone,
+   prefix cache off), three runs through the categorical kernel (the
+   counted one and two seeded replays) in turns with three with
+   ``ops.categorical`` routed to the plain version — tokens identical, the
+   kernel launched between once per decode step and once per decode step
+   and wave, never on the plain route; tokens/s of both.
+   An ``error`` finish that names no injected fault fails the run in every
+   phase;
 5. times — each kernel, its plain version and one PyTorch library call
    where one computes the same function (SDPA with an explicit mask; none
    takes a page table, so the paged kernel's SDPA time is over a dense copy
@@ -188,12 +206,15 @@ Phases (any failure exits non-zero and prints no result line):
    launch work hidden), and again at ``deepseek-moe-16b``'s shapes (the
    ``moe_*`` columns); decode's and paged's time against their number of
    splits; ``rmsnorm`` at the decode step's 8 x 896 and a 512-row chunk
-   beside ``F.rms_norm`` and its byte bound; one ``masked_sample_inner``
-   step on [8, 151936] greedy, stochastic, and stochastic with top-p (the
-   threefry noise's cost).
+   beside ``F.rms_norm`` and its byte bound; the ``categorical`` kernel at
+   [8, 151936] (a call, device alone, its plain version, ``torch.argmax``
+   as a draw's floor, the integer-operation bound); one
+   ``masked_sample_inner`` step on [8, 151936] greedy, stochastic, and
+   stochastic with top-p, each through the kernel and with the plain
+   draw.
 
 The last lines are one ``serve`` JSON line (4k under ``k4``), one ``spec``
-JSON line, one ``{"kernels": [...]}`` JSON line (five kernels), the card's
+JSON line, one ``{"kernels": [...]}`` JSON line (six kernels), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -210,7 +231,7 @@ import traceback
 import types
 import urllib.error
 import urllib.request
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -225,8 +246,32 @@ REPLACES = {
     # no TPU kernel: the reference computes rmsnorm in plain jnp; the port's
     # kernel exists to make a row's result independent of the call's rows
     "rmsnorm": "src/repro/models/layers.py:41",
+    # no TPU kernel: the reference draws with vmap(jax.random.categorical)
+    # inside its jitted sampler, which XLA fuses
+    "categorical": "src/repro/core/sampling.py:168",
+}
+REPLACES_NOTE = {
+    "rmsnorm": "no TPU kernel: the reference's rmsnorm is plain jnp; a "
+               "kernel of the port's own, row-invariant",
+    "categorical": "no TPU kernel: the reference's draw is "
+                   "vmap(jax.random.categorical) fused by XLA; a kernel of "
+                   "the port's own: threefry Gumbel noise + argmax in one "
+                   "pass",
 }
 PEAK_F32_FLOPS = 67e12            # float32 outside the tensor cores
+# int32 operations: 132 SMs x 64 a clock at the 1980 MHz boost clock (data
+# sheet); the categorical kernel's threefry rounds run on this pipe
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# the categorical kernel's work an element (csrc/categorical.cu): integer
+# operations (20 rounds, key injections, the uniform's bits, the running
+# maximum) and float operations (two logf, the uniform, the add)
+CATEGORICAL_INT_OPS = 88
+CATEGORICAL_F32_OPS = 40
+# the categorical checks' vocabularies: qwen2-0.5b's, a 1000-entry one, and
+# 102400 / 128256 (deepseek-moe-16b, llama-3.2-vision-90b)
+CAT_WIDTHS = (151936, 1000, 102400, 128256)
+CAT_SEEDS = (0, 1, 42, 1234, 2**31 + 7, 2**32 + 9, 2**40 + 3, 2**63 - 1)
+GUMBEL_ULP = 4                    # the noise's limit if not bit for bit
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 RMS_WIDTHS = (896, 2048)          # qwen2-0.5b, deepseek-moe-16b
 # quant_matmul outputs grow with K: held relative to the largest output
@@ -672,6 +717,87 @@ def check_threefry(torch, sampling) -> dict:
     return out
 
 
+def categorical_case(torch, sampling, b, v, seed=0):
+    """Base keys of seeded requests (seeds past 2**32 among them),
+    positions (the last past 2**32) and float32 logits ``[b, v]`` on the
+    card: row 0 masks every third entry, row 1 keeps one live entry, row 2
+    is all -inf."""
+    import numpy as np
+    keys = torch.from_numpy(np.stack([
+        sampling.request_base_key(CAT_SEEDS[i % len(CAT_SEEDS)]
+                                  + i // len(CAT_SEEDS))
+        for i in range(b)]).astype(np.int64)).cuda()
+    pos = torch.arange(b, device="cuda") * 4099 + 7
+    pos[-1] += 2**32
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((b, v), generator=g, device="cuda") * 3
+    logits[0, ::3] = float("-inf")
+    live = logits[1, v // 2].clone()
+    logits[1] = float("-inf")
+    logits[1, v // 2] = live
+    logits[2] = float("-inf")
+    return keys, pos, logits
+
+
+def check_categorical(torch, cat, sampling) -> dict:
+    """The draw kernel against its plain version (``sampling.categorical``
+    of the folded keys) at B 8 over :data:`CAT_WIDTHS`, unsalted and on the
+    three salted streams of speculation: draws equal; the one live entry
+    and the all -inf row's 0 drawn; rows 0-7 alone (row 0 also alone) equal
+    to the same rows inside 40; the draws equal at chunks of 256 and 8192
+    elements a block; the noise (``gumbel_noise``) against
+    ``sampling.gumbel`` at [8, 151936], bit for bit or within
+    :data:`GUMBEL_ULP` ulp (the gap recorded)."""
+    from repro_torch.core.spec_decode import (ACCEPT_SALT, CORRECTION_SALT,
+                                              DRAFT_SALT)
+    salts = (None, ACCEPT_SALT, CORRECTION_SALT, DRAFT_SALT)
+    cases = 0
+    for v in CAT_WIDTHS:
+        keys, pos, logits = categorical_case(torch, sampling, 40, v, seed=v)
+        for salt in salts:
+            k8, p8, l8 = keys[:8].clone(), pos[:8].clone(), logits[:8].clone()
+            got = cat.categorical_cuda(l8, k8, p8, salt)
+            inside = cat.categorical_cuda(logits, keys, pos, salt)
+            alone = cat.categorical_cuda(l8[:1].clone(), k8[:1].clone(),
+                                         p8[:1].clone(), salt)
+            torch.cuda.synchronize()
+            want = cat.categorical_plain(l8, k8, p8, salt)
+            ok = (torch.equal(got, want) and torch.equal(inside[:8], got)
+                  and alone.item() == got[0].item()
+                  and got[1].item() == v // 2 and got[2].item() == 0)
+            if v == CAT_WIDTHS[0] and salt in (None, DRAFT_SALT):
+                ok = ok and all(torch.equal(cat.categorical_cuda(
+                    l8, k8, p8, salt, chunk=c), got) for c in (256, 8192))
+            log(f"  categorical       V {v:6d} salt {salt}: draws "
+                f"{got.tolist()} plain {want.tolist()}; 8 rows = inside 40 "
+                f"= row 0 alone {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"categorical V {v} salt {salt}: kernel "
+                                     f"{got.tolist()} plain {want.tolist()} "
+                                     f"inside 40 {inside[:8].tolist()} alone "
+                                     f"{alone.tolist()}")
+            cases += 1
+    keys, pos, _ = categorical_case(torch, sampling, 8, 8)
+    noise = {}
+    for salt in (None, CORRECTION_SALT):
+        got = cat.gumbel_noise(keys, pos, CAT_WIDTHS[0], salt)
+        step = (sampling.fold_step_keys(keys, pos) if salt is None
+                else sampling.fold_salted_keys(keys, salt, pos))
+        want = sampling.gumbel(step, CAT_WIDTHS[0])
+        torch.cuda.synchronize()
+        ulp = (got.view(torch.int32).long()
+               - want.view(torch.int32).long()).abs().max().item()
+        noise[str(salt)] = {"bit_for_bit": bool(torch.equal(
+            got.view(torch.int32), want.view(torch.int32))),
+            "max_ulp": ulp, "max_abs": max_err(torch, got, want)}
+        log(f"  categorical       noise [8, {CAT_WIDTHS[0]}] salt {salt} vs "
+            f"sampling.gumbel: {noise[str(salt)]} (limit {GUMBEL_ULP} ulp)")
+        if ulp > GUMBEL_ULP or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"categorical noise: {noise[str(salt)]}")
+    return {"draw_cases_equal": cases, "noise": noise,
+            "max_abs_err": max(n["max_abs"] for n in noise.values())}
+
+
 def check_split_counts(torch, pag, qm, dtype):
     """The paged kernel (fp and int8 pages) with 1, 3 and the planned
     number of splits, and the bf16 ``quant_matmul`` with 1, 3 and the
@@ -710,22 +836,27 @@ def check_split_counts(torch, pag, qm, dtype):
 # --------------------------------------------------------------------------- #
 # phase 3: the full-width model through the kernels vs the plain versions
 # --------------------------------------------------------------------------- #
+PLAIN_OPS = {"flash_attention": "_flash_plain",
+             "decode_attention": "_decode_plain",
+             "paged_attention": "_paged_plain", "rmsnorm": "rmsnorm_plain",
+             "categorical": "categorical_plain"}
+
+
 @contextmanager
-def plain_attention(ops):
-    """Route the layers' kernel calls (attention and rmsnorm) to the plain
-    versions (the comparison's reference side), whatever the tensors'
-    device."""
-    saved = (ops.flash_attention, ops.decode_attention, ops.paged_attention,
-             ops.rmsnorm)
-    ops.flash_attention = ops._flash_plain
-    ops.decode_attention = ops._decode_plain
-    ops.paged_attention = ops._paged_plain
-    ops.rmsnorm = ops.rmsnorm_plain
+def plain_attention(ops, names=("flash_attention", "decode_attention",
+                                "paged_attention", "rmsnorm")):
+    """Route the named entry points of ``ops`` (by default the layers'
+    kernel calls: attention and rmsnorm; ``("categorical",)`` the sampler's
+    draw) to the plain versions (the comparison's reference side),
+    whatever the tensors' device."""
+    saved = {name: getattr(ops, name) for name in names}
+    for name in names:
+        setattr(ops, name, getattr(ops, PLAIN_OPS[name]))
     try:
         yield
     finally:
-        (ops.flash_attention, ops.decode_attention,
-         ops.paged_attention, ops.rmsnorm) = saved
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
 
 
 def phrase_prompt(torch, g, vocab, s, period=6):
@@ -1646,17 +1777,29 @@ def check_draft_engine(torch, get_config, InferenceEngine, Request,
                 raise AssertionError(f"4i-c: acceptance "
                                      f"{rec['reading']['acceptance']}, draft "
                                      f"pool {sp['draft_pool_bytes']} bytes")
-            replay = []
-            for _ in range(2):
+            # the seeded replay's draft and correction draws run on the
+            # salted streams: twice through the categorical kernel, once
+            # with ops.categorical routed to the plain version
+            from repro_torch.kernels import ops
+            replay, draws = [], []
+            for route in ("kernel", "kernel", "plain"):
                 r = Request(prompt_tokens=tok.encode(texts[2]),
                             sampling=SamplingParams(max_tokens=48,
                                                     temperature=0.9,
                                                     top_p=0.9, seed=42))
-                eng.generate([r])
+                n0 = wrappers["categorical"].launches
+                with (plain_attention(ops, ("categorical",))
+                      if route == "plain" else nullcontext()):
+                    eng.generate([r])
                 replay.append(r.output_tokens)
-            if replay[0] != replay[1] or len(replay[0]) != 48:
-                raise AssertionError(f"4i-c: seeded replay differs: {replay}")
+                draws.append(wrappers["categorical"].launches - n0)
+            if any(t != replay[0] for t in replay) or len(replay[0]) != 48 \
+                    or not all(draws[:2]) or draws[2]:
+                raise AssertionError(f"4i-c: seeded replay differs or the "
+                                     f"draws missed the kernel: {replay}, "
+                                     f"categorical launches {draws}")
             rec["seeded_replay_identical"] = True
+            rec["seeded_replay_categorical_launches"] = draws
         out[mode] = rec
         del eng
         gc.collect()
@@ -1678,7 +1821,9 @@ def check_draft_engine(torch, get_config, InferenceEngine, Request,
         f"{off['decode_steps']} for {off['completion_tokens']}); "
         f"{on['tokens_per_s']:.1f} tokens/s vs {off['tokens_per_s']:.1f} "
         f"off; outputs equal to spec off {sum(same)}/{len(same)}; seeded "
-        "stochastic replay identical; 8 rows alone vs inside "
+        "stochastic replay identical twice through the categorical kernel "
+        f"({on['seeded_replay_categorical_launches'][:2]} launches) and "
+        "once through its plain version; 8 rows alone vs inside "
         f"{8 * (SPEC_K + 1)} rows: {out['row_drift']}")
     out["identical_share"] = sum(same) / len(same)
     return out
@@ -1717,6 +1862,107 @@ def check_spec_launcher(torch, serve_mod):
     log(f"  4i-d: launcher --spec-mode ngram served {len(bodies)} requests "
         f"(one streamed), {n} completion tokens; /stats speculation {spec}")
     return {"completion_tokens": n, "speculation": spec}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4l: sampled requests through the categorical kernel
+# --------------------------------------------------------------------------- #
+def check_sampled_round(torch, ns, wrappers, params):
+    """4l: 4a's 12 prompts as sampled requests (temperature 0.8, top-p 0.95
+    on every other one, a seed each; 4a's ``max_tokens``) on ``qwen2-0.5b``
+    (bf16, 24 layers, the served weights, dense ring, 8 slots, prefix cache
+    off so every run prefills alike), the engine alone: a warm-up run of
+    all 12, then in turns (kernel, plain, plain, kernel, kernel, plain) the
+    counted run through the categorical kernel, runs with
+    ``ops.categorical`` routed to the plain version, and seeded replays
+    through the kernel.  Tokens identical in every run; tokens/s of each
+    side the mean of its three runs; the counted run launches decode and
+    flash 24 x steps and waves, rmsnorm 49 x forwards, and the categorical
+    kernel once per sampled decode step and once per wave that commits
+    first tokens (between the decode steps and decode steps + waves); the
+    plain run never launches it.  Tokens/s of both read."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.tokenizer import ByteTokenizer
+    tok = ByteTokenizer()
+    bodies = serve_requests()
+
+    def reqs():
+        return [ns.Request(prompt_tokens=tok.encode(prompt_text(kind, body)),
+                           sampling=ns.SamplingParams(
+                               max_tokens=body["max_tokens"], temperature=0.8,
+                               top_p=0.95 if i % 2 else 1.0, seed=1000 + i))
+                for i, (kind, body) in enumerate(bodies)]
+
+    engine = engine_4j(ns, params, enable_prefix_cache=False)
+    engine.generate(reqs())                             # warm-up
+    layers = engine.cfg.num_layers
+
+    def run(route):
+        st = engine.scheduler.stats
+        before = (st.device_steps, st.prefill_waves)
+        rs = reqs()
+        zero(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (plain_attention(ops, ("categorical",)) if route == "plain"
+              else nullcontext()):
+            engine.generate(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [r.finish_reason for r in rs if r.finish_reason is None
+               or r.finish_reason.value not in ("stop", "length")]
+        if bad:
+            raise AssertionError(f"4l {route}: unexpected finishes {bad}")
+        n = sum(len(r.output_tokens) for r in rs)
+        return {"tokens": [list(r.output_tokens) for r in rs],
+                "completion_tokens": n, "wall_s": wall,
+                "tokens_per_s": n / wall,
+                "decode_steps": st.device_steps - before[0],
+                "prefill_waves": st.prefill_waves - before[1],
+                "launches": counted(wrappers)}
+
+    order = ("kernel", "plain", "plain", "kernel", "kernel", "plain")
+    runs = [(route, run(route)) for route in order]
+    kern = runs[0][1]
+    require_launches(kern["launches"], kern, layers,
+                     decode_kernel="decode_attention",
+                     unused="paged_attention")
+    require_rmsnorm(kern["launches"], kern, layers)
+    n_cat = kern["launches"]["categorical"]
+    lo, hi = kern["decode_steps"], kern["decode_steps"] + kern["prefill_waves"]
+    if not lo <= n_cat <= hi or not n_cat:
+        raise AssertionError(f"4l: categorical launches {n_cat}, want "
+                             f"{lo}..{hi} (sampled decode steps + waves)")
+    if any(rec["launches"]["categorical"] for route, rec in runs
+           if route == "plain"):
+        raise AssertionError("4l: the plain route launched the kernel")
+    same_replay = all(rec["tokens"] == kern["tokens"] for route, rec in runs
+                      if route == "kernel")
+    same_plain = all(rec["tokens"] == kern["tokens"] for route, rec in runs
+                     if route == "plain")
+    tps = {side: [rec["tokens_per_s"] for route, rec in runs
+                  if route == side] for side in ("kernel", "plain")}
+    means = {side: sum(v) / len(v) for side, v in tps.items()}
+    turns = ", ".join(f"{r} {rec['tokens_per_s']:.1f}" for r, rec in runs)
+    log(f"  4l: {len(bodies)} sampled requests, {kern['completion_tokens']} "
+        f"tokens, {kern['decode_steps']} decode steps, "
+        f"{kern['prefill_waves']} waves, categorical launches {n_cat}; "
+        f"tokens/s in turns: {turns} (means kernel {means['kernel']:.1f}, "
+        f"plain draw "
+        f"{means['plain']:.1f}: {means['kernel'] / means['plain']:.3f}x); "
+        f"seeded replays identical {same_replay}, plain-route tokens "
+        f"identical {same_plain}")
+    if not (same_replay and same_plain):
+        raise AssertionError(f"4l: tokens differ (replay {same_replay}, "
+                             f"plain route {same_plain})")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    for _, rec in runs:
+        rec.pop("tokens")
+    return {"order": list(order), "runs": [rec for _, rec in runs],
+            "tokens_per_s": tps, "tokens_per_s_means": means,
+            "tokens_identical": True, "kernel": kern}
 
 
 # --------------------------------------------------------------------------- #
@@ -2368,6 +2614,7 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
                     decode_attention=(n_self + n_cross) * steps)
     # two norms a layer (self- or cross-attention, then the MLP) + the final
     want["rmsnorm"] = (2 * (n_self + n_cross) + 1) * (steps + waves)
+    want["categorical"] = 0          # every media request is greedy
     log(f"  {layout}: 13 media requests, {tokens} completion tokens in "
         f"{wall:.3f} s, {waves} prefill waves, {steps} decode steps, "
         f"launches {launches} (flash: {n_self} causal + {n_cross} "
@@ -3642,12 +3889,58 @@ def time_rmsnorm(torch, rms, F):
     return main
 
 
-def time_sampler(torch, sampling) -> dict:
+def time_categorical(torch, cat, sampling) -> dict:
+    """The draw kernel at the sampled decode step's [8, 151936] float32
+    logits, on rotating logit sets larger than L2, a call and device
+    alone; its plain version; ``torch.argmax`` over the same logits, a draw's
+    floor (no PyTorch call draws JAX's stream, so no library time).  The
+    bound: :data:`CATEGORICAL_INT_OPS` integer operations an element over
+    :data:`PEAK_INT32_OPS`, :data:`CATEGORICAL_F32_OPS` float operations
+    over the float32 rate, the logits, keys, positions and draws once over
+    the memory rate; the largest of the three."""
+    b, v = 8, CAT_WIDTHS[0]
+    n_sets = min(64, max(2, 2 * L2_BYTES // (b * v * 4) + 1))
+    sets = [categorical_case(torch, sampling, b, v, seed=100 + i)
+            for i in range(n_sets)]
+    kern = lambda i: cat.categorical_cuda(  # noqa: E731
+        sets[i][2], sets[i][0], sets[i][1])
+    amax = lambda i: torch.argmax(sets[i][2], dim=-1)  # noqa: E731
+    keys, pos, logits = sets[0]
+    t_int = CATEGORICAL_INT_OPS * b * v / PEAK_INT32_OPS
+    t_f32 = CATEGORICAL_F32_OPS * b * v / PEAK_F32_FLOPS
+    t_bytes = (nbytes(logits, keys, pos) + 8 * b) / HBM_BYTES_PER_S
+    row = {"ms": time_ms(torch, kern, n_sets),
+           "device_ms": device_ms(torch, kern, n_sets),
+           "plain_ms": time_ms(torch, lambda i: cat.categorical_plain(
+               sets[i][2], sets[i][0], sets[i][1]), n_sets, cycles=1),
+           "library_ms": None,
+           "argmax_ms": time_ms(torch, amax, n_sets),
+           "argmax_device_ms": device_ms(torch, amax, n_sets),
+           "bound_ms": max(t_int, t_f32, t_bytes) * 1e3,
+           "bound_by": "bytes" if t_bytes >= max(t_int, t_f32)
+           else "operations",
+           "bound_parts_ms": {"int32": t_int * 1e3, "float32": t_f32 * 1e3,
+                              "bytes": t_bytes * 1e3},
+           "chunk": cat.plan_chunk(b, v, torch.cuda.get_device_properties(
+               0).multi_processor_count),
+           "shape": f"[{b}, {v}] float32, {n_sets} sets"}
+    log(f"  categorical {row['shape']}: kernel {row['ms']:.4f} ms (device "
+        f"alone {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+        f"torch.argmax alone {row['argmax_ms']:.4f} ms (device alone "
+        f"{row['argmax_device_ms']:.4f}), bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}: {row['bound_parts_ms']}), chunk {row['chunk']}")
+    del sets
+    return row
+
+
+def time_sampler(torch, sampling, ops) -> dict:
     """One ``masked_sample_inner`` step on [8, 151936] float32 logits:
     greedy (the all-greedy skip), stochastic with temperature 0.8 alone
     (the mask skip), and with top-p 0.9 (the sort pipeline) — the last two
-    pay the threefry noise over every logit.  Host clock around 20 steps
-    ending in a synchronize (the step's host dispatch included)."""
+    draw through the categorical kernel, and again with ``ops.categorical``
+    routed to the plain version (the ``*_plain_ms`` columns).  Host clock
+    around 20 steps ending in a synchronize (the step's host dispatch
+    included)."""
     import numpy as np
     b, v = 8, 151936
     g = torch.Generator(device="cuda").manual_seed(17)
@@ -3677,10 +3970,16 @@ def time_sampler(torch, sampling) -> dict:
            "stochastic_ms": run(ones * 0.8, ones, True, False),
            "stochastic_top_p_ms": run(ones * 0.8, ones * 0.9, True, True),
            "shape": f"[{b}, {v}] float32"}
+    with plain_attention(ops, ("categorical",)):
+        out["stochastic_plain_ms"] = run(ones * 0.8, ones, True, False)
+        out["stochastic_top_p_plain_ms"] = run(ones * 0.8, ones * 0.9, True,
+                                               True)
     out["noise_and_draw_ms"] = out["stochastic_ms"] - out["greedy_ms"]
     log(f"  masked_sample_inner {out['shape']}: greedy "
         f"{out['greedy_ms']:.4f} ms, stochastic {out['stochastic_ms']:.4f} "
-        f"ms, stochastic + top-p {out['stochastic_top_p_ms']:.4f} ms a step")
+        f"ms (plain draw {out['stochastic_plain_ms']:.4f}), stochastic + "
+        f"top-p {out['stochastic_top_p_ms']:.4f} ms (plain draw "
+        f"{out['stochastic_top_p_plain_ms']:.4f}) a step")
     return out
 
 
@@ -4002,6 +4301,47 @@ def time_paged(torch, pag, F, extras=True, **shape):
     return out
 
 
+def log_kernel_times(name, t, card) -> None:
+    """Phase 5's lines for one kernel with a library yardstick: a call and
+    device alone, the MoE and cross-attention shapes where timed."""
+    lib = ("none (SDPA on a gathered dense copy "
+           f"{t['sdpa_on_gathered_dense_copy_ms']:.4f} ms)"
+           if t["library_ms"] is None else f"{t['library_ms']:.4f} ms")
+    ratio = ("" if t["library_ms"] is None
+             else f" (kernel/library {t['ms'] / t['library_ms']:.3f})")
+    log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, {t.get('library', 'SDPA')} {lib}"
+        f"{ratio}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on "
+        f"{card}")
+    lib_dev = t.get("library_device_ms",
+                    t.get("sdpa_on_gathered_dense_copy_device_ms"))
+    log(f"  {name:17s} device alone: kernel {t['device_ms']:.4f} ms, "
+        f"{t.get('library', 'SDPA')} {lib_dev:.4f} ms (kernel/library "
+        f"{t['device_ms'] / lib_dev:.3f})")
+    if "moe_ms" in t:
+        lib = (t["moe_library_ms"]
+               or t["moe_sdpa_on_gathered_dense_copy_ms"])
+        lib_dev = t.get("moe_library_device_ms",
+                        t.get("moe_sdpa_on_gathered_dense_copy_device_ms"))
+        log(f"  {name:17s} {MOE} {t['moe_shape']}: kernel "
+            f"{t['moe_ms']:.4f} ms, plain {t['moe_plain_ms']:.4f} ms, "
+            f"SDPA{'' if t['moe_library_ms'] else ' on a gathered copy'} "
+            f"{lib:.4f} ms (kernel/SDPA {t['moe_ms'] / lib:.3f}), bound "
+            f"{t['moe_bound_ms']:.4f} ms ({t['moe_bound_by']}); device "
+            f"alone: kernel {t['moe_device_ms']:.4f} ms, SDPA "
+            f"{lib_dev:.4f} ms (kernel/SDPA "
+            f"{t['moe_device_ms'] / lib_dev:.3f})")
+    if "cross_ms" in t:
+        log(f"  {name:17s} cross {t['cross_shape']}: kernel "
+            f"{t['cross_ms']:.4f} ms, plain {t['cross_plain_ms']:.4f} "
+            f"ms, SDPA {t['cross_library_ms']:.4f} ms (kernel/SDPA "
+            f"{t['cross_ms'] / t['cross_library_ms']:.3f}), bound "
+            f"{t['cross_bound_ms']:.4f} ms ({t['cross_bound_by']}); "
+            f"device alone: kernel {t['cross_device_ms']:.4f} ms, SDPA "
+            f"{t['cross_library_device_ms']:.4f} ms (kernel/SDPA "
+            f"{t['cross_device_ms'] / t['cross_library_device_ms']:.3f})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4015,6 +4355,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.kernels import build, ops
+    from repro_torch.kernels import categorical as cat
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fla
     from repro_torch.kernels import paged_attention as pag
@@ -4058,12 +4399,15 @@ def main() -> int:
     errs = check_kernels(torch, dec, fla, pag, qm)
     errs["rmsnorm"] = check_rmsnorm(torch, rms)
     threefry = check_threefry(torch, sampling)
+    cat_check = check_categorical(torch, cat, sampling)
+    errs["categorical"] = cat_check["max_abs_err"]
 
     wrappers = {"decode_attention": dec.decode_attention_cuda,
                 "flash_attention": fla.flash_attention_cuda,
                 "paged_attention": pag.paged_attention_cuda,
                 "quant_matmul": qm.quant_matmul_cuda,
-                "rmsnorm": rms.rmsnorm_cuda}
+                "rmsnorm": rms.rmsnorm_cuda,
+                "categorical": cat.categorical_cuda}
     log("== 3. full-width models, float32, kernels vs plain versions")
     ns3 = types.SimpleNamespace(ops=ops, layers=layers, Model=Model,
                                 init_cache=init_cache, PagedKVPool=PagedKVPool,
@@ -4192,6 +4536,10 @@ def main() -> int:
     j4["d_chaos"] = check_chaos(torch, ns, wrappers, qwen_params)
     log("== 4j-f. handoff between two engines: dense, fp pages, int8 pages")
     j4["f_handoff"] = check_handoff(torch, ns, wrappers, qwen_params)
+    log("== 4l. sampled requests: 4a's 12 prompts at temperature 0.8 (top-p "
+        "0.95 on half), seeded, through the categorical kernel and through "
+        "its plain version")
+    sampled = check_sampled_round(torch, ns, wrappers, qwen_params)
     del qwen_params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4223,46 +4571,42 @@ def main() -> int:
                 "flash_attention": paged_launches["flash_attention"],
                 "paged_attention": paged_launches["paged_attention"],
                 "quant_matmul": qmm_launches,
-                "rmsnorm": dense_launches["rmsnorm"]}
+                "rmsnorm": dense_launches["rmsnorm"],
+                "categorical": sampled["kernel"]["launches"]["categorical"]}
 
     log("== 5. times at the serving shapes (CUDA events)")
     times = time_kernels(torch, dec, fla, pag, qm)
     times["decode_attention"]["split_sweep"] = split_sweep(torch, dec)
     import torch.nn.functional as F
     times["rmsnorm"] = time_rmsnorm(torch, rms, F)
-    sampler_step = time_sampler(torch, sampling)
+    times["categorical"] = time_categorical(torch, cat, sampling)
+    sampler_step = time_sampler(torch, sampling, ops)
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
-        lib = ("none (SDPA on a gathered dense copy "
-               f"{t['sdpa_on_gathered_dense_copy_ms']:.4f} ms)"
-               if t["library_ms"] is None else f"{t['library_ms']:.4f} ms")
-        ratio = ("" if t["library_ms"] is None
-                 else f" (kernel/library {t['ms'] / t['library_ms']:.3f})")
-        log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, {t.get('library', 'SDPA')} {lib}"
-            f"{ratio}, bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on "
-            f"{card}")
-        lib_dev = t.get("library_device_ms",
-                        t.get("sdpa_on_gathered_dense_copy_device_ms"))
-        log(f"  {name:17s} device alone: kernel {t['device_ms']:.4f} ms, "
-            f"{t.get('library', 'SDPA')} {lib_dev:.4f} ms (kernel/library "
-            f"{t['device_ms'] / lib_dev:.3f})")
+        if name == "categorical":
+            log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms (device "
+                f"alone {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+                f"no library call (torch.argmax alone {t['argmax_ms']:.4f} "
+                f"ms), bound {t['bound_ms']:.4f} ms ({t['bound_by']}) on "
+                f"{card}")
+        else:
+            log_kernel_times(name, t, card)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
-            **({"replaces_note": "no TPU kernel: the reference's rmsnorm "
-                "is plain jnp; a kernel of the port's own, row-invariant"}
-               if name == "rmsnorm" else {}),
+            **({"replaces_note": REPLACES_NOTE[name]}
+               if name in REPLACES_NOTE else {}),
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "tensor_core_instructions": mma.get(name),
             **{k: v for k, v in t.items()
                if k.startswith(("sdpa_on", "int8_pages", "cross_", "moe_",
-                                "shapes", "prefill_",
-                                "library", "split_sweep", "device_ms"))},
+                                "shapes", "prefill_", "argmax", "chunk",
+                                "bound_parts", "library", "split_sweep",
+                                "device_ms"))},
             **({"spec_round_launches": {
                     "ngram_dense": spec["a_dense"]["ngram"]["launches"][name],
                     "ngram_paged": spec["b_paged"]["ngram"]["launches"][name],
@@ -4273,29 +4617,7 @@ def main() -> int:
                                        "paged": moe_paged_launches[name]},
                 "pressure_round_launches":
                     pressure["pressure"]["launches"][name]}
-               if name != "quant_matmul" else {})})
-        if "moe_ms" in t:
-            lib = (t["moe_library_ms"]
-                   or t["moe_sdpa_on_gathered_dense_copy_ms"])
-            lib_dev = t.get("moe_library_device_ms",
-                            t.get("moe_sdpa_on_gathered_dense_copy_device_ms"))
-            log(f"  {name:17s} {MOE} {t['moe_shape']}: kernel "
-                f"{t['moe_ms']:.4f} ms, plain {t['moe_plain_ms']:.4f} ms, "
-                f"SDPA{'' if t['moe_library_ms'] else ' on a gathered copy'} "
-                f"{lib:.4f} ms (kernel/SDPA {t['moe_ms'] / lib:.3f}), bound "
-                f"{t['moe_bound_ms']:.4f} ms ({t['moe_bound_by']}); device "
-                f"alone: kernel {t['moe_device_ms']:.4f} ms, SDPA "
-                f"{lib_dev:.4f} ms (kernel/SDPA "
-                f"{t['moe_device_ms'] / lib_dev:.3f})")
-        if "cross_ms" in t:
-            log(f"  {name:17s} cross {t['cross_shape']}: kernel "
-                f"{t['cross_ms']:.4f} ms, plain {t['cross_plain_ms']:.4f} "
-                f"ms, SDPA {t['cross_library_ms']:.4f} ms (kernel/SDPA "
-                f"{t['cross_ms'] / t['cross_library_ms']:.3f}), bound "
-                f"{t['cross_bound_ms']:.4f} ms ({t['cross_bound_by']}); "
-                f"device alone: kernel {t['cross_device_ms']:.4f} ms, SDPA "
-                f"{t['cross_library_device_ms']:.4f} ms (kernel/SDPA "
-                f"{t['cross_device_ms'] / t['cross_library_device_ms']:.3f})")
+               if name not in ("quant_matmul", "categorical") else {})})
     serve = {"dense": dense, "paged": paged, "paged_int8": int8_round,
              "media_dense": media_dense, "media_paged": media_paged,
              "moe_dense": moe_dense, "moe_paged": moe_paged,
@@ -4303,6 +4625,7 @@ def main() -> int:
              "policy_preemption": policy_preempt, "pressure": pressure,
              "admission": admission, "j4": j4, "k4": k4,
              "threefry_card_vs_cpu": threefry, "sampler_step": sampler_step,
+             "categorical_check": cat_check, "sampled": sampled,
              "card": card, "smoke_s": time.perf_counter() - t_start}
     print(json.dumps({"serve": serve}))
     print(json.dumps({"spec": spec, "card": card}))

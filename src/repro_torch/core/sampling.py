@@ -40,6 +40,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
+
 _MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = float(np.finfo(np.float32).tiny)
@@ -230,9 +232,10 @@ def salted_categorical(base_keys: torch.Tensor, salt: int,
                        positions: torch.Tensor,
                        log_probs: torch.Tensor) -> torch.Tensor:
     """[B] one draw per slot from ``softmax(log_probs)`` on the ``salt``
-    stream (-inf entries are never drawn)."""
-    return categorical(fold_salted_keys(base_keys, salt, positions),
-                       log_probs)
+    stream (-inf entries are never drawn): ``categorical`` of
+    ``fold_salted_keys``, through ``ops.categorical`` (the draw kernel on
+    the card)."""
+    return ops.categorical(log_probs, base_keys, positions, salt)
 
 
 def masked_sample_inner(
@@ -262,7 +265,9 @@ def masked_sample_inner(
     scaled = logits / temperatures.clamp_min(1e-6)[:, None]
     if any_mask:
         scaled = mask_scaled_logits(scaled, top_p, top_k, min_p)
-    sampled = categorical(fold_step_keys(base_keys, positions), scaled)
+    # categorical(fold_step_keys(base_keys, positions), scaled); on the
+    # card one kernel draws the noise and takes the argmax
+    sampled = ops.categorical(scaled, base_keys, positions)
     return torch.where(temperatures > 0, sampled, greedy)
 
 

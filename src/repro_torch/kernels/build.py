@@ -45,8 +45,10 @@ SIGNATURES = {
     "paged_attention": ("paged_attention_launch",
                         [_PTR] * 9 + [_INT] * 9 + [_LL] * 13 + [_PTR]),
     "quant_matmul": ("quant_matmul_launch", [_PTR] * 5 + [_INT] * 6 + [_PTR]),
-    "rmsnorm": ("rmsnorm_launch",
-                [_PTR] * 3 + [_INT] * 4 + [_LL] * 2 + [ctypes.c_float, _PTR]),
+    # one packed struct (kernels/rmsnorm.py ARGS, csrc/rmsnorm.cu RmsnormArgs)
+    "rmsnorm": ("rmsnorm_launch", [ctypes.c_char_p]),
+    "categorical": ("categorical_launch",
+                    [_PTR] * 6 + [_INT] * 4 + [_LL] * 5 + [_PTR]),
 }
 KERNELS = tuple(SIGNATURES)
 CUDA_HOMES = ("/usr/local/cuda",)   # toolkit locations tried after the env

@@ -7,14 +7,16 @@ switch and no fallback: a kernel or build failure on the card propagates.
 ``_flash_plain`` and ``_decode_plain`` are the torch forms of the
 reference's ``_flash_jnp`` and ``_decode_jnp``, ``_paged_plain`` that of the
 CPU path of its ``paged_attention``, ``_qmm_plain`` the arithmetic of its
-``_qmm_kernel``, ``rmsnorm_plain`` the body of its ``rmsnorm`` (the one
-kernel of the port's own, row-invariant on the card); the kernels
-themselves live in
+``_qmm_kernel``, ``rmsnorm_plain`` the body of its ``rmsnorm`` (a kernel of
+the port's own, row-invariant on the card), ``categorical_plain`` its
+vmapped ``random.categorical`` of folded step keys (the port's other
+own kernel, the sampler's draw); the kernels themselves live in
 :mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.decode_attention`,
 :mod:`repro_torch.kernels.paged_attention`,
-:mod:`repro_torch.kernels.quant_matmul` and
-:mod:`repro_torch.kernels.rmsnorm`, each beside its plain version.
+:mod:`repro_torch.kernels.quant_matmul`,
+:mod:`repro_torch.kernels.rmsnorm` and
+:mod:`repro_torch.kernels.categorical`, each beside its plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.categorical import (categorical_cuda,
+                                             categorical_plain)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -105,3 +109,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     if x.is_cuda:
         return rmsnorm_cuda(x, w, eps)
     return rmsnorm_plain(x, w, eps)
+
+
+def categorical(logits: torch.Tensor, base_keys, positions,
+                salt: Optional[int] = None) -> torch.Tensor:
+    """``[B]`` draws from ``softmax(logits [B, V])``: per row the argmax of
+    JAX's Gumbel noise under ``fold_in(base_keys, positions)`` (or
+    ``fold_in(fold_in(base_keys, salt), positions)``) plus the logits."""
+    if logits.is_cuda:
+        return categorical_cuda(logits, base_keys, positions, salt)
+    return categorical_plain(logits, base_keys, positions, salt)

@@ -1,4 +1,4 @@
-"""The port's ``rmsnorm`` (its one kernel of its own) and what else this
+"""The port's ``rmsnorm`` (a kernel of its own) and what else this
 repository only checks on the card: the threefry streams on CUDA, and a
 race of two threads on a kernel's first build.
 
@@ -15,6 +15,8 @@ tests, so these run where JAX is not installed)::
 * the kernel against itself across row counts, bit for bit: rows 0-7 of
   an 8-row call equal the same rows inside 40 and inside 512, at D 896
   (``qwen2-0.5b``) and 2048 (``deepseek-moe-16b``), float32 and bf16;
+* the lean launch path (one test, one packed call) on a side stream,
+  counting once a call, beside the refusals it still raises;
 * threefry bits, uniforms and categorical draws on the card equal the
   same functions on the CPU (held to JAX by ``test_torch_threefry.py``)
   bit for bit;
@@ -135,6 +137,37 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda):
         rmsnorm_cuda(x.half(), torch.ones(64, device=cuda))
     with pytest.raises(ValueError, match="contiguous \\[64\\]"):
         rmsnorm_cuda(x, torch.ones(128, device=cuda)[::2])
+
+
+@pytest.mark.gpu
+def test_rmsnorm_lean_path_on_a_side_stream(cuda):
+    """The common case (contiguous x and w) launches on the current
+    stream, a side stream here, and counts once a call; off it, the
+    refusals above still raise and a strided view still launches."""
+    x, w = _x(40, 896, seed=2)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    wt = torch.from_numpy(w).to(cuda, torch.bfloat16)
+    want = rmsnorm_plain(xt, wt)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = rmsnorm_cuda.launches
+    with torch.cuda.stream(side):
+        got = rmsnorm_cuda(xt, wt)
+        strided = rmsnorm_cuda(xt[::2], wt.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            rmsnorm_cuda(xt.reshape(8, 5, 896)[:, ::2], wt)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            rmsnorm_cuda(xt.half(), wt)
+        with pytest.raises(ValueError, match="contiguous \\[896\\]"):
+            rmsnorm_cuda(xt, torch.ones(1792, device=cuda)[::2])
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            rmsnorm_cuda(xt, wt.cpu())
+    side.synchronize()
+    assert rmsnorm_cuda.launches == before + 2
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got[::2], rmsnorm_cuda(xt[::2].contiguous(), wt))
+    assert (strided.float() - rmsnorm_plain(xt[::2], wt.float()).float()
+            ).abs().max().item() <= 2e-2
 
 
 @pytest.mark.gpu
