@@ -33,14 +33,16 @@ Phases (any failure exits non-zero and prints no result line):
    in the engine form over a 2048 ring, decode at S 2048, paged at 16-token
    pages, 128 a row, fp and int8), and flash with a 256 window over a
    256-slot ring with rows past the window's reach (no live key); the
-   ``rmsnorm`` kernel (the port's own) at 8, 40 and 512 rows of D 896 and
-   2048 against its plain version (bf16 2e-2, float32 1e-5) and against
+   ``rmsnorm`` kernel (the port's own) at 8, 40 and 512 rows of D 896,
+   2048, 3072 and 16384 (the last two the Mamba gated norm's widths of
+   ``mamba2-780m`` and jamba) against its plain version (bf16 2e-2, float32 1e-5) and against
    itself, rows 0-7 of every call bit for bit equal to the 8 rows alone;
    the threefry streams (bits, uniforms, folded step keys, categorical
    draws) on the card bit for bit equal to the same functions on the CPU
    at [8, 151936], Gumbel noise within 4 ulp; the ``categorical`` kernel
    (the port's own: threefry Gumbel noise + argmax in one pass) against
-   its plain version at B 8 over V 151936, 1000, 102400 and 128256,
+   its plain version at B 8 over V 151936, 1000, 102400, 128256, 50280,
+   65536 and 256206,
    unsalted and on the three salted streams, with a masked row, a row of
    one live entry and an all -inf row: draws equal, rows 0-7 equal inside
    40 rows and row 0 alone, the same draws at 256- and 8192-element
@@ -74,7 +76,24 @@ Phases (any failure exits non-zero and prints no result line):
    a prefill that drops none fails the run); ``codeqwen1.5-7b``,
    ``glm4-9b`` and ``yi-34b`` at 2 layers; ``glm4-9b`` again with a 256
    window over a 256-slot ring, a 600-token prompt in 256-token resume
-   chunks;
+   chunks; ``mamba2-780m`` cut to 2 layers and at full depth (48 layers)
+   in 256-token resume chunks and a ragged tail: kernels vs plain (only
+   ``rmsnorm`` differs), dense vs paged, re-prefill vs decode step 8, and,
+   through the kernels, the chunked prefill vs one call, each decode step
+   vs a prefill of the prompt + the tokens fed so far, as ported and
+   with the SSD's decay matrix in float64 (``MAMBA_STEP_TOL`` at full
+   depth, ``MAMBA_STEP_TOL_2`` cut to 2 layers), the right-padded row vs
+   itself alone (1e-3 each but those); ``seamless-m4t-medium`` at full depth (12
+   encoder + 12 decoder layers, 512 frames): kernels vs plain, fresh vs
+   cross-cached prefill (no encoder call) within 1e-6; 3j (run beside
+   4m-c) jamba at published widths cut to 5 layers (ssm, ssm_moe, ssm,
+   ssm_moe, attn) in bf16 (float32 needs ~96 GB), dense and paged:
+   kernels vs plain within ``JAMBA_TOL`` of the largest plain logit, the
+   argmax equal wherever the plain top-2 gap exceeds that (near ties
+   counted), capacity drops counted (> 0), and deliberately wrong plain
+   paths read against the same limit (a 2 % and a 25 % softmax scale
+   error; the attention layer's input norm skipped, which must exceed
+   it);
 4. serving — ``qwen2-0.5b`` in bf16 behind EngineClient + OpenAIServer +
    ApiServer on 127.0.0.1, with the prefix cache on: 12 concurrent chat /
    completion requests (one streamed, one chunked over 512 prompt tokens,
@@ -193,7 +212,26 @@ Phases (any failure exits non-zero and prints no result line):
    counted one and two seeded replays) in turns with three with
    ``ops.categorical`` routed to the plain version — tokens identical, the
    kernel launched between once per decode step and once per decode step
-   and wave, never on the plain route; tokens/s of both.
+   and wave, never on the plain route; tokens/s of both; 4m — the
+   recurrent families in bf16 (``max_batch`` 8, ``cache_len`` 2048,
+   ``prefill_chunk`` 512, prefix cache on): (a) ``mamba2-780m`` at full
+   depth serving 4a's 12 bodies over HTTP twice, dense ring then fp
+   pages, each round queued in the bodies' order before the engine's
+   loop runs (so both layouts run the same waves): no attention kernel
+   launched, ``rmsnorm`` 97 a forward, no page pinned or copied, tokens
+   dense = paged for every request with no prefix hit in either run
+   (those with a hit listed with their hit lengths), tokens/s, peak
+   memory, and the engine alone under the profiler with the SSD scan,
+   decode step, conv, GEMM and ``rmsnorm`` shares of device time; (b) the preemption scenario on it with the
+   prefix cache off, dense and pages: the victim equal to FIFO; (c) the
+   5-layer jamba served the same way (flash 1 a wave, the layout's
+   decode kernel 1 a step, ``rmsnorm`` 15 a forward; texts dense vs
+   paged read); 4n — ``seamless-m4t-medium`` at full depth in bf16 on
+   the engine, dense ring then fp pages: 8 concurrent requests with one
+   new waveform, 1 encoder invocation and 7 dedup joins + embedding
+   hits, flash 24 a wave + 12 in a wave encoding fresh audio, a warm
+   repeat with identical tokens, 1 embedding and 1 cross-KV hit and no
+   encoder call, tokens equal across the layouts, TTFT cold vs warm.
    An ``error`` finish that names no injected fault fails the run in every
    phase;
 5. times — each kernel, its plain version and one PyTorch library call
@@ -213,7 +251,8 @@ Phases (any failure exits non-zero and prints no result line):
    stochastic with top-p, each through the kernel and with the plain
    draw.
 
-The last lines are one ``serve`` JSON line (4k under ``k4``), one ``spec``
+The last lines are one ``serve`` JSON line (4k under ``k4``, 4m under
+``m4``, 4n under ``n4``), one ``spec``
 JSON line, one ``{"kernels": [...]}`` JSON line (six kernels), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
@@ -267,13 +306,16 @@ PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # maximum) and float operations (two logf, the uniform, the add)
 CATEGORICAL_INT_OPS = 88
 CATEGORICAL_F32_OPS = 40
-# the categorical checks' vocabularies: qwen2-0.5b's, a 1000-entry one, and
-# 102400 / 128256 (deepseek-moe-16b, llama-3.2-vision-90b)
-CAT_WIDTHS = (151936, 1000, 102400, 128256)
+# the categorical checks' vocabularies: qwen2-0.5b's, a 1000-entry one,
+# 102400 / 128256 (deepseek-moe-16b, llama-3.2-vision-90b) and 50280 /
+# 65536 / 256206 (mamba2-780m, jamba-1.5-large-398b, seamless-m4t-medium)
+CAT_WIDTHS = (151936, 1000, 102400, 128256, 50280, 65536, 256206)
 CAT_SEEDS = (0, 1, 42, 1234, 2**31 + 7, 2**32 + 9, 2**40 + 3, 2**63 - 1)
 GUMBEL_ULP = 4                    # the noise's limit if not bit for bit
 RMS_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
-RMS_WIDTHS = (896, 2048)          # qwen2-0.5b, deepseek-moe-16b
+# qwen2-0.5b, deepseek-moe-16b; the Mamba gated norm's d_inner of
+# mamba2-780m and jamba-1.5-large-398b
+RMS_WIDTHS = (896, 2048, 3072, 16384)
 # quant_matmul outputs grow with K: held relative to the largest output
 QMM_REL = {"bfloat16": 1e-2, "float32": 1e-4}
 VISION = "llama-3.2-vision-90b"
@@ -283,6 +325,31 @@ CROSS = dict(b=8, ctx=2304, h=64, hkv=8, d=128)      # 576 tokens x 4 images
 MLP_SHAPES = ((8192, 28672), (28672, 8192))           # (K, N) of up / down
 GATE = 0.5
 KERNEL_NAMES = tuple(REPLACES)
+MAMBA = "mamba2-780m"
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 5
+# jamba's bf16 kernels-vs-plain limit, relative to the largest plain logit:
+# bf16 keeps 8 mantissa bits (a relative step of 2**-8 = 3.9e-3 an
+# element); the attention and rmsnorm kernels round each output once where
+# the plain versions round in another order, and the 5 layers' products
+# carry such one-ulp differences into the logits, so a few ulp of the logit
+# scale, 2e-2, bounds them.  On the H100 the kernels read 3.1e-2 of 5.7,
+# one bf16 ulp of the logits: 2 ulp is already 1.1 % of the scale, and a
+# 2 % softmax scale error reads the same one ulp, so no tighter limit
+# tells it apart; a skipped norm reads 51 %
+JAMBA_TOL = 2e-2
+SKIPPED_NORM = "attention layer's input rmsnorm skipped"
+# mamba2-780m's decode step n against a prefill of prompt + n (float32),
+# as ported and with the SSD's decay matrix in float64: the reference's
+# decay matrix is exp(cs_i - cs_j) of float32 cumulative sums, whose
+# cancellation the prefill's chunk pays and the decode step's recurrence
+# does not, and 48 layers of random weights grow it (on the H100 9.6e-4
+# as ported, 8.2e-5 in float64; 3.8e-6 and 3.6e-6 cut to 2 layers, where
+# a state handed over wrong would show at once): limits ~2x, ~4x and ~5x
+# those readings
+MAMBA_STEP_TOL = (2e-3, 3e-4)
+MAMBA_STEP_TOL_2 = (2e-5, 2e-5)
+AUDIO = "seamless-m4t-medium"
 L2_BYTES = 50 * 2**20
 
 
@@ -423,13 +490,14 @@ DECODE_FORMS = (("B8 S2048 G7", {}),
                 ("G16 D128", dict(b=2, s=900, h=32, hkv=2, d=128)),
                 ("deepseek G1 D128", dict(h=16, hkv=16, d=128)),
                 ("glm4 G16 D128", dict(h=32, hkv=2, d=128)),
-                ("yi G7 D128", dict(h=56, hkv=8, d=128)))
+                ("yi G7 D128", dict(h=56, hkv=8, d=128)),
+                ("seamless G1 D64", dict(h=16, hkv=16)))
 
 
 FLASH_FORMS = ("engine", "causal_offset", "window", "ragged", "cross",
                "g7_ragged_tiles", "window_qpos", "d32", "d128", "last_tile",
                "deepseek_engine", "glm4_engine", "yi_engine",
-               "glm4_window_ring")
+               "glm4_window_ring", "seamless_engine")
 # (H, Hkv) at D 128 of the MoE model and the dense family's serving paths
 FAMILY_HEADS = {"deepseek": (16, 16), "glm4": (32, 2), "yi": (56, 8)}
 
@@ -446,7 +514,8 @@ def flash_case(torch, dtype, form, *, seed=0):
     ``d128`` (the other head dims, D 128 at G 8), ``last_tile``
     (non-causal, rows whose only live keys lie in the last KV tile).
     ``<model>_engine``: the engine form at ``FAMILY_HEADS`` (G 1, 16 and 7
-    at D 128); ``glm4_window_ring``: a 256 window over a 256-slot ring, rows
+    at D 128), ``seamless_engine`` the audio decoder's (G 1 at D 64);
+    ``glm4_window_ring``: a 256 window over a 256-slot ring, rows
     resuming at 0, 256 and 512 (the last past the window's reach: no live
     key, the mean of V)."""
     family = {f"{m}_engine": (8, 512, 2048, *hh, 128)
@@ -454,6 +523,7 @@ def flash_case(torch, dtype, form, *, seed=0):
     family["glm4_window_ring"] = (3, 256, 256, *FAMILY_HEADS["glm4"], 128)
     b, sq, skv, h, hkv, d = {**family,
                              "engine": (8, 512, 2048, 14, 2, 64),
+                             "seamless_engine": (8, 512, 2048, 16, 16, 64),
                              "causal_offset": (2, 512, 2048, 14, 2, 64),
                              "window": (2, 512, 512, 14, 2, 64),
                              "ragged": (3, 200, 1000, 14, 2, 64),
@@ -581,7 +651,8 @@ PAGED_FORMS = (("B8 ps16 P128", {}),
                ("4e H64 Hkv8 D128", dict(h=64, hkv=8, d=128)),
                ("deepseek G1 D128", dict(h=16, hkv=16, d=128)),
                ("glm4 G16 D128", dict(h=32, hkv=2, d=128)),
-               ("yi G7 D128", dict(h=56, hkv=8, d=128)))
+               ("yi G7 D128", dict(h=56, hkv=8, d=128)),
+               ("seamless G1 D64", dict(h=16, hkv=16, d=64)))
 
 
 def max_err(torch, a, b) -> float:
@@ -900,9 +971,72 @@ def counting_drops(torch, layers, counter: list):
         layers.apply_moe = inner
 
 
+def compare(torch, what, got, want, tol=1e-3):
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    err = max_err(torch, got, want)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"  {what}: max|Δlogit| {err:.3e} (tol {tol:g}), argmax "
+        f"agreement {agree:.3f}, logit scale "
+        f"{got.abs().max().item():.3e}")
+    if err > tol or agree < 1.0:
+        raise AssertionError(f"{what} disagrees: {err}, {agree}")
+
+
+@contextmanager
+def segsum_in_float64(ops):
+    """Route ``ops._segsum`` (the SSD's log-space decay matrix, a difference
+    of two cumulative sums) through float64, its result cast back: the
+    float32 cancellation between the cumulative sums taken out, all else
+    unchanged."""
+    inner = ops._segsum
+    ops._segsum = lambda x: inner(x.double()).to(x.dtype)
+    try:
+        yield
+    finally:
+        ops._segsum = inner
+
+
+@contextmanager
+def scaled_queries(ops, factor):
+    """A deliberately wrong attention: every attention entry point of
+    ``ops`` (whatever it routes to) gets its queries times ``factor``,
+    i.e. a softmax scale ``factor`` times the right one."""
+    names = ("flash_attention", "decode_attention", "paged_attention")
+    saved = {name: getattr(ops, name) for name in names}
+    for name, fn in saved.items():
+        setattr(ops, name, lambda q, *a, _fn=fn, **k: _fn(q * factor, *a,
+                                                          **k))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+@contextmanager
+def skipped_norm(ops, index, per_forward):
+    """A deliberately wrong rmsnorm: call ``index`` of every forward's
+    ``per_forward`` calls returns its input unchanged."""
+    inner, calls = ops.rmsnorm, [0]
+
+    def norm(x, w, eps=1e-5):
+        calls[0] += 1
+        return x if (calls[0] - 1) % per_forward == index else inner(x, w,
+                                                                     eps)
+    ops.rmsnorm = norm
+    try:
+        yield
+    finally:
+        ops.rmsnorm = inner
+
+
 def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
-                chunk=None, window=None, phrase_row=False, reprefill=False):
-    """``cfg`` in float32 with seeded random weights: a resume-prefill of 2
+                chunk=None, window=None, phrase_row=False, reprefill=False,
+                recurrent=False, step_tol=(1e-3, 1e-3), params=None,
+                compare_fn=compare, mutants=()):
+    """``cfg`` (float32 unless a caller's bf16 ``compare_fn`` holds it)
+    with seeded random weights (or ``params``): a resume-prefill of 2
     rows of ``lengths`` tokens (in ``chunk``-token resume chunks, or one
     call), then 8 decode steps, through the kernels and through the plain
     versions, over the dense ring and over a 16-token-page arena; the paged
@@ -910,12 +1044,23 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
     row 1 repeats one phrase (:func:`phrase_prompt`).  ``reprefill``: the
     prompt + the 8 decoded tokens prefilled as one sequence, the way a
     preempted request whose snapshot was lost resumes, must give the 8th
-    decode step's logits (dense and paged) through the kernels.  For an MoE
-    model, returns the pairs that capacity dropped in the kernels' dense
-    prefill (:func:`count_drops`)."""
+    decode step's logits (dense and paged) through the kernels.
+    ``recurrent`` (a Mamba model, whose state a prefill carries from chunk
+    to chunk): also, through the kernels, the chunked prefill against one
+    prefill call, each of the 8 decode steps against a prefill of the
+    prompt + the tokens fed so far (the chunked SSD scan) to
+    ``step_tol[0]``, and again with the SSD's decay matrix in float64
+    (:func:`segsum_in_float64`) to ``step_tol[1]``, and the right-padded
+    row 1 against the same row prefilled alone.  ``mutants``: (label, context manager
+    factory) pairs, each a deliberately wrong plain path whose dense logits
+    are read against the plain ones.  Returns a record: the pairs that
+    capacity dropped in the kernels' dense prefill of an MoE model
+    (:func:`count_drops`), the decode-vs-prefill gaps of a recurrent one,
+    each mutant's reading."""
     torch_ops, layers = ns.ops, ns.layers
     model = ns.Model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if params is None:
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
     b, s = len(lengths), max(lengths)
     chunk = chunk or s
     padded = -(-s // chunk) * chunk
@@ -928,24 +1073,34 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
     if int(lengths.min()) <= padded - chunk:
         raise ValueError("every row must end in the last prefill chunk")
 
+    def prefill(rows, step):
+        """The rows' prompts prefilled in ``step``-token resume calls:
+        (the last real token's logits, the cache)."""
+        n = len(rows)
+        cache = ns.init_cache(cfg, n, cache_len, device="cuda")
+        lens = lengths[rows]
+        for c0 in range(0, padded, step):
+            pos = (c0 + torch.arange(step, device="cuda"))[None].expand(
+                n, step)
+            out = model.apply(params, tokens[rows, c0:c0 + step],
+                              mode="prefill", positions=pos, cache=cache,
+                              resume=True, seq_valid=pos < lens[:, None],
+                              window=window,
+                              last_idx=(lens - 1 - c0).clamp(0, step - 1))
+        return out.logits[:, 0], cache
+
     def run(feed, paged):
         """Prefill, then 8 decode steps fed ``feed`` (or, with None, the
         path's own greedy tokens, which are returned): over the dense ring,
         or (``paged``) with the prefilled rows committed to a 16-token-page
         arena and every decode step read through its page table."""
-        cache = ns.init_cache(cfg, b, cache_len, device="cuda")
-        for c0 in range(0, padded, chunk):
-            pos = (c0 + torch.arange(chunk, device="cuda"))[None].expand(
-                b, chunk)
-            out = model.apply(params, tokens[:, c0:c0 + chunk], mode="prefill",
-                              positions=pos, cache=cache, resume=True,
-                              seq_valid=pos < lengths[:, None], window=window,
-                              last_idx=(lengths - 1 - c0).clamp(0, chunk - 1))
-        logits = [out.logits[:, 0]]
+        first, cache = prefill(list(range(b)), chunk)
+        logits = [first]
         kw = {}
         if paged:
             pool = ns.PagedKVPool(cfg, b, cache_len, page_size=16,
-                                  dtype=torch.float32, device="cuda")
+                                  dtype=getattr(torch, cfg.dtype),
+                                  device="cuda")
             slots = [pool.allocate() for _ in range(b)]
             pool.insert_many(slots, [ns.slice_cache_row(cache, i)
                                      for i in range(b)],
@@ -966,29 +1121,30 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
                               window=window, **kw)
             logits.append(out.logits[:, 0])
             pos = pos + 1
-        return torch.stack(logits), toks
+        return torch.stack(logits).float(), toks
 
     def resume_prefill(fed):
-        """Each row's prompt + ``fed`` (its 8 decoded tokens) as one
+        """Each row's prompt + ``fed`` (its first decoded tokens) as one
         sequence, prefilled in one call: the last position's logits."""
-        seq = torch.cat([tokens[:, :s], torch.zeros_like(tokens[:, :8])], 1)
+        n = len(fed)
+        seq = torch.cat([tokens[:, :s], torch.zeros_like(tokens[:, :n])], 1)
         rows = torch.arange(b, device="cuda")
         for i, tok in enumerate(fed):
             seq[rows, lengths + i] = tok
         cache = ns.init_cache(cfg, b, cache_len, device="cuda")
-        pos = torch.arange(s + 8, device="cuda")[None].expand(b, s + 8)
+        pos = torch.arange(s + n, device="cuda")[None].expand(b, s + n)
         return model.apply(params, seq, mode="prefill", positions=pos,
                            cache=cache, resume=True, window=window,
-                           seq_valid=pos < (lengths + 8)[:, None],
-                           last_idx=lengths + 7).logits[:, 0]
+                           seq_valid=pos < (lengths + n)[:, None],
+                           last_idx=lengths + n - 1).logits[:, 0]
 
     kinds = cfg.layer_kinds()
-    log(f"  {cfg.name} float32, {cfg.num_layers} layers "
+    log(f"  {cfg.name} {cfg.dtype}, {cfg.num_layers} layers "
         f"{'+'.join(kinds)} (published widths): prefill {b}x"
         f"{lengths.tolist()}{f' in {chunk}-token chunks' if chunk < s else ''}"
         f"{f', window {window}' if window else ''} over a {cache_len}-slot "
         f"ring + 8 decode steps")
-    drops = []
+    drops, rec = [], {}
     with torch.no_grad():
         with counting_drops(torch, layers, drops):
             kern, fed = run(None, paged=False)
@@ -996,21 +1152,67 @@ def check_model(torch, ns, cfg, *, lengths=(300, 257), cache_len=512,
         with plain_attention(torch_ops):
             plain, _ = run(fed, paged=False)
             paged_plain, _ = run(fed, paged=True)
+            wrong = {}
+            for label, mutant in mutants:
+                with mutant():
+                    wrong[label] = run(fed, paged=False)[0]
         resumed = resume_prefill(fed) if reprefill else None
+        if recurrent:
+            one_call = prefill(list(range(b)), padded)[0]
+            per_step = [resume_prefill(fed[:n]) for n in range(1, 9)]
+            alone = prefill([1], chunk)[0]
+            with segsum_in_float64(torch_ops):
+                kern64, _ = run(fed, paged=False)
+                per_step64 = [resume_prefill(fed[:n]) for n in range(1, 9)]
     torch.cuda.synchronize()
-    compare(torch, "dense, kernels vs plain", kern, plain)
-    compare(torch, "paged, kernels vs plain", paged, paged_plain)
-    compare(torch, "paged vs dense, both through the kernels", paged, kern)
+    compare_fn(torch, "dense, kernels vs plain", kern, plain)
+    compare_fn(torch, "paged, kernels vs plain", paged, paged_plain)
+    compare_fn(torch, "paged vs dense, both through the kernels", paged,
+               kern)
     if reprefill:
-        compare(torch, "re-prefill of prompt + 8 tokens vs decode step 8, "
-                "dense", resumed, kern[8])
-        compare(torch, "re-prefill of prompt + 8 tokens vs decode step 8, "
-                "paged", resumed, paged[8])
+        compare_fn(torch, "re-prefill of prompt + 8 tokens vs decode step "
+                   "8, dense", resumed, kern[8])
+        compare_fn(torch, "re-prefill of prompt + 8 tokens vs decode step "
+                   "8, paged", resumed, paged[8])
+    if recurrent:
+        compare_fn(torch, f"prefill in {chunk}-token chunks vs one call",
+                   kern[0], one_call)
+        gaps = {"as_ported": [], "segsum_float64": []}
+        for n, (want, want64) in enumerate(zip(per_step, per_step64), 1):
+            gaps["as_ported"].append(max_err(torch, kern[n], want))
+            gaps["segsum_float64"].append(max_err(torch, kern64[n], want64))
+            compare_fn(torch, f"decode step {n} vs a prefill of prompt + "
+                       f"{n} tokens", kern[n], want, tol=step_tol[0])
+            compare_fn(torch, f"the same, decay matrix in float64",
+                       kern64[n], want64, tol=step_tol[1])
+        compare_fn(torch, "right-padded row 1 inside the wave vs alone",
+                   kern[0, 1:], alone)
+        rec["decode_vs_prefill"] = gaps
+        log(f"  decode step vs prefill, largest gap as ported "
+            f"{max(gaps['as_ported']):.3e}, with the decay matrix in float64 "
+            f"{max(gaps['segsum_float64']):.3e}")
+    if mutants:
+        scale = plain.abs().max().item()
+        rec["mutants"] = {
+            label: {"max_abs_err": max_err(torch, got, plain),
+                    "rel_to_logit_scale": max_err(torch, got, plain) / scale,
+                    "argmax_agree": int((got.argmax(-1)
+                                         == plain.argmax(-1)).sum()),
+                    "positions": got.shape[0] * got.shape[1]}
+            for label, got in wrong.items()}
+        for label, r in rec["mutants"].items():
+            log(f"  deliberately wrong plain path, {label}: max|Δlogit| "
+                f"{r['max_abs_err']:.3e} ({r['rel_to_logit_scale']:.4f} of "
+                f"the logit scale), argmax equal at {r['argmax_agree']}/"
+                f"{r['positions']}")
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    n_prefill = len(range(0, padded, chunk)) * kinds.count("moe")
-    return sum(drops[:n_prefill]) if "moe" in kinds else None
+    moe_layers = sum(k.endswith("moe") for k in kinds)
+    if moe_layers:
+        rec["dropped"] = sum(drops[:len(range(0, padded, chunk))
+                                   * moe_layers])
+    return rec
 
 
 class CapturingModel:
@@ -1215,27 +1417,24 @@ def image_moves_logits(torch, model, params, init_cache, ctx_len, what):
         raise AssertionError(f"{what}: the image does not reach the logits")
 
 
-def check_vision_model(torch, ops, get_config, Model, init_cache):
-    """5 layers of llama-3.2-vision-90b (4 self-attn + 1 cross-attn) in
-    float32 with images: prefill, the same prefill with the cross KV
-    injected (``cross_cached``), 8 decode steps; kernels vs plain; then a
-    speculative verify round through the cross-attention S > 1 branch
-    (:func:`check_verify`), whose record is returned."""
-    cfg = vision_config(get_config, 5, "float32")
-    model = Model(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    open_gates(torch, params)
-    b, s, cache_len, ctx = 2, 300, 512, CROSS["ctx"]
+def check_cross_model(torch, ops, init_cache, model, params, *, what,
+                      media_kw, draw_media, cache_len=512):
+    """A model with cross-attention in float32: a prefill of 2 rows (300
+    and 257 tokens) over the context ``draw_media(g, b)`` gives (passed as
+    ``media_kw``, with its liveness), the same prefill with the cross KV
+    injected (``cross_cached``), 8 decode steps; kernels vs plain, and the
+    fresh prefill equal to the cross-cached one.  Returns the inputs and
+    the prefill, for the caller's further checks."""
+    cfg = model.cfg
+    b, s = 2, 300
     g = torch.Generator(device="cuda").manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
                            device="cuda")
     lengths = torch.tensor([s, 257], device="cuda")
     seq_valid = torch.arange(s, device="cuda")[None] < lengths[:, None]
     positions = torch.arange(s, device="cuda")[None].expand(b, s)
-    embeds = torch.rand((b, ctx, cfg.vision.embed_dim), generator=g,
-                        device="cuda") * 2 - 1
-    ctx_valid = torch.arange(ctx, device="cuda")[None] < torch.tensor(
-        [[ctx], [ctx // 4]], device="cuda")
+    media, ctx_valid = draw_media(g, b)
+    ctx = ctx_valid.shape[1]
     rows = torch.arange(b, device="cuda")
 
     def prefill(cache, **kw):
@@ -1248,7 +1447,7 @@ def check_vision_model(torch, ops, get_config, Model, init_cache):
         """Fresh prefill, cross-cached prefill, then 8 decode steps fed
         ``feed`` (or the path's own greedy tokens)."""
         fresh = init_cache(cfg, b, cache_len, ctx_len=ctx, device="cuda")
-        logits = [prefill(fresh, image_embeds=embeds)]
+        logits = [prefill(fresh, **{media_kw: media})]
         hit = init_cache(cfg, b, cache_len, ctx_len=ctx, device="cuda")
         for dst, src in zip(
                 hit["prefix"] + list((hit["block"] or {}).values()),
@@ -1268,46 +1467,194 @@ def check_vision_model(torch, ops, get_config, Model, init_cache):
             pos = pos + 1
         return torch.stack(logits), cached, toks
 
-    log(f"  {VISION} float32, {cfg.num_layers} layers "
-        f"{''.join('x' if k == 'xattn' else 'a' for k in cfg.layer_kinds())}"
-        f" (published widths, depth cut), gates {GATE}: prefill {b}x{s} "
-        f"over a {ctx}-slot context, cross-cached prefill, 8 decode steps")
     with torch.no_grad():
         kern, kern_cached, fed = run(None)
         with plain_attention(ops):
             plain, plain_cached, _ = run(fed)
-        image_moves_logits(torch, model, params, init_cache, ctx,
-                           "5-layer float32")
-        cache = init_cache(cfg, b, cache_len, ctx_len=ctx, device="cuda")
-        last = prefill(cache, image_embeds=embeds).argmax(-1)
-        verify = check_verify(torch, model, params, cache, last, lengths,
-                              what=f"{VISION} 5 layers, cross S > 1",
-                              cache_len=cache_len, ctx_valid=ctx_valid)
     torch.cuda.synchronize()
-    compare(torch, "vision, kernels vs plain", kern, plain)
-    compare(torch, "vision cross-cached prefill, kernels vs plain",
+    compare(torch, f"{what}, kernels vs plain", kern, plain)
+    compare(torch, f"{what} cross-cached prefill, kernels vs plain",
             kern_cached, plain_cached)
     same = max_err(torch, kern_cached, kern[0])
     log(f"  fresh vs cross-cached prefill logits through the kernels: "
         f"max|Δ| {same:.3e}")
     if same > 1e-6:
-        raise AssertionError(f"cross-cached prefill differs: {same}")
+        raise AssertionError(f"{what} cross-cached prefill differs: {same}")
+    return types.SimpleNamespace(prefill=prefill, media=media, b=b, ctx=ctx,
+                                 lengths=lengths, ctx_valid=ctx_valid)
+
+
+def check_vision_model(torch, ops, get_config, Model, init_cache):
+    """5 layers of llama-3.2-vision-90b (4 self-attn + 1 cross-attn) in
+    float32 with images through :func:`check_cross_model`; another image
+    must move the logits; then a speculative verify round through the
+    cross-attention S > 1 branch (:func:`check_verify`), whose record is
+    returned."""
+    cfg = vision_config(get_config, 5, "float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    open_gates(torch, params)
+    ctx, cache_len = CROSS["ctx"], 512
+
+    def images(g, b):
+        embeds = torch.rand((b, ctx, cfg.vision.embed_dim), generator=g,
+                            device="cuda") * 2 - 1
+        return embeds, torch.arange(ctx, device="cuda")[None] < torch.tensor(
+            [[ctx], [ctx // 4]], device="cuda")
+
+    log(f"  {VISION} float32, {cfg.num_layers} layers "
+        f"{''.join('x' if k == 'xattn' else 'a' for k in cfg.layer_kinds())}"
+        f" (published widths, depth cut), gates {GATE}: prefill 2x300 "
+        f"over a {ctx}-slot context, cross-cached prefill, 8 decode steps")
+    run = check_cross_model(torch, ops, init_cache, model, params,
+                            what="vision", media_kw="image_embeds",
+                            draw_media=images, cache_len=cache_len)
+    with torch.no_grad():
+        image_moves_logits(torch, model, params, init_cache, ctx,
+                           "5-layer float32")
+        cache = init_cache(cfg, run.b, cache_len, ctx_len=ctx, device="cuda")
+        last = run.prefill(cache, image_embeds=run.media).argmax(-1)
+        verify = check_verify(torch, model, params, cache, last, run.lengths,
+                              what=f"{VISION} 5 layers, cross S > 1",
+                              cache_len=cache_len, ctx_valid=run.ctx_valid)
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return verify
 
 
-def compare(torch, what, got, want, tol=1e-3):
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{what}: non-finite logits")
-    err = max_err(torch, got, want)
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"  {what}: max|Δlogit| {err:.3e} (tol {tol:g}), argmax "
-        f"agreement {agree:.3f}, logit scale "
-        f"{got.abs().max().item():.3e}")
-    if err > tol or agree < 1.0:
-        raise AssertionError(f"{what} disagrees: {err}, {agree}")
+def check_audio_model(torch, ops, get_config, Model, init_cache):
+    """``seamless-m4t-medium`` at full depth (12 encoder + 12 decoder
+    layers) in float32 with random frame embeddings through
+    :func:`check_cross_model`: the fresh prefills run the encoder, the
+    cross-cached ones do not (self and cross attention of the decode steps
+    through the decode kernel)."""
+    cfg = dataclasses.replace(get_config(AUDIO), dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ctx = cfg.audio.num_frames
+    encoded = []
+    real_encode = model.encode_audio
+
+    def counted_encode(*a):
+        encoded.append(1)
+        return real_encode(*a)
+
+    object.__setattr__(model, "encode_audio", counted_encode)
+
+    def frames(g, b):
+        return (torch.randn((b, ctx, cfg.audio.embed_dim), generator=g,
+                            device="cuda"),
+                torch.ones((b, ctx), dtype=torch.bool, device="cuda"))
+
+    log(f"  {AUDIO} float32, {cfg.audio.encoder_layers} encoder + "
+        f"{cfg.num_layers} decoder layers (published widths, full depth): "
+        f"prefill 2x[300, 257] over {ctx} encoder frames, cross-cached "
+        f"prefill, 8 decode steps")
+    check_cross_model(torch, ops, init_cache, model, params, what="audio",
+                      media_kw="audio_frames", draw_media=frames)
+    if len(encoded) != 2:
+        raise AssertionError(f"the encoder ran {len(encoded)} times for 2 "
+                             "fresh and 2 cross-cached prefills")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def jamba_config(get_config):
+    """``jamba-1.5-large-398b`` at published widths in bf16, depth cut to
+    5 layers: ssm, ssm_moe, ssm, ssm_moe, attn (one of each kind)."""
+    return dataclasses.replace(get_config(JAMBA), num_layers=JAMBA_LAYERS,
+                               dtype="bfloat16")
+
+
+def near_tie_compare(rel, records):
+    """A bf16 comparison for :func:`check_model`: logits within ``rel``
+    times the largest reference logit, and the argmax equal wherever the
+    reference's top-2 gap exceeds that tolerance (the positions under it
+    are counted); each comparison's record goes to ``records``."""
+    def cmp(torch, what, got, want, tol=None):
+        scale = want.abs().max().item()
+        limit = rel * scale
+        err = max_err(torch, got, want)
+        top2 = want.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]
+        agree = got.argmax(-1) == want.argmax(-1)
+        rec = records[what] = {
+            "max_abs_err": err, "tol": limit, "tol_rel": rel,
+            "logit_scale": scale, "positions": agree.numel(),
+            "argmax_agree": int(agree.sum()),
+            "near_ties": int((gap <= limit).sum()),
+            "argmax_disagree_past_tol": int((~agree & (gap > limit)).sum())}
+        log(f"  {what}: max|Δlogit| {err:.3e} (tol {limit:.3e} = {rel:g} x "
+            f"the largest logit {scale:.3e}), argmax equal at "
+            f"{rec['argmax_agree']}/{rec['positions']} positions, "
+            f"{rec['near_ties']} with a top-2 gap <= tol, "
+            f"{rec['argmax_disagree_past_tol']} disagreeing past it")
+        if err > limit or rec["argmax_disagree_past_tol"] or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what}: {rec}")
+    return cmp
+
+
+def check_jamba_model(torch, ns, cfg, params):
+    """The 5-layer jamba in bf16 (float32 needs ~96 GB) through
+    :func:`check_model` (2 rows of 300 and 257 tokens, one a repeated
+    phrase, in 256-token chunks, 8 decode steps, dense ring and pages,
+    kernels against plain versions) held by :func:`near_tie_compare` at
+    :data:`JAMBA_TOL`; two deliberately wrong plain paths read against the
+    same limit (a 2 % and a 25 % softmax scale error in the attention
+    layer, read; its input rmsnorm skipped, which the limit must catch).  Then one served prefill wave's memory.
+    Returns the record, with the (token, expert) pairs capacity dropped in
+    the kernels' prefill."""
+    attn_norm = input_norm_index(cfg, cfg.layer_kinds().index("attn"))
+    per_forward = rmsnorm_per_forward(cfg)
+    compared = {}
+    rec = check_model(
+        torch, ns, cfg, chunk=256, phrase_row=True, params=params,
+        compare_fn=near_tie_compare(JAMBA_TOL, compared),
+        mutants=(("softmax scale x 1.02",
+                  lambda: scaled_queries(ns.ops, 1.02)),
+                 ("softmax scale x 1.25",
+                  lambda: scaled_queries(ns.ops, 1.25)),
+                 (SKIPPED_NORM,
+                  lambda: skipped_norm(ns.ops, attn_norm, per_forward))))
+    rec["compared"] = compared
+    for label, r in rec["mutants"].items():
+        r["caught"] = r["max_abs_err"] > JAMBA_TOL * compared[
+            "dense, kernels vs plain"]["logit_scale"]
+    log(f"  {JAMBA}: capacity dropped {rec['dropped']} (token, expert) "
+        f"pairs in the prefill; wrong paths past the limit: "
+        f"{ {k: r['caught'] for k, r in rec['mutants'].items()} }")
+    if not rec["mutants"][SKIPPED_NORM]["caught"]:
+        raise AssertionError("the jamba limit does not see a skipped norm")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    model = ns.Model(cfg)
+    # one full prefill wave of the served shape (8 rows x 512 tokens over a
+    # 2048-slot cache), through the kernels: its memory above the weights
+    cache = ns.init_cache(cfg, 8, 2048, device="cuda")
+    wave = torch.randint(0, cfg.vocab_size, (8, 512), generator=g,
+                         device="cuda")
+    pos = torch.arange(512, device="cuda")[None].expand(8, 512)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        model.apply(params, wave, mode="prefill", positions=pos, cache=cache,
+                    resume=True,
+                    seq_valid=torch.ones_like(wave, dtype=torch.bool),
+                    last_idx=torch.full((8,), 511, device="cuda"))
+    torch.cuda.synchronize()
+    rec["wave_8x512_peak_gib_over_resident"] = (
+        torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"  one 8 x 512 prefill wave: peak "
+        f"{rec['wave_8x512_peak_gib_over_resident']:.3f} GiB above the "
+        f"{base / 2**30:.2f} GiB resident (weights + its 8-row cache)")
+    del cache
+    if not rec["dropped"]:
+        raise AssertionError("the jamba prefill dropped no pair: the "
+                             "capacity path did not run")
+    return rec
 
 
 # --------------------------------------------------------------------------- #
@@ -1408,22 +1755,38 @@ def shared_prompt_chats():
 
 def check_serving(torch, get_config, InferenceEngine, EngineClient,
                   OpenAIServer, ApiServer, wrappers, *, bodies, rounds=2,
-                  profile=True, arch="qwen2-0.5b", profile_ops=False,
-                  params=None, responses=None, **engine_kw):
+                  profile=True, arch="qwen2-0.5b", profile_ops=None,
+                  params=None, responses=None, cfg=None, requests=None,
+                  ordered=False, **engine_kw):
     """Serve ``arch`` (bf16, published widths, seeded random weights) and
     ``bodies`` ``rounds`` times (the first takes the first-call costs; the
     last is the counted one) and once more under the profiler
-    (``profile_ops``: then the engine alone once more, see
-    :func:`profile_moe_ops`).  ``wrappers`` maps each kernel's name to its
-    CUDA wrapper, whose ``launches`` count is zeroed just before the
-    counted round and read just after.  ``params``: the model's weights,
+    (``profile_ops``: then the engine alone once more, through the callable
+    ``profile_ops(torch, engine, bodies)``).  ``wrappers`` maps each
+    kernel's name to its CUDA wrapper, whose ``launches`` count is zeroed
+    just before the counted round and read just after.  ``params``: the model's weights,
     made by the engine from its seed when None.  ``responses``: a list the
-    counted round's responses go to.  Returns (launches, serve record,
-    /stats after the counted round, engine layers)."""
+    counted round's responses go to.  ``cfg``: the model's config when
+    not ``get_config(arch)`` (a depth cut).  ``requests``: a list every
+    round's engine requests go to, in arrival order.  ``ordered``: each
+    round's bodies reach the engine one after another in their order while
+    its loop is held (:func:`hold_engine`), which is released once all are
+    queued, so the first step sees every request and the waves and decode
+    steps follow the bodies alone, not the client threads' timing.
+    Returns (launches, serve record, /stats after the counted round,
+    engine layers)."""
     t0 = time.perf_counter()
-    engine = InferenceEngine(get_config(arch), params, device="cuda",
+    engine = InferenceEngine(cfg or get_config(arch), params, device="cuda",
                              max_batch=8, cache_len=2048, prefill_chunk=512,
                              seed=0, **engine_kw)
+    seen = [] if requests is None else requests
+    real_add = engine.add_request
+
+    def add_request(req):
+        seen.append(req)
+        return real_add(req)
+    engine.add_request = add_request
+    gate = hold_engine(engine) if ordered else None
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     client = EngineClient(engine)
@@ -1448,8 +1811,16 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
         t0 = time.perf_counter()
         threads = [threading.Thread(target=one, args=(i,))
                    for i in range(len(bodies))]
+        if gate is not None:
+            gate.clear()
         for t in threads:
+            queued = len(seen)
             t.start()
+            if gate is not None:
+                wait_for(lambda: len(seen) > queued, "a request queued",
+                         timeout=60, phase="ordered round")
+        if gate is not None:
+            gate.set()
         for t in threads:
             t.join(timeout=600)
         torch.cuda.synchronize()
@@ -1480,8 +1851,9 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
     finally:
         server.stop()
         client.stop()
-    if profile_ops:
-        prof["engine_alone"] = profile_moe_ops(torch, engine, bodies[:6])
+    if profile_ops is not None:
+        prof = prof or {}
+        prof["engine_alone"] = profile_ops(torch, engine, bodies[:6])
     stats = {k: after[k] - before[k] for k in
              ("retired", "aborted", "prefill_waves", "device_steps")}
     spec = ({k: after["speculation"][k] - before["speculation"][k]
@@ -1505,7 +1877,9 @@ def check_serving(torch, get_config, InferenceEngine, EngineClient,
              "prefill_waves": stats["prefill_waves"],
              "decode_steps": stats["device_steps"], "launches": launches,
              "max_batch": 8, "cache_len": 2048, "dtype": "bfloat16",
-             **engine_kw, "profiled_round": prof}
+             **engine_kw, "profiled_round": prof,
+             "prefix_evictions": (engine.prefix_cache.stats.evictions
+                                  if engine.prefix_cache else None)}
     if spec is not None:
         serve["speculation"] = spec
     # the engine and the client refer to each other: collect the cycle so
@@ -1862,6 +2236,379 @@ def check_spec_launcher(torch, serve_mod):
     log(f"  4i-d: launcher --spec-mode ngram served {len(bodies)} requests "
         f"(one streamed), {n} completion tokens; /stats speculation {spec}")
     return {"completion_tokens": n, "speculation": spec}
+
+
+# --------------------------------------------------------------------------- #
+# phase 4m / 4n: the recurrent and audio families
+# --------------------------------------------------------------------------- #
+def layer_norms(cfg, kind) -> int:
+    """rmsnorm launches of one layer of ``kind`` in a forward, in order:
+    one before self-attention and one before an audio decoder's
+    cross-attention (or an ``xattn`` layer's), two in a Mamba block (its
+    input norm and the gated norm), one before the MoE or the MLP."""
+    return ((2 if kind.startswith("ssm") else 1)
+            + (cfg.family == "audio" and kind in ("attn", "moe"))
+            + (kind.endswith("moe") or cfg.d_ff > 0))
+
+
+def rmsnorm_per_forward(cfg, encoder=False) -> int:
+    """rmsnorm launches of one forward: :func:`layer_norms` of each layer,
+    then the final norm.  ``encoder``: the audio encoder's 2 a layer and
+    ``enc_ln`` as well."""
+    n = 1 + sum(layer_norms(cfg, kind) for kind in cfg.layer_kinds())
+    if encoder:
+        n += 2 * cfg.audio.encoder_layers + 1
+    return n
+
+
+def input_norm_index(cfg, layer) -> int:
+    """The place of layer ``layer``'s input norm among a decoder forward's
+    rmsnorm calls."""
+    return sum(layer_norms(cfg, kind) for kind in cfg.layer_kinds()[:layer])
+
+
+def attention_layers(cfg) -> int:
+    return sum(k in ("attn", "moe") for k in cfg.layer_kinds())
+
+
+SSM_OPS = ("ssd_scan", "ssd_decode_step", "causal_conv")
+
+
+def profile_ssm_ops(torch, engine, bodies) -> dict:
+    """The engine alone, in this thread, serving the prompts of ``bodies``
+    greedily under ``torch.profiler`` with the host's operators traced:
+    the device time under the chunked SSD scan, the SSD decode step and the
+    causal conv (each wrapped in a ``record_function`` for this round), of
+    the matrix-product kernels and of the rmsnorm kernel, each as a share
+    of all device time, and the device's busy share of the wall time."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.request import Request, SamplingParams
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+
+    def traced(name, fn):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    saved = (ops.ssd, ops.ssd_decode_step, layers._causal_conv)
+    ops.ssd = traced("ssd_scan", saved[0])
+    ops.ssd_decode_step = traced("ssd_decode_step", saved[1])
+    layers._causal_conv = traced("causal_conv", saved[2])
+    tok = engine.tokenizer
+    reqs = [Request(prompt_tokens=tok.encode(prompt_text(kind, body)),
+                    sampling=SamplingParams(max_tokens=body["max_tokens"]))
+            for kind, body in bodies]
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.generate(reqs)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.ssd, ops.ssd_decode_step, layers._causal_conv = saved
+    device_us = 0.0
+    part = {k: 0.0 for k in (*SSM_OPS, "gemm", "rmsnorm")}
+    kernels = []
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            if ev.key in SSM_OPS:
+                # a record_function range also shows as a device annotation
+                # spanning its kernels: counted by its host event instead
+                continue
+            device_us += ev.self_device_time_total
+            kernels.append((ev.self_device_time_total, ev.count, ev.key))
+            if any(w in ev.key for w in GEMM_KERNEL_WORDS):
+                part["gemm"] += ev.self_device_time_total
+            elif "rmsnorm" in ev.key:
+                part["rmsnorm"] += ev.self_device_time_total
+        elif ev.key in SSM_OPS:
+            part[ev.key] += ev.device_time_total
+    if device_us <= 0 or part["ssd_scan"] <= 0 or part["rmsnorm"] <= 0 \
+            or sum(part.values()) > device_us:
+        raise RuntimeError(f"the engine-alone profile recorded {device_us} "
+                           f"us of device time, {part} by part")
+    out = {"wall_s": wall, "device_busy_share": device_us / 1e6 / wall,
+           "completion_tokens": sum(len(r.output_tokens) for r in reqs),
+           **{f"{k}_share_of_device": v / device_us for k, v in part.items()}}
+    log("  engine alone, host operators traced: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
+    top = sorted(kernels, reverse=True)[:8]
+    out["top_kernels"] = [{"kernel": k[:90], "launches": n,
+                           "share_of_device": us / device_us}
+                          for us, n, k in top]
+    for row in out["top_kernels"]:
+        log(f"    {row['share_of_device']:.4f} of device, {row['launches']} "
+            f"launches: {row['kernel']}")
+    return out
+
+
+def by_prompt(reqs, n):
+    """The requests of each round of ``n`` bodies, keyed by prompt."""
+    return [{tuple(r.prompt_tokens): r for r in reqs[i:i + n]}
+            for i in range(0, len(reqs) - len(reqs) % n, n)]
+
+
+def check_ssm_serving(torch, serving, arch, cfg, params, *, what,
+                      require_equal, profile_fn=None):
+    """4m-a / 4m-c: ``cfg`` (bf16, seeded random weights) serving 4a's 12
+    bodies over HTTP twice, on the dense ring and then on 16-token fp
+    pages, prefix cache on, each round's bodies queued in their order
+    (``check_serving``'s ``ordered``), so the two layouts run the same
+    waves and decode steps; with ``profile_fn``, the dense engine alone
+    once more under the profiler (:func:`profile_ssm_ops`).  Launches of
+    the counted round: each attention kernel once per attention layer per
+    decode step (the layout's decode kernel) or prefill wave (flash), the
+    other decode kernel never, and rmsnorm :func:`rmsnorm_per_forward` a
+    forward.  Each request's tokens on the two layouts, round by round:
+    those that took no prefix hit in either run must be equal when
+    ``require_equal`` (else a reading); a request with a hit is listed
+    with its hit lengths (the reference's recurrent-state quirk shows
+    there)."""
+    bodies = serve_requests()
+    attn = attention_layers(cfg)
+    runs, rec = {}, {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(kv_layout="paged", kv_page_size=16))):
+        reqs = []
+        launches, serve, stats, _ = check_serving(
+            *serving, bodies=bodies, arch=arch, cfg=cfg, params=params,
+            profile=False,
+            profile_ops=profile_fn if layout == "dense" else None,
+            requests=reqs, ordered=True, **kw)
+        used, unused = (("paged_attention", "decode_attention")
+                        if layout == "paged" else
+                        ("decode_attention", "paged_attention"))
+        forwards = serve["decode_steps"] + serve["prefill_waves"]
+        want = {used: attn * serve["decode_steps"],
+                "flash_attention": attn * serve["prefill_waves"], unused: 0,
+                "rmsnorm": rmsnorm_per_forward(cfg) * forwards}
+        if any(launches[k] != v for k, v in want.items()) or \
+                not launches["rmsnorm"]:
+            raise AssertionError(f"{what} {layout}: launches {launches}, "
+                                 f"want {want}")
+        log(f"  {layout}: launches {launches} = {want} "
+            f"({rmsnorm_per_forward(cfg)} rmsnorm a forward); prefix cache "
+            f"{stats['prefix_cache']}, {serve['prefix_evictions']} entries "
+            "evicted over both rounds")
+        if layout == "paged":
+            pages = stats["kv_pages"]
+            log(f"  kv pages {pages}")
+            if pages["pinned"] or pages["full_copies"] or \
+                    pages["free"] + pages["reclaimable"] != pages["total"]:
+                raise AssertionError(f"{what} paged: pages {pages}")
+            serve["kv_pages"] = pages
+        serve["prefix_cache"] = stats["prefix_cache"]
+        runs[layout] = by_prompt(reqs, len(bodies))
+        rec[layout] = serve
+    same, hits, compared = 0, [], 0
+    for rnd, (dense, paged) in enumerate(zip(runs["dense"], runs["paged"])):
+        for key, d in dense.items():
+            p = paged[key]
+            eq = d.output_tokens == p.output_tokens
+            if d.cached_prefix_len or p.cached_prefix_len:
+                hits.append({"round": rnd, "prompt_tokens": len(key),
+                             "hit_dense": d.cached_prefix_len,
+                             "hit_paged": p.cached_prefix_len,
+                             "tokens_equal": eq})
+                continue
+            compared += 1
+            same += eq
+    rec["no_hit_requests"] = compared
+    rec["no_hit_tokens_equal"] = same
+    rec["with_hit"] = hits
+    log(f"  dense vs paged over HTTP, the counted round's waves / decode "
+        f"steps {rec['dense']['prefill_waves']} / "
+        f"{rec['dense']['decode_steps']} and "
+        f"{rec['paged']['prefill_waves']} / {rec['paged']['decode_steps']}; "
+        f"tokens, rounds 1-2: {same}/{compared} equal among requests with "
+        f"no prefix hit in either run; with a hit: {hits}")
+    if require_equal and same != compared:
+        raise AssertionError(f"{what}: dense and paged tokens differ for "
+                             f"{compared - same} requests with no prefix "
+                             "hit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_ssm_preemption(torch, ns, wrappers, cfg, params):
+    """4m-b: ``cfg`` (bf16) with ``max_batch`` 1, EDF and preemption, the
+    prefix cache off (so only the snapshot is tested), dense ring and
+    16-token pages: the urgent request evicts the batch one and finishes
+    first; the batch request resumes from its snapshot (``conv``/``state``
+    copied out and back) with tokens identical to the same engine's FIFO
+    run.  Launches: no attention kernel, rmsnorm a forward's count."""
+    out = {}
+    per = rmsnorm_per_forward(cfg)
+    for layout in ("dense", "paged"):
+        kw = dict(device="cuda", max_batch=1, cache_len=2048,
+                  enable_prefix_cache=False, kv_layout=layout,
+                  kv_page_size=16)
+        fifo = ns.InferenceEngine(cfg, params, sched_policy="fifo", **kw)
+        fb, fu, _ = run_preempt_scenario(fifo, ns.Request, ns.SamplingParams,
+                                         batch_tokens=BATCH_PROMPT)
+        engine = ns.InferenceEngine(cfg, params, sched_policy="edf",
+                                    preemption=True, **kw)
+        for w in wrappers.values():
+            w.launches = 0
+        b, u, _ = run_preempt_scenario(engine, ns.Request, ns.SamplingParams,
+                                       batch_tokens=BATCH_PROMPT)
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        st = engine.scheduler.stats
+        same = (b.output_tokens == fb.output_tokens
+                and u.output_tokens == fu.output_tokens)
+        want = {"rmsnorm": per * (st.device_steps + st.prefill_waves),
+                "flash_attention": 0, "decode_attention": 0,
+                "paged_attention": 0}
+        log(f"  {layout}, prefix cache off: preemptions {st.preemptions}, "
+            f"resumed {st.resumed}, urgent first "
+            f"{u.finish_time < b.finish_time}, batch tokens identical to "
+            f"FIFO {same} ({b.num_generated}), launches {launches}")
+        if not (st.preemptions >= 1 and st.resumed >= 1 and same
+                and u.finish_time < b.finish_time):
+            raise AssertionError(f"4m-b {layout}: preemption broke")
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"4m-b {layout}: launches {launches}, want "
+                                 f"{want}")
+        out[layout] = {"preemptions": st.preemptions, "resumed": st.resumed,
+                       "identical_to_fifo": same, "launches": launches,
+                       "decode_steps": st.device_steps,
+                       "prefill_waves": st.prefill_waves}
+        del fifo, engine
+    return out
+
+
+def audio_requests(ns, tok, wave, n, seed):
+    """``n`` requests sharing ``wave``, each with its own short prompt."""
+    return [ns.Request(prompt_tokens=tok.encode(f"transcribe {seed}-{i}"),
+                       sampling=ns.SamplingParams(max_tokens=12), audio=wave)
+            for i in range(n)]
+
+
+def check_audio_serving(torch, ns, wrappers, cfg, params):
+    """4n: ``seamless-m4t-medium`` (bf16, full depth) on the engine, dense
+    ring then 16-token fp pages (the reference has no audio on its HTTP
+    surface), prefix and content caches on.  After a warm-up request:
+    (a) 8 concurrent requests with one new waveform cost exactly one
+    encoder invocation, the other 7 joining it in flight or hitting its
+    embedding; launches counted over the round: flash 2 x 12 a prefill
+    wave (decoder self- and cross-attention) + 12 in each wave that encodes
+    fresh audio (the encoder), the decode step's self-attention on the
+    layout's kernel and its cross-attention on the decode kernel (12 each
+    a step), rmsnorm a forward's count (+ the encoder's in a fresh wave);
+    (b) a cold request alone with another new waveform, then its warm
+    repeat: identical tokens, 1 embedding hit, 1 cross-KV hit, no encoder
+    call, no encoder flash launch; TTFT cold vs warm read.  The tokens
+    must be equal across the layouts."""
+    import numpy as np
+    out, tokens = {}, {}
+    layers_ = cfg.num_layers
+    enc = cfg.audio.encoder_layers
+    per = rmsnorm_per_forward(cfg)
+    per_enc = rmsnorm_per_forward(cfg, encoder=True) - per
+    rng = np.random.default_rng(7)
+    warm_wave, wave, solo_wave = (
+        rng.standard_normal(16000).astype(np.float32) for _ in range(3))
+    for layout in ("dense", "paged"):
+        torch.cuda.reset_peak_memory_stats()
+        engine = ns.InferenceEngine(
+            cfg, params, device="cuda", max_batch=8, cache_len=2048,
+            prefill_chunk=512, seed=0, kv_layout=layout, kv_page_size=16,
+            vision_work_iters=1)
+        tok = engine.tokenizer
+        engine.generate(audio_requests(ns, tok, warm_wave, 1, "warm"))
+        waves = []
+        real = engine._prefill
+
+        def prefill(*a, real=real, waves=waves, **k):
+            waves.append(a[-1])                 # cross_cached
+            return real(*a, **k)
+        engine._prefill = prefill
+        ms = engine.media_stats
+        m0 = dict(vars(ms))
+        for w in wrappers.values():
+            w.launches = 0
+        st = engine.scheduler.stats
+        s0 = (st.device_steps, st.prefill_waves)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cold = audio_requests(ns, tok, wave, 8, 0)
+        engine.generate(cold)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        steps, nwaves = (st.device_steps - s0[0], st.prefill_waves - s0[1])
+        fresh = sum(not c for c in waves)
+        dm = {k: v - m0[k] for k, v in vars(ms).items()}
+        used = "paged_attention" if layout == "paged" else "decode_attention"
+        want = {"flash_attention": 2 * layers_ * nwaves + enc * fresh,
+                "rmsnorm": per * (steps + nwaves) + per_enc * fresh}
+        if layout == "paged":
+            want.update(paged_attention=layers_ * steps,
+                        decode_attention=layers_ * steps)
+        else:
+            want.update(decode_attention=2 * layers_ * steps,
+                        paged_attention=0)
+        done = sum(len(r.output_tokens) for r in cold)
+        log(f"  {layout} (a) 8 requests, one new waveform: encoder calls "
+            f"{dm['encoder_invocations']}, dedup joins {dm['dedup_joins']}, "
+            f"embedding hits {dm['embed_hits']}, cross-KV misses "
+            f"{dm['xkv_misses']}; {nwaves} prefill waves ({fresh} encoding "
+            f"fresh audio), {steps} decode steps, {done} tokens in "
+            f"{wall:.3f} s; launches {launches} (want {want})")
+        if dm["encoder_invocations"] != 1 or \
+                dm["dedup_joins"] + dm["embed_hits"] != 7 or \
+                any(r.finish_reason is None or r.error for r in cold):
+            raise AssertionError(f"4n {layout} (a): media {dm}")
+        if any(launches[k] != v for k, v in want.items()) or not fresh:
+            raise AssertionError(f"4n {layout} (a): launches {launches}, "
+                                 f"want {want}")
+        solo = audio_requests(ns, tok, solo_wave, 1, 1)
+        engine.generate(solo)
+        waves.clear()
+        m1 = dict(vars(ms))
+        for w in wrappers.values():
+            w.launches = 0
+        repeat = audio_requests(ns, tok, solo_wave, 1, 1)
+        engine.generate(repeat)
+        torch.cuda.synchronize()
+        dm2 = {k: v - m1[k] for k, v in vars(ms).items()}
+        same = repeat[0].output_tokens == solo[0].output_tokens
+        fla_launches = wrappers["flash_attention"].launches
+        log(f"  {layout} (b) warm repeat: tokens identical {same}, media "
+            f"{ {k: v for k, v in dm2.items() if v} }, flash launches "
+            f"{fla_launches} over {len(waves)} waves (cross-cached "
+            f"{sum(waves)}), TTFT cold {solo[0].ttft:.4f} s vs warm "
+            f"{repeat[0].ttft:.4f} s")
+        if not (same and dm2["embed_hits"] == 1 and dm2["xkv_hits"] == 1
+                and dm2["encoder_invocations"] == 0 and all(waves)
+                and fla_launches == 2 * layers_ * len(waves)):
+            raise AssertionError(f"4n {layout} (b): tokens identical {same}, "
+                                 f"media {dm2}, waves {waves}, flash "
+                                 f"{fla_launches}")
+        tokens[layout] = [r.output_tokens for r in cold + solo]
+        out[layout] = {"media": dm, "warm_media": dm2, "launches": launches,
+                       "prefill_waves": nwaves, "fresh_waves": fresh,
+                       "decode_steps": steps, "completion_tokens": done,
+                       "wall_s": wall, "tokens_per_s": done / wall,
+                       "ttft_cold_s": solo[0].ttft,
+                       "ttft_warm_s": repeat[0].ttft,
+                       "peak_mem_gib":
+                           torch.cuda.max_memory_allocated() / 2**30}
+        del engine, prefill
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["tokens_equal_across_layouts"] = tokens["dense"] == tokens["paged"]
+    log(f"  dense vs paged tokens equal: {out['tokens_equal_across_layouts']}")
+    if not out["tokens_equal_across_layouts"]:
+        raise AssertionError("4n: dense and paged tokens differ")
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -2771,6 +3518,10 @@ def profile_moe_ops(torch, engine, bodies) -> dict:
     return out
 
 
+# words in the names of cuBLAS's matrix-product kernels
+GEMM_KERNEL_WORDS = ("gemm", "gemv", "xmma", "cutlass", "nvjet")
+
+
 def profile_round(torch, send_all):
     """One more round of the same mix under ``torch.profiler`` (device
     activity only), its responses checked like the other rounds': device
@@ -2788,7 +3539,8 @@ def profile_round(torch, send_all):
              "paged_attention": ("paged_attention_kernel",
                                  "paged_attention_mma_kernel",
                                  "PagedCaller"),
-             "gemm": ("gemm", "xmma", "cutlass", "nvjet"),
+             "rmsnorm": ("rmsnorm",),
+             "gemm": GEMM_KERNEL_WORDS,
              "memcpy_memset": ("Memcpy", "Memset")}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, wall = send_all()
@@ -4424,7 +5176,7 @@ def main() -> int:
     verify3["vision"] = check_vision_model(torch, ops, get_config, Model,
                                            init_cache)
     moe3 = f32(MOE, num_layers=3)
-    drops = check_model(torch, ns3, moe3, phrase_row=True)
+    drops = check_model(torch, ns3, moe3, phrase_row=True)["dropped"]
     log(f"  {MOE} prefill: capacity factor {moe3.moe.capacity_factor} "
         f"dropped {drops} (token, expert) pairs over its 2 MoE layers")
     if not drops:
@@ -4434,6 +5186,16 @@ def main() -> int:
         check_model(torch, ns3, f32(name, num_layers=2))
     check_model(torch, ns3, f32("glm4-9b", num_layers=2), lengths=(600, 517),
                 cache_len=256, chunk=256, window=256)
+    ssm3 = {}
+    for depth, tol in ((2, MAMBA_STEP_TOL_2), (None, MAMBA_STEP_TOL)):
+        log(f"  -- {MAMBA}, {f'cut to {depth} layers' if depth else 'full depth'}"
+            ": 256-token resume chunks and a ragged tail, decode steps "
+            "against prefills, a padded row against itself alone, dense "
+            "against paged, re-prefill against decode step 8")
+        ssm3[f"{depth or 48}_layers"] = check_model(
+            torch, ns3, f32(MAMBA, **({"num_layers": depth} if depth else {})),
+            chunk=256, reprefill=True, recurrent=True, step_tol=tol)
+    check_audio_model(torch, ops, get_config, Model, init_cache)
 
     serving = (torch, get_config, InferenceEngine, EngineClient, OpenAIServer,
                ApiServer, wrappers)
@@ -4491,7 +5253,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
     moe_dense_launches, moe_dense, _, moe_layers = check_serving(
         *serving, bodies=serve_requests(), arch=MOE, params=moe_params,
-        profile_ops=True)
+        profile_ops=profile_moe_ops)
     require_launches(moe_dense_launches, moe_dense, moe_layers,
                      decode_kernel="decode_attention",
                      unused="paged_attention")
@@ -4541,6 +5303,53 @@ def main() -> int:
         "its plain version")
     sampled = check_sampled_round(torch, ns, wrappers, qwen_params)
     del qwen_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    m4 = {}
+    jcfg = jamba_config(get_config)
+    t0 = time.perf_counter()
+    jamba_params = Model(jcfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    m4["jamba_init_s"] = time.perf_counter() - t0
+    log(f"== 3j. {JAMBA} at published widths, {JAMBA_LAYERS} layers, bf16 "
+        f"(phase 3's check, run here to draw the weights once for 4m-c): "
+        f"{sum(t.numel() for t in tree_leaves(jamba_params)) / 1e9:.2f} B "
+        f"parameters drawn in {m4['jamba_init_s']:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    m4["jamba_phase3"] = check_jamba_model(torch, ns3, jcfg, jamba_params)
+    log(f"== 4m-c. serving {JAMBA} ({JAMBA_LAYERS} layers, bf16) over HTTP, "
+        "dense KV, then paged KV (fp pages)")
+    m4["c_jamba"] = check_ssm_serving(torch, serving, JAMBA, jcfg,
+                                      jamba_params, what="4m-c",
+                                      require_equal=False)
+    del jamba_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    mcfg = get_config(MAMBA)
+    mamba_params = Model(mcfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    log(f"== 4m-a. serving {MAMBA} (48 layers, bf16) over HTTP, dense KV, "
+        "then paged KV (fp pages)")
+    m4["a_mamba"] = check_ssm_serving(torch, serving, MAMBA, mcfg,
+                                      mamba_params, what="4m-a",
+                                      require_equal=True,
+                                      profile_fn=profile_ssm_ops)
+    log(f"== 4m-b. policy preemption on {MAMBA} (bf16), max_batch 1, EDF, "
+        "prefix cache off: the snapshot restores conv/state")
+    m4["b_preemption"] = check_ssm_preemption(torch, ns, wrappers, mcfg,
+                                              mamba_params)
+    del mamba_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    acfg = get_config(AUDIO)
+    audio_params = Model(acfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    log(f"== 4n. serving {AUDIO} (12 + 12 layers, bf16) on the engine: one "
+        "waveform shared by 8 requests, a warm repeat, dense KV then paged "
+        "KV (fp pages)")
+    n4 = check_audio_serving(torch, ns, wrappers, acfg, audio_params)
+    del audio_params
     gc.collect()
     torch.cuda.empty_cache()
     log("== 4h-c. admission control over HTTP (launcher-built servers)")
@@ -4617,13 +5426,21 @@ def main() -> int:
                                        "paged": moe_paged_launches[name]},
                 "pressure_round_launches":
                     pressure["pressure"]["launches"][name]}
-               if name not in ("quant_matmul", "categorical") else {})})
+               if name not in ("quant_matmul", "categorical") else {}),
+            "ssm_round_launches": {
+                f"{m}_{layout}": m4[k][layout]["launches"][name]
+                for m, k in (("mamba", "a_mamba"), ("jamba", "c_jamba"))
+                for layout in ("dense", "paged")},
+            "audio_round_launches": {layout: n4[layout]["launches"][name]
+                                     for layout in ("dense", "paged")}})
     serve = {"dense": dense, "paged": paged, "paged_int8": int8_round,
              "media_dense": media_dense, "media_paged": media_paged,
              "moe_dense": moe_dense, "moe_paged": moe_paged,
              "moe_init_s": moe_init_s,
              "policy_preemption": policy_preempt, "pressure": pressure,
-             "admission": admission, "j4": j4, "k4": k4,
+             "admission": admission, "j4": j4, "k4": k4, "m4": m4,
+             "mamba_phase3": ssm3,
+             "n4": n4,
              "threefry_card_vs_cpu": threefry, "sampler_step": sampler_step,
              "categorical_check": cat_check, "sampled": sampled,
              "card": card, "smoke_s": time.perf_counter() - t_start}

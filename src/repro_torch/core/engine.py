@@ -1,10 +1,11 @@
 """The inference engine of the port: continuous batching over a dense ring
 KV cache or a paged arena with copy-on-write prefix sharing, with a
 device-resident K-step decode block, a chunked, batched prefill pipeline,
-the text prefix cache (paper Alg.2) for dense and MoE models and, for
-vision models, batched encode waves with in-flight dedup and the content
-cache (paper Alg.3) — the reference package's ``core/engine.py`` less what
-the port queue still holds, in eager PyTorch.
+the text prefix cache (paper Alg.2) and, for vision and audio models,
+batched encode waves with in-flight dedup and the content cache (paper
+Alg.3) — the reference package's ``core/engine.py`` in eager PyTorch, for
+every family it serves: dense, MoE, vision, Mamba-2 SSM, the Mamba +
+attention hybrid and the audio encoder-decoder.
 
 Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
 
@@ -101,9 +102,15 @@ slots as exact-sequence entries and aborts the rest;
 :meth:`export_handoff` / :meth:`import_handoff` move every open request to
 another engine (live text slots as dense snapshots, the rest re-prefill).
 
-Not ported yet (refused with ``NotImplementedError`` naming the ROADMAP
-item): audio models.  The router, the ASGI transport, SSM models,
-training and distribution are not ported either.
+Recurrent families (``ssm``/``ssm_moe`` layers) carry ``conv``/``state``
+per slot beside the KV cache — dense on both layouts, in every snapshot,
+handoff record and prefix-cache value — and refuse speculation, as the
+reference does.  A prefix-cache value keeps the recurrent leaves at the
+value's own length while a hit resumes at a shorter block boundary, as in
+the reference (``ROADMAP.md`` §3, quirks kept).  An audio request's
+waveform goes through the encode waves and the content cache as an image
+does; its embedding feeds the model's encoder stack.  Training and
+distribution are not ported.
 """
 from __future__ import annotations
 
@@ -139,9 +146,9 @@ from repro_torch.core.spec_decode import (DraftModelSource, DraftSource,
                                           stage_drafts)
 from repro_torch.core.streaming import StopSequenceChecker, TokenStreamDecoder
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.layers import not_ported
 from repro_torch.models.model import Model, init_cache, tree_map
-from repro_torch.serving.media import VisionEncoderStub, decode_media
+from repro_torch.serving.media import (AudioEncoderStub, VisionEncoderStub,
+                                      decode_media)
 from repro_torch.serving.tokenizer import ByteTokenizer
 
 
@@ -278,9 +285,6 @@ class InferenceEngine:
         spec_draft_params: Optional[Any] = None,  # None = seeded init
         spec_ngram_max: int = 3,         # longest lookup n-gram
     ):
-        if cfg.audio is not None:
-            raise not_ported("audio models (Model._encode_audio)",
-                             "multimodal (audio)")
         if spec_mode not in ("off", "ngram", "draft"):
             raise ValueError(f"spec_mode must be 'off', 'ngram' or 'draft', "
                              f"got {spec_mode!r}")
@@ -331,8 +335,10 @@ class InferenceEngine:
 
         # media geometry (the reference's defaults): the context window
         # holds MAX_MEDIA_ITEMS images; a video frame takes a quarter of an
-        # image's slots
-        self.media_kind = "vision" if cfg.vision is not None else "none"
+        # image's slots; an audio model's context is its num_frames encoder
+        # frames
+        self.media_kind = ("vision" if cfg.vision is not None
+                           else "audio" if cfg.audio is not None else "none")
         self.ctx_len = 0
         # unique media encodes per step (0 = all pending): a video's frames
         # stream across steps instead of monopolising one
@@ -346,6 +352,12 @@ class InferenceEngine:
                 self.image_tokens, self.embed_dim, work_iters=vision_work_iters)
             self._frame_encoder = VisionEncoderStub(
                 self.frame_tokens, self.embed_dim, work_iters=vision_work_iters)
+        elif self.media_kind == "audio":
+            self.ctx_len = cfg.audio.num_frames
+            self.embed_dim = cfg.audio.embed_dim
+            self._audio_encoder = AudioEncoderStub(
+                cfg.audio.num_frames, self.embed_dim,
+                work_iters=vision_work_iters)
 
         if self._paged:
             self.pool: Any = PagedKVPool(
@@ -538,8 +550,8 @@ class InferenceEngine:
         out = self.model.apply(self.params, tokens, mode="prefill",
                                positions=positions, cache=cache, resume=True,
                                seq_valid=seq_valid, last_idx=last_idx,
-                               image_embeds=media, ctx_valid=ctx_valid,
-                               cross_cached=cross_cached)
+                               ctx_valid=ctx_valid, cross_cached=cross_cached,
+                               **self._media_kw(media))
         return out.logits[:, 0], cache
 
     # ------------------------------------------------------------------ #
@@ -551,14 +563,24 @@ class InferenceEngine:
                 and bool(req.images or req.video_frames
                          or req.audio is not None))
 
+    def _media_kw(self, media) -> Dict[str, Any]:
+        """The model's keyword for a wave's media context: image embeddings
+        or audio frame embeddings."""
+        return {"audio_frames" if self.media_kind == "audio"
+                else "image_embeds": media}
+
     def _iter_media_payloads(self, req: Request):
         """(payload, encoder, ntok) triples in context order: images, then
-        video frames (an audio payload on a vision model is ignored, as in
-        the reference)."""
-        for img in req.images:
-            yield img, self._img_encoder, self.image_tokens
-        for frame in req.video_frames:
-            yield frame, self._frame_encoder, self.frame_tokens
+        video frames on a vision model, the one waveform on an audio model
+        (a payload of the other modality is ignored, as in the
+        reference)."""
+        if self.media_kind == "vision":
+            for img in req.images:
+                yield img, self._img_encoder, self.image_tokens
+            for frame in req.video_frames:
+                yield frame, self._frame_encoder, self.frame_tokens
+        elif self.media_kind == "audio" and req.audio is not None:
+            yield req.audio, self._audio_encoder, self.ctx_len
 
     def _open_media_job(self, req: Request) -> _MediaJob:
         """Decode + hash every payload once, resolve items straight from the
@@ -1401,10 +1423,10 @@ class InferenceEngine:
         ar = torch.arange(bucket, device=dev)[None]
         kw = {}
         if self.media_kind != "none":    # text-only echo: an empty context
-            kw = dict(image_embeds=torch.zeros(
-                (1, self.ctx_len, self.embed_dim), device=dev),
-                ctx_valid=torch.zeros((1, self.ctx_len), dtype=torch.bool,
-                                      device=dev))
+            kw = dict(ctx_valid=torch.zeros((1, self.ctx_len),
+                                            dtype=torch.bool, device=dev),
+                      **self._media_kw(torch.zeros(
+                          (1, self.ctx_len, self.embed_dim), device=dev)))
         out = self.model.apply(
             self.params, padded, mode="prefill", positions=ar,
             cache=init_cache(self.cfg, 1, bucket, ctx_len=self.ctx_len,

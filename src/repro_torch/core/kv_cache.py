@@ -16,7 +16,8 @@ tensors, :meth:`SlotKVPool.insert_many` into the pool's cache, and the model
 writes decode K/V into the pool's cache directly.  The frozen-slot rule of
 the reference's ``select_cache_slots`` becomes a masked write inside the
 attention layer (a frozen slot's cell is written with its old value, see
-:mod:`repro_torch.models.layers`).
+:mod:`repro_torch.models.layers`), and a Mamba layer writes a frozen
+slot's ``conv``/``state`` rows back unchanged.
 """
 from __future__ import annotations
 

@@ -9,12 +9,15 @@ layers ``[L, N, ...]``) — and each slot owns an ordered list of page ids,
 mirrored into a page table ``[max_batch, pages_per_slot]`` (int32) on the
 engine's device that the decode steps thread through attention
 (:func:`repro_torch.kernels.ops.paged_attention`).  The cross-attention
-leaves (``xk``/``xv``) stay dense per slot: O(1) per slot, paging them buys
-nothing.
+leaves (``xk``/``xv``) and a Mamba layer's recurrent leaves
+(``conv``/``state``) stay dense per slot: O(1) per slot, paging them buys
+nothing.  A model without an attention layer (``mamba2-780m``) has no
+arena leaf, so its pages weigh 0 bytes, as in the reference; their ids
+and refcounts are kept all the same.
 
 A preemption snapshot holds a slot's pages by *reference*: the engine
 increfs them at eviction (:meth:`PagedKVPool.read_nonkv` copies the dense
-per-slot leaves beside them) and :meth:`PagedKVPool.adopt` installs the
+per-slot leaves, cross KV and recurrent state, beside them) and :meth:`PagedKVPool.adopt` installs the
 same page ids back into a slot at resume — no KV byte moves either way.
 
 Sharing is copy-on-write at page granularity: a prefix-cache hit maps
@@ -376,9 +379,9 @@ class PagedKVPool:
         self.sync_page_table()
 
     def read_nonkv(self, slot: int):
-        """Copies of one slot's dense per-slot leaves (cross KV) as a
-        batch=1 tree; the KV pages themselves are snapshotted by
-        reference."""
+        """Copies of one slot's dense per-slot leaves (cross KV, recurrent
+        ``conv``/``state``) as a batch=1 tree; the KV pages themselves are
+        snapshotted by reference."""
         out: Dict[str, Any] = {"prefix": [
             {n: leaf[slot:slot + 1].clone() for n, leaf in sub.items()
              if n not in ARENA_KEYS} for sub in self.cache["prefix"]]}

@@ -10,7 +10,10 @@ CPU path of its ``paged_attention``, ``_qmm_plain`` the arithmetic of its
 ``_qmm_kernel``, ``rmsnorm_plain`` the body of its ``rmsnorm`` (a kernel of
 the port's own, row-invariant on the card), ``categorical_plain`` its
 vmapped ``random.categorical`` of folded step keys (the port's other
-own kernel, the sampler's draw); the kernels themselves live in
+own kernel, the sampler's draw).  The Mamba-2 SSD functions (:func:`ssd`,
+:func:`ssd_decode_step`) are the reference's plain-jnp ones in plain torch
+on every device: no Pallas kernel stands behind them.  The kernels
+themselves live in
 :mod:`repro_torch.kernels.flash_attention`,
 :mod:`repro_torch.kernels.decode_attention`,
 :mod:`repro_torch.kernels.paged_attention`,
@@ -23,6 +26,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.categorical import (categorical_cuda,
                                              categorical_plain)
@@ -119,3 +123,115 @@ def categorical(logits: torch.Tensor, base_keys, positions,
     if logits.is_cuda:
         return categorical_cuda(logits, base_keys, positions, salt)
     return categorical_plain(logits, base_keys, positions, salt)
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-2 SSD (state-space duality): the chunked matmul form
+# --------------------------------------------------------------------------- #
+# The reference computes these in plain jnp (no ``pallas_call``), so they
+# stay plain torch on every device: matrix products and elementwise ops.
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., Q] -> [..., Q, Q]; out[i, j] = sum_{k=j+1..i} x[k], -inf above
+    the diagonal (the stable log-space decay matrix of arXiv:2405.21060)."""
+    q = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    i = torch.arange(q, device=x.device)
+    return seg.masked_fill_(i[:, None] < i[None, :], float("-inf"))
+
+
+def ssd(
+    x: torch.Tensor,                   # [B, S, H, P]
+    dt: torch.Tensor,                  # [B, S, H] (already softplus'd, > 0)
+    a: torch.Tensor,                   # [H] (negative)
+    b_mat: torch.Tensor,               # [B, S, G, N]
+    c_mat: torch.Tensor,               # [B, S, G, N]
+    *,
+    init_state: Optional[torch.Tensor] = None,   # [B, H, P, N]
+    chunk: int = 256,
+) -> tuple:
+    """Chunked SSD, the reference's ``ssd``: intra-chunk attention-like
+    matrix products plus an inter-chunk recurrence over the ``S / Q`` chunk
+    states, which emits the state entering each chunk.  Returns (y [B, S,
+    H, P] in x's dtype, contiguous; final_state [B, H, P, N] float32).
+
+    The tail is zero-padded to a whole chunk: ``dt = 0`` gives decay
+    ``exp(0) = 1`` and a zero input, so padded steps leave the state as it
+    is.  Each einsum of the reference runs as explicit products in an
+    order that keeps the intermediates small: ``C.B`` per group ``[B, nc,
+    G, Q, Q]`` scales the decay matrix in place (the one ``[B, nc, H, Q,
+    Q]`` tensor), and the chunk states and their read-out contract each
+    group's ``rep * P`` columns at once, so no ``[.., Q, Q, H, N]`` or
+    ``[.., P, N]``-per-step tensor appears."""
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    q = min(chunk, s)
+    s_p = -(-s // q) * q
+    if s_p != s:
+        pad = s_p - s
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
+    nc, rep = s_p // q, h // g
+
+    xc = (x * dt[..., None]).float().reshape(bsz, nc, q, h, p) \
+        .permute(0, 1, 3, 2, 4)                          # [B,nc,H,Q,P]
+    bc = b_mat.float().reshape(bsz, nc, q, g, n).permute(0, 1, 3, 2, 4)
+    cc = c_mat.float().reshape(bsz, nc, q, g, n).permute(0, 1, 3, 2, 4)
+    dac = (dt.float() * a.float()[None, None, :]).reshape(bsz, nc, q, h) \
+        .permute(0, 1, 3, 2)                             # [B,nc,H,Q]
+    cs = torch.cumsum(dac, dim=-1)
+
+    # 1) intra-chunk (diagonal blocks): (C.B per group) * L, then @ x
+    l_mat = _segsum(dac).exp_()                          # [B,nc,H,Q,Q]
+    l_mat.view(bsz, nc, g, rep, q, q).mul_(
+        (cc @ bc.transpose(-1, -2))[:, :, :, None])
+    y = l_mat @ xc                                       # [B,nc,H,Q,P]
+    del l_mat
+
+    # 2) per-chunk output states: (x * decay to the chunk end)^T @ B
+    xw = xc * torch.exp(cs[..., -1:] - cs)[..., None]
+    xw = xw.view(bsz, nc, g, rep, q, p).permute(0, 1, 2, 3, 5, 4) \
+        .reshape(bsz, nc, g, rep * p, q)
+    states = (xw @ bc).view(bsz, nc, h, p, n)            # [B,nc,H,P,N]
+    del xw
+
+    # 3) inter-chunk recurrence over the nc chunk states
+    chunk_decay = torch.exp(cs[..., -1])                 # [B,nc,H]
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                         device=x.device) if init_state is None
+             else init_state.float())
+    prev = []
+    for c in range(nc):
+        prev.append(state)                               # entering chunk c
+        state = chunk_decay[:, c, :, None, None] * state + states[:, c]
+    prev_states = torch.stack(prev, dim=1)               # [B,nc,H,P,N]
+
+    # 4) inter-chunk contribution: C @ (state entering the chunk)^T, decayed
+    y_off = cc @ prev_states.view(bsz, nc, g, rep * p, n).transpose(-1, -2)
+    y_off = y_off.view(bsz, nc, g, q, rep, p).permute(0, 1, 2, 4, 3, 5) \
+        .reshape(bsz, nc, h, q, p) * torch.exp(cs)[..., None]
+    y = (y + y_off).permute(0, 1, 3, 2, 4).reshape(bsz, s_p, h, p)
+    return y[:, :s].to(x.dtype).contiguous(), state
+
+
+def ssd_decode_step(
+    x: torch.Tensor,                   # [B, H, P] one token
+    dt: torch.Tensor,                  # [B, H]
+    a: torch.Tensor,                   # [H]
+    b_mat: torch.Tensor,               # [B, G, N]
+    c_mat: torch.Tensor,               # [B, G, N]
+    state: torch.Tensor,               # [B, H, P, N]
+) -> tuple:
+    """One step of the SSD recurrence (decode): (y [B, H, P] in x's dtype,
+    new_state [B, H, P, N] float32)."""
+    rep = x.shape[1] // b_mat.shape[1]
+    bf = torch.repeat_interleave(b_mat, rep, dim=1).float()
+    cf = torch.repeat_interleave(c_mat, rep, dim=1).float()
+    dtf = dt.float()
+    decay = torch.exp(dtf * a.float()[None, :])[..., None, None]
+    upd = (dtf[..., None] * x.float())[..., None] * bf[:, :, None, :]
+    new_state = decay * state.float() + upd
+    y = (new_state @ cf[..., None])[..., 0]
+    return y.to(x.dtype), new_state

@@ -118,3 +118,36 @@ def quant_matmul_ref(
     """int8-weight matmul oracle: dequantise then matmul in f32."""
     w = w_q.float() * scales[None, :].float()
     return (x.float() @ w).to(x.dtype)
+
+
+def ssd_ref(
+    x: torch.Tensor,                   # [B, S, H, P]   inputs per head
+    dt: torch.Tensor,                  # [B, S, H]      softplus'd step sizes
+    a: torch.Tensor,                   # [H]            negative decay rates
+    b_mat: torch.Tensor,               # [B, S, G, N]   input gates (groups G)
+    c_mat: torch.Tensor,               # [B, S, G, N]   output gates
+    *,
+    init_state: Optional[torch.Tensor] = None,   # [B, H, P, N]
+) -> tuple:
+    """Mamba-2 SSD oracle: the literal sequential recurrence
+    (arXiv:2405.21060 eq. 16),
+    ``h_t = exp(dt_t * a) * h_{t-1} + dt_t * x_t (outer) b_t``,
+    ``y_t = h_t . c_t``.  Returns (y [B, S, H, P], final_state
+    [B, H, P, N] float32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[3]
+    rep = h // b_mat.shape[2]
+    bx = torch.repeat_interleave(b_mat, rep, dim=2).float()  # [B,S,H,N]
+    cx = torch.repeat_interleave(c_mat, rep, dim=2).float()
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    state = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t] * af[None, :])[..., None, None]
+        upd = (dtf[:, t, :, None, None] * xf[:, t, :, :, None]) \
+            * bx[:, t, :, None, :]
+        state = decay * state + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cx[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((bsz, 0, h, p))
+    return y.to(x.dtype), state

@@ -181,7 +181,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="byte budget for the content cache in MiB "
                          "(default: the prefix cache's 512 MiB figure)")
     ap.add_argument("--vision-work-iters", type=int, default=8,
-                    help="vision encoder work multiplier (stubbed encoder "
+                    help="vision/audio encoder work multiplier (stubbed encoder "
                          "cost; higher = heavier encode, larger cache wins)")
     ap.add_argument("--encode-wave", type=int, default=4,
                     help="unique media encodes per engine step (0 = "

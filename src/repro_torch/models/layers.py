@@ -1,5 +1,6 @@
-"""Layer library of the port: the dense-attention, MoE and vision
-cross-attention subset of the reference's ``models/layers.py``.
+"""Layer library of the port: every block of the reference's
+``models/layers.py`` (attention, MoE, gated and ungated cross-attention,
+the Mamba-2 block).
 
 Pure functions over dict params.  Weights keep the reference's ``[in, out]``
 layout (``x @ w``), so the weight bridge (``models/convert.py``) copies
@@ -26,7 +27,15 @@ A gated cross-attention layer (kind ``xattn``, the VLM image layers)
 attends to the projected image context: a fresh prefill projects it to
 ``xk``/``xv`` and writes them into its cache, a content-cache hit
 (``cross_cached``) reads them back from the cache instead, and decode reads
-them; ``ctx_valid [B, T]`` masks the context slots no image fills.
+them; ``ctx_valid [B, T]`` masks the context slots no image fills.  An
+audio decoder's ``attn`` layers carry the same cross-attention to the
+encoder output, ungated.
+
+An ``ssm``/``ssm_moe`` layer is the Mamba-2 block (:func:`apply_ssm`): the
+causal depthwise conv and the chunked SSD scan of
+:func:`repro_torch.kernels.ops.ssd` in prefill, one recurrence step
+(:func:`repro_torch.kernels.ops.ssd_decode_step`) in decode, over a cache of
+``conv`` (the last W-1 conv inputs) and ``state`` (float32).
 
 Unlike the reference, caches are updated **in place**: a layer writes its
 new K/V cells into the tensors of the ``cache`` dict it is given and returns
@@ -35,10 +44,8 @@ freshly concatenated prefill cache — never a shared zeros tree).  A frozen
 decode slot (``slot_active`` False) has its cell rewritten with its old
 value, the in-place form of the reference's ``select_cache_slots`` rule; in
 a paged arena its write goes to its reserved trash cell instead, as in the
-reference.
-
-Branches of the reference not yet ported raise ``NotImplementedError``
-naming the ROADMAP port-queue item that brings them.
+reference.  A Mamba layer rewrites ``conv``/``state`` wholesale, and a
+frozen slot's rows are written back with their old values.
 """
 from __future__ import annotations
 
@@ -60,12 +67,6 @@ def dtype_of(name: str) -> torch.dtype:
             "float16": torch.float16}[name]
 
 
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, port queue: "
-        f"{item})")
-
-
 # --------------------------------------------------------------------------- #
 # primitives
 # --------------------------------------------------------------------------- #
@@ -81,6 +82,13 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     """Through :func:`repro_torch.kernels.ops.rmsnorm`: the row-invariant
     kernel on the card, the plain version on the CPU."""
     return ops.rmsnorm(x, w, eps)
+
+
+def rmsnorm_gated(x: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba-2 gated norm: ``rmsnorm(x * silu(z))``, the gate in float32
+    cast to x's dtype, the norm through :func:`rmsnorm`."""
+    return rmsnorm(x * F.silu(z.float()).to(x.dtype), w, eps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -282,14 +290,16 @@ def apply_self_attn(
 
 
 # --------------------------------------------------------------------------- #
-# gated cross-attention (VLM image layers)
+# cross-attention (VLM image layers, gated; audio decoder, ungated)
 # --------------------------------------------------------------------------- #
-def init_xattn(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """The reference's gated ``init_xattn``: the gate starts at 0, so a
-    freshly initialised layer passes its input through unchanged."""
+def init_xattn(gen: torch.Generator, cfg: ModelConfig, *,
+               gated: bool = True) -> Params:
+    """The reference's ``init_xattn``: a gated layer's gate starts at 0, so
+    a freshly initialised layer passes its input through unchanged."""
     p = init_attn(gen, cfg, cross=True)
-    p["xgate_attn"] = torch.zeros((), dtype=dtype_of(cfg.dtype),
-                                  device=gen.device)
+    if gated:
+        p["xgate_attn"] = torch.zeros((), dtype=dtype_of(cfg.dtype),
+                                      device=gen.device)
     return p
 
 
@@ -304,10 +314,12 @@ def apply_cross_attn(
     *,
     cfg: ModelConfig,
     mode: str,
-    context: Optional[torch.Tensor],  # [B, T, D] projected image context
+    context: Optional[torch.Tensor],  # [B, T, D] image context / encoder out
     cache: Optional[Params] = None,  # {'xk','xv'}: [B, T, Hkv, hd], in place
     cross_cached: bool = False,      # content-cache hit: xk/xv in the cache
     ctx_valid: Optional[torch.Tensor] = None,    # [B, T] context liveness
+    gated: bool = True,              # tanh gate (VLM); the audio decoder's
+                                     # cross-attention is ungated
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     b, s, _ = x.shape
     h, hd = cfg.num_heads, cfg.head_dim
@@ -342,14 +354,15 @@ def apply_cross_attn(
     else:
         raise ValueError(f"unknown mode {mode!r}")
     out = out.reshape(b, s, h * hd) @ p["wo"]
-    return x + _gate(p["xgate_attn"], out), cache
+    return x + (_gate(p["xgate_attn"], out) if gated else out), cache
 
 
 # --------------------------------------------------------------------------- #
 # Mixture of Experts (GShard-style capacity routing)
 # --------------------------------------------------------------------------- #
-# params kept in float32 whatever ``cfg.dtype`` (the reference's router)
-FLOAT32_PARAMS = frozenset({"router"})
+# params kept in float32 whatever ``cfg.dtype``: the reference's MoE router
+# and its SSM decay rates, skip weights and step biases
+FLOAT32_PARAMS = frozenset({"router", "a_log", "d_skip", "dt_bias"})
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -443,31 +456,162 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 # --------------------------------------------------------------------------- #
+# Mamba-2 block (SSD)
+# --------------------------------------------------------------------------- #
+def _ssm_dims(cfg: ModelConfig):
+    """(d_inner, SSM heads, conv channels) of a Mamba-2 block."""
+    ssm = cfg.ssm
+    d_in = ssm.expand * cfg.d_model
+    return d_in, d_in // ssm.head_dim, d_in + 2 * ssm.ngroups * ssm.state_dim
+
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The reference's ``init_ssm``: the decay rates ``a_log``, skip
+    weights ``d_skip`` and step biases ``dt_bias`` in float32."""
+    ssm = cfg.ssm
+    d = cfg.d_model
+    d_in, nheads, d_conv = _ssm_dims(cfg)
+    dt = dtype_of(cfg.dtype)
+    dev = gen.device
+    return {
+        "ln": torch.ones((d,), dtype=dt, device=dev),
+        "in_proj": _dense_init(gen, (d, 2 * d_in + 2 * ssm.ngroups
+                                     * ssm.state_dim + nheads), dt),
+        "conv_w": _dense_init(gen, (ssm.conv_width, d_conv), dt,
+                              fan_in=ssm.conv_width),
+        "conv_b": torch.zeros((d_conv,), dtype=dt, device=dev),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nheads,
+                                          dtype=torch.float32, device=dev)),
+        "d_skip": torch.ones((nheads,), dtype=torch.float32, device=dev),
+        "dt_bias": torch.zeros((nheads,), dtype=torch.float32, device=dev),
+        "ssm_norm": torch.ones((d_in,), dtype=dt, device=dev),
+        "out_proj": _dense_init(gen, (d_in, d), dt),
+    }
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor],
+                 lengths: Optional[torch.Tensor] = None):
+    """Depthwise causal conv1d: xbc [B, S, C], w [W, C]; returns (silu(out
+    + b), new_state [B, W-1, C], the trailing inputs).  ``lengths`` [B]
+    gathers each row's carry window ending at its last *valid* input
+    instead of the physical tail, so a right-padded row carries exactly the
+    state an unpadded run would."""
+    width = w.shape[0]
+    if state is None:
+        pad = xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2]))
+    else:
+        pad = state.to(xbc.dtype)
+    xp = torch.cat([pad, xbc], dim=1)                             # [B,S+W-1,C]
+    s = xbc.shape[1]
+    out = 0
+    for i in range(width):
+        out = out + xp[:, i:i + s] * w[i][None, None]
+    if lengths is None:
+        new_state = xp[:, xp.shape[1] - (width - 1):]
+    else:
+        idx = lengths.long()[:, None] + torch.arange(width - 1,
+                                                     device=xbc.device)
+        new_state = torch.gather(
+            xp, 1, idx[..., None].expand(-1, -1, xp.shape[2]))
+    return F.silu(out + b[None, None]), new_state
+
+
+def apply_ssm(
+    p: Params,
+    x: torch.Tensor,                 # [B, S, D]
+    *,
+    cfg: ModelConfig,
+    mode: str,
+    cache: Optional[Params] = None,  # {'conv': [B,W-1,Dc], 'state': [B,H,P,N]}
+    resume: bool = False,            # prefill continues from cached state
+    seq_valid: Optional[torch.Tensor] = None,    # [B, S] prefix mask
+    slot_active: Optional[torch.Tensor] = None,  # [B] live mask (decode)
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The reference's ``apply_ssm``.  Prefill and decode write the new
+    ``conv``/``state`` into ``cache`` in place: a fresh prefill reads
+    neither, a resume prefill (``resume``) and decode continue from both.
+    ``seq_valid`` turns padded steps into identity updates (``dt = 0``) and
+    ends each row's conv carry at its last valid input.  A frozen decode
+    slot (``slot_active`` False) keeps both leaves bit for bit, the
+    in-place form of the reference's per-slot select of recurrent
+    leaves."""
+    ssm = cfg.ssm
+    b, s, _ = x.shape
+    d_in, nheads, d_conv = _ssm_dims(cfg)
+    g, n, pdim = ssm.ngroups, ssm.state_dim, ssm.head_dim
+
+    h = rmsnorm(x, p["ln"], cfg.rms_eps)
+    zxbcdt = h @ p["in_proj"]
+    z = zxbcdt[..., :d_in]
+    xbc = zxbcdt[..., d_in:d_in + d_conv]
+    dt = F.softplus(zxbcdt[..., d_in + d_conv:].float()
+                    + p["dt_bias"][None, None, :])
+    if seq_valid is not None:
+        dt = torch.where(seq_valid[..., None], dt, 0.0)
+    a = -torch.exp(p["a_log"])
+
+    use_state = mode == "decode" or (mode == "prefill" and resume)
+    lengths = seq_valid.sum(-1) if seq_valid is not None else None
+    xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
+                                 cache["conv"] if use_state else None,
+                                 lengths=lengths)
+    x_ssm = xbc[..., :d_in].reshape(b, s, nheads, pdim)
+    b_mat = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
+    c_mat = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+
+    if mode == "decode":
+        y, new_state = ops.ssd_decode_step(
+            x_ssm[:, 0], dt[:, 0], a, b_mat[:, 0], c_mat[:, 0],
+            cache["state"])
+        y = y[:, None]
+        if slot_active is not None:
+            keep = slot_active[:, None, None]
+            new_conv = torch.where(keep, new_conv.to(cache["conv"].dtype),
+                                   cache["conv"])
+            new_state = torch.where(keep[..., None], new_state,
+                                    cache["state"])
+    elif mode in ("train", "prefill"):
+        y, new_state = ops.ssd(
+            x_ssm, dt, a, b_mat, c_mat, chunk=min(ssm.chunk_size, s),
+            init_state=cache["state"] if use_state else None)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode != "train":
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(new_state)
+
+    y = y + (p["d_skip"][None, None, :, None] * x_ssm.float()).to(y.dtype)
+    y = rmsnorm_gated(y.reshape(b, s, d_in), z, p["ssm_norm"], cfg.rms_eps)
+    return x + y @ p["out_proj"], cache if mode != "train" else None
+
+
+# --------------------------------------------------------------------------- #
 # composed layers (one per ModelConfig.layer_kinds entry)
 # --------------------------------------------------------------------------- #
-def _check_kind(kind: str, cfg: ModelConfig) -> None:
-    if cfg.audio is not None:
-        raise not_ported("the audio encoder-decoder family",
-                         "multimodal (audio)")
-    if kind in ("attn", "xattn", "moe"):
-        return
-    item = {"ssm": "SSM", "ssm_moe": "SSM"}.get(kind, kind)
-    raise not_ported(f"layer kind {kind!r}", item)
-
-
 def init_layer(gen: torch.Generator, kind: str, cfg: ModelConfig, *,
-               d_ff: Optional[int] = None) -> Params:
-    """One layer's params; ``d_ff`` overrides the MLP width (an MoE model's
-    dense layers, ``models/model.py:_layer_dff``).  An ``moe`` layer's MoE
-    block takes the place of the MLP."""
-    _check_kind(kind, cfg)
+               d_ff: Optional[int] = None, has_cross: bool = False) -> Params:
+    """One layer's params, the reference's ``init_layer``: ``attn``/``moe``
+    self-attention (plus an ungated cross-attention to the encoder with
+    ``has_cross``, the audio decoder), ``xattn`` gated cross-attention,
+    ``ssm``/``ssm_moe`` the Mamba-2 block; an ``*moe`` kind's MoE block
+    takes the place of the MLP, which the others carry when ``d_ff > 0``
+    (``d_ff`` overrides its width: an MoE model's dense layers,
+    ``models/model.py:_layer_dff``)."""
     dt = dtype_of(cfg.dtype)
-    if kind == "xattn":
-        p: Params = {"cross": init_xattn(gen, cfg),
-                     "xgate_ffn": torch.zeros((), dtype=dt, device=gen.device)}
+    p: Params = {}
+    if kind in ("attn", "moe"):
+        p["attn"] = init_attn(gen, cfg)
+        if has_cross:
+            p["cross"] = init_xattn(gen, cfg, gated=False)
+    elif kind == "xattn":
+        p["cross"] = init_xattn(gen, cfg)
+        p["xgate_ffn"] = torch.zeros((), dtype=dt, device=gen.device)
+    elif kind in ("ssm", "ssm_moe"):
+        p["ssm"] = init_ssm(gen, cfg)
     else:
-        p = {"attn": init_attn(gen, cfg)}
-    if kind == "moe":
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind.endswith("moe"):
         p["moe"] = init_moe(gen, cfg)
     elif cfg.d_ff > 0:
         p["ffn_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
@@ -493,23 +637,30 @@ def apply_layer(
     cross_cached: bool = False,
     ctx_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x, cache); the cache is updated in place.  An ``xattn``
-    layer's MLP output is gated like its attention (``tanh`` in float32).
-    An ``moe`` layer's load-balance loss is dropped (serving only)."""
-    _check_kind(kind, cfg)
-    if kind == "xattn":
-        x, c = apply_cross_attn(p["cross"], x, cfg=cfg, mode=mode,
-                                context=context, cache=cache,
-                                cross_cached=cross_cached, ctx_valid=ctx_valid)
-    else:
-        x, c = apply_self_attn(p["attn"], x, cfg=cfg, mode=mode,
+    """Returns (x, cache); the cache is updated in place.  The blocks run
+    in the reference's order: self-attention, the ungated cross-attention
+    of an audio decoder layer, the gated one of an ``xattn`` layer, the
+    Mamba block, then the MoE or the MLP.  An ``xattn`` layer's MLP output
+    is gated like its attention (``tanh`` in float32).  An MoE block's
+    load-balance loss is dropped (serving only)."""
+    if "attn" in p:
+        x, _ = apply_self_attn(p["attn"], x, cfg=cfg, mode=mode,
                                positions=positions, cache=cache,
                                window=window, resume=resume,
                                seq_valid=seq_valid, slot_active=slot_active,
                                page_table=page_table)
+    if "cross" in p:
+        x, _ = apply_cross_attn(p["cross"], x, cfg=cfg, mode=mode,
+                                context=context, cache=cache,
+                                cross_cached=cross_cached, ctx_valid=ctx_valid,
+                                gated=kind == "xattn")
+    if "ssm" in p:
+        x, _ = apply_ssm(p["ssm"], x, cfg=cfg, mode=mode, cache=cache,
+                         resume=resume, seq_valid=seq_valid,
+                         slot_active=slot_active)
     if "moe" in p:
         x, _ = apply_moe(p["moe"], x, cfg, seq_valid=seq_valid)
     elif "ffn" in p:
         out = apply_mlp(p["ffn"], rmsnorm(x, p["ffn_ln"], cfg.rms_eps))
         x = x + (_gate(p["xgate_ffn"], out) if kind == "xattn" else out)
-    return x, c
+    return x, cache if mode != "train" else None

@@ -1,5 +1,7 @@
-"""Model builder of the port: the reference's ``models/model.py`` for the
-dense-attention, MoE and vision (gated cross-attention) families.
+"""Model builder of the port: the reference's ``models/model.py`` for every
+family it serves — dense attention, MoE, vision (gated cross-attention),
+Mamba-2 SSM and the Mamba + attention hybrid, and the audio
+encoder-decoder.
 
 A model is a dict of params plus ``apply`` in three modes (``train``,
 ``prefill``, ``decode``).  ``ModelConfig.layer_kinds()`` is factored into
@@ -8,9 +10,14 @@ leading axis, exactly as the reference stacks them for ``lax.scan``, and
 ``apply`` runs a Python loop over the repeats.  Caches keep the same layout
 (``block/pos{i}`` leaves ``[repeats, B, S, Hkv, D]``; an ``xattn`` layer's
 ``xk``/``xv`` leaves ``[repeats, B, ctx_len, Hkv, D]``) and are updated in
-place (see :mod:`repro_torch.models.layers`).  A vision model projects the
-image embeddings with ``vision_proj`` into the context its cross-attention
-layers attend to.
+place (see :mod:`repro_torch.models.layers`).  A Mamba layer's cache holds
+``conv`` ``[.., B, W-1, C]`` in the cache dtype and ``state`` ``[.., B, H,
+P, N]`` in float32.  A vision model projects the image embeddings with
+``vision_proj`` into the context its cross-attention layers attend to; an
+audio model projects its frame embeddings with ``audio_proj`` and runs them
+through its encoder stack (``encoder``, then ``enc_ln``), and each decoder
+layer's ungated cross-attention reads the result (``xk``/``xv`` over the
+``num_frames`` frames).
 """
 from __future__ import annotations
 
@@ -94,6 +101,7 @@ class Model:
         dt = dtype_of(cfg.dtype)
         dev = generator.device
         prefix, pattern, repeats = find_pattern(cfg.layer_kinds())
+        has_cross = cfg.family == "audio"
         params: Params = {
             "embed": layers._dense_init(generator, (cfg.vocab_size, cfg.d_model), dt),
             "final_ln": torch.ones((cfg.d_model,), dtype=dt, device=dev),
@@ -102,19 +110,44 @@ class Model:
             params["lm_head"] = layers._dense_init(
                 generator, (cfg.d_model, cfg.vocab_size), dt)
         params["prefix_layers"] = [
-            layers.init_layer(generator, kind, cfg, d_ff=_layer_dff(cfg, kind))
+            layers.init_layer(generator, kind, cfg, d_ff=_layer_dff(cfg, kind),
+                              has_cross=has_cross)
             for kind in prefix]
         block: Dict[str, Params] = {}
         for i, kind in enumerate(pattern):
             reps = [layers.init_layer(generator, kind, cfg,
-                                      d_ff=_layer_dff(cfg, kind))
+                                      d_ff=_layer_dff(cfg, kind),
+                                      has_cross=has_cross)
                     for _ in range(repeats)]
             block[f"pos{i}"] = _stack(reps)
         params["block"] = block
         if cfg.vision is not None:
             params["vision_proj"] = layers._dense_init(
                 generator, (cfg.vision.embed_dim, cfg.d_model), dt)
+        if cfg.audio is not None:
+            params["audio_proj"] = layers._dense_init(
+                generator, (cfg.audio.embed_dim, cfg.d_model), dt)
+            params["encoder"] = _stack([
+                layers.init_layer(generator, "attn", cfg)
+                for _ in range(cfg.audio.encoder_layers)])
+            params["enc_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
         return tree_map(lambda a: a.to(target), params)
+
+    def encode_audio(self, params: Params,
+                     frames: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_encode_audio``: ``frames [B, F, De] @
+        audio_proj``, the encoder's ``attn`` layers in ``train`` mode (no
+        cache; their flash call is causal, as the reference's is), then
+        ``enc_ln``."""
+        cfg = self.cfg
+        x = frames.to(params["audio_proj"].dtype) @ params["audio_proj"]
+        pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+            x.shape[:2])
+        for g in range(cfg.audio.encoder_layers):
+            p = tree_map(lambda a: a[g], params["encoder"])
+            x, _ = layers.apply_layer(p, "attn", x, cfg=cfg, mode="train",
+                                      positions=pos, cache=None)
+        return layers.rmsnorm(x, params["enc_ln"], cfg.rms_eps)
 
     def apply(
         self,
@@ -132,6 +165,7 @@ class Model:
         last_idx: Optional[torch.Tensor] = None,    # [B]: logits at one row each
         page_table: Optional[torch.Tensor] = None,
         image_embeds: Optional[torch.Tensor] = None,  # [B, T_img, De]
+        audio_frames: Optional[torch.Tensor] = None,  # [B, F, De]
         cross_cached: bool = False,     # content-cache hit: xk/xv in cache
         ctx_valid: Optional[torch.Tensor] = None,   # [B, T_ctx] media liveness
     ) -> ModelOutput:
@@ -160,6 +194,10 @@ class Model:
             if image_embeds is None:
                 raise ValueError("a vision model's prefill needs image_embeds")
             context = image_embeds.to(x.dtype) @ params["vision_proj"]
+        if cfg.audio is not None and mode != "decode" and not cross_cached:
+            if audio_frames is None:
+                raise ValueError("an audio model's prefill needs audio_frames")
+            context = self.encode_audio(params, audio_frames)
         kw = dict(cfg=cfg, mode=mode, positions=positions, window=window_eff,
                   resume=resume, seq_valid=seq_valid, slot_active=slot_active,
                   page_table=page_table, context=context,
@@ -201,14 +239,26 @@ def _stack(trees):
 # --------------------------------------------------------------------------- #
 def _layer_cache(cfg: ModelConfig, kind: str, lead: Tuple[int, ...],
                  cache_len: int, ctx_len: int, dtype, device) -> Params:
-    """A self-attention (``attn`` or ``moe``) layer's ring ``k``/``v``; an
-    ``xattn`` layer's cross KV ``xk``/``xv`` over the ``ctx_len`` media
-    context."""
-    layers._check_kind(kind, cfg)
-    names, length = (("xk", "xv"), ctx_len) if kind == "xattn" else \
-        (("k", "v"), cache_len)
-    shape = lead + (length, cfg.num_kv_heads, cfg.head_dim)
-    return {n: torch.zeros(shape, dtype=dtype, device=device) for n in names}
+    """The reference's ``_layer_cache_shape``: a self-attention (``attn`` or
+    ``moe``) layer's ring ``k``/``v`` (plus ``xk``/``xv`` over the
+    ``ctx_len`` encoder frames in an audio decoder); an ``xattn`` layer's
+    ``xk``/``xv`` over the media context; a Mamba layer's ``conv`` (in
+    ``dtype``) and ``state`` (float32)."""
+    def z(shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    kv = (cfg.num_kv_heads, cfg.head_dim)
+    out: Params = {}
+    if kind in ("attn", "moe"):
+        out["k"], out["v"] = z((cache_len,) + kv), z((cache_len,) + kv)
+    if kind == "xattn" or (kind in ("attn", "moe") and cfg.family == "audio"):
+        out["xk"], out["xv"] = z((ctx_len,) + kv), z((ctx_len,) + kv)
+    if kind in ("ssm", "ssm_moe"):
+        _, nheads, d_conv = layers._ssm_dims(cfg)
+        out["conv"] = z((cfg.ssm.conv_width - 1, d_conv))
+        out["state"] = z((nheads, cfg.ssm.head_dim, cfg.ssm.state_dim),
+                         torch.float32)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -216,7 +266,7 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> Params:
     """Zeroed decode cache on ``device`` (``cuda`` unless the caller asks
     for another); ``cache_len`` is the KV ring size, ``ctx_len`` the
-    cross-attention context length (image tokens)."""
+    cross-attention context length (image tokens / encoder frames)."""
     device = resolve_device(device)
     dtype = dtype_of(cfg.dtype) if dtype is None else dtype
     prefix, pattern, repeats = find_pattern(cfg.layer_kinds())

@@ -173,13 +173,15 @@ def test_engine_needs_cuda_unless_cpu_is_asked_for(weights, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         InferenceEngine(weights[1], weights[3])
-    with pytest.raises(NotImplementedError, match="multimodal \\(audio\\)"):
-        InferenceEngine(audio_config(), device="cpu")
+    # the audio family builds on the CPU when asked (ported, as the SSM
+    # families are)
+    audio = InferenceEngine(audio_config(), device="cpu", cache_len=64)
+    assert audio.media_kind == "audio" and audio.ctx_len == 16
 
 
 def audio_config():
-    """An audio encoder-decoder config (the family the port still refuses;
-    the reference's is ``seamless-m4t-medium``)."""
+    """An audio encoder-decoder config (the reference's is
+    ``seamless-m4t-medium``)."""
     return dataclasses.replace(get_config("qwen3-0.6b-toy"), family="audio",
                                audio=AudioConfig(embed_dim=64, num_frames=16,
                                                  encoder_layers=2))

@@ -588,6 +588,109 @@ def test_ptxas_report_names_plain_and_templated_kernels(tmp_path):
         ("plain_kernel", 8, 0, 0)]
 
 
+@pytest.mark.parametrize("name,layers", [
+    ("qwen2-0.5b", 2), ("mamba2-780m", 2), ("jamba-1.5-large-398b", 5),
+    ("seamless-m4t-medium", 2)])
+def test_rmsnorm_launch_count_matches_a_forward(name, layers, monkeypatch):
+    """``chip_smoke.rmsnorm_per_forward``, which the card's launch checks
+    hold the rmsnorm kernel's count to, against the norms one forward of
+    the family runs (counted here through ``ops.rmsnorm`` on the CPU): a
+    decode step, and a prefill wave that runs the audio encoder."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_cache
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config(name).reduced(), num_layers=layers)
+    calls = []
+    real = ops.rmsnorm
+    monkeypatch.setattr(ops, "rmsnorm",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    ctx = cfg.audio.num_frames if cfg.audio else 0
+    cache = init_cache(cfg, 1, 8, ctx_len=ctx, device="cpu")
+    kw = ({"audio_frames": torch.zeros((1, ctx, cfg.audio.embed_dim))}
+          if cfg.audio else {})
+    with torch.no_grad():
+        model.apply(params, torch.ones((1, 4), dtype=torch.long),
+                    mode="prefill", cache=cache, **kw)
+        prefill, calls[:] = len(calls), []
+        model.apply(params, torch.ones((1, 1), dtype=torch.long),
+                    mode="decode", positions=torch.full((1, 1), 4),
+                    cache=cache)
+    assert len(calls) == cs.rmsnorm_per_forward(cfg)
+    assert prefill == cs.rmsnorm_per_forward(cfg, encoder=bool(cfg.audio))
+
+
+def test_jamba_wrong_paths_break_what_they_name(monkeypatch):
+    """The card's deliberately wrong plain paths for the jamba check:
+    ``skipped_norm`` at ``input_norm_index`` skips the attention layer's
+    input norm and no other call, ``scaled_queries`` scales the queries of
+    each attention entry point, and both put ``ops`` back."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_cache
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b").reduced(),
+                              num_layers=5)
+    params = Model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    attn = cfg.layer_kinds().index("attn")
+    seen, real = [], ops.rmsnorm
+    monkeypatch.setattr(ops, "rmsnorm",
+                        lambda x, w, eps=1e-5: seen.append(w) or real(x, w,
+                                                                      eps))
+    per = cs.rmsnorm_per_forward(cfg)
+    cache = init_cache(cfg, 1, 8, device="cpu")
+    with torch.no_grad(), cs.skipped_norm(
+            ops, cs.input_norm_index(cfg, attn), per):
+        for mode, n in (("prefill", 4), ("decode", 1)):
+            Model(cfg).apply(params, torch.ones((1, n), dtype=torch.long),
+                             mode=mode, positions=torch.full((1, n), 4)
+                             if mode == "decode" else None, cache=cache)
+    skipped = params["prefix_layers"][attn]["attn"]["ln"]
+    assert len(seen) == 2 * (per - 1)
+    assert not any(w is skipped for w in seen)
+    assert ops.rmsnorm.__name__ == "<lambda>"          # the recorder is back
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn((1, 5, 2, 8), generator=g) for _ in range(3))
+    before = ops.flash_attention
+    with cs.scaled_queries(ops, 1.5):
+        got = ops.flash_attention(q, k, v, causal=True)
+    assert ops.flash_attention is before
+    torch.testing.assert_close(got, before(q * 1.5, k, v, causal=True))
+
+
+def test_near_tie_compare_excuses_ties_only():
+    """The jamba check's bf16 comparison: within the limit an argmax flip
+    at a near tie passes and is counted; an error past the limit fails."""
+    cs = _chip_smoke()
+    records = {}
+    cmp = cs.near_tie_compare(0.02, records)
+    want = torch.tensor([[[5.0, 4.95, 0.0], [5.0, 3.0, 0.0]]])
+    got = want.clone()
+    got[0, 0, 1] += 0.08                               # a flip at a tie
+    cmp(torch, "tie", got, want)
+    assert records["tie"]["near_ties"] == 1
+    assert records["tie"]["argmax_agree"] == 1
+    got[0, 1, 1] += 2.5                                # a flip past the limit
+    with pytest.raises(AssertionError):
+        cmp(torch, "wrong", got, want)
+
+
+def test_segsum_in_float64_routes_and_restores():
+    """The decay matrix read in float64 for the card's mamba2 check: the
+    float32 cancellation of the cumulative sums is gone (equal to the
+    float64 form cast once), and ``ops._segsum`` is put back."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    x = -torch.rand((3, 256), generator=g) * 20
+    inner = ops._segsum
+    with cs.segsum_in_float64(ops):
+        got = ops._segsum(x)
+    assert ops._segsum is inner and got.dtype == torch.float32
+    assert torch.equal(got, inner(x.double()).float())
+
+
 # --------------------------------------------------------------------------- #
 # on the card: each CUDA kernel against its plain version
 # --------------------------------------------------------------------------- #

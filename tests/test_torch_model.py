@@ -253,13 +253,28 @@ def test_unported_branches_name_their_roadmap_item(pair):
                                     page_table=torch.ones((1, 1),
                                                           dtype=torch.int32))
     assert out.shape == x.shape and bool(arena["k"][1, :2].any())
-    for kind, item in (("ssm_moe", "SSM"), ("ssm", "SSM")):
-        with pytest.raises(NotImplementedError, match=item):
-            layers.init_layer(torch.Generator(), kind, tcfg)
+    # the SSM kinds are ported: init_layer builds the reference's leaves
+    # (the Mamba block, then MoE or the MLP), with their shapes and dtypes
+    jamba = jax_get_config("jamba-1.5-large-398b").reduced()
+    tjamba = get_config("jamba-1.5-large-398b").reduced()
+    for kind in ("ssm", "ssm_moe"):
+        want = dict(_leaves(jax.eval_shape(
+            lambda k, kind=kind: jlayers.init_layer(k, kind, jamba),
+            jax.random.PRNGKey(0))))
+        got = dict(_leaves(layers.init_layer(torch.Generator(), kind,
+                                             tjamba)))
+        assert got.keys() == want.keys() and "/ssm/a_log" in got
+        for key, sds in want.items():
+            assert tuple(got[key].shape) == sds.shape, key
+            assert str(got[key].dtype)[6:] == str(sds.dtype), key
+    # and so is the audio family: the model builds with the reference's
+    # encoder stack and the decoder layers' ungated cross-attention
     audio = dataclasses.replace(tcfg, family="audio", audio=AudioConfig(
         embed_dim=64, num_frames=16, encoder_layers=2))
-    with pytest.raises(NotImplementedError, match="multimodal \\(audio\\)"):
-        model.Model(audio).init(torch.Generator(), "cpu")
+    built = dict(_leaves(model.Model(audio).init(torch.Generator(), "cpu")))
+    assert "/enc_ln" in built and "/audio_proj" in built
+    assert not any(k.endswith("xgate_attn") for k in built)
+    assert any("/cross/wq" in k for k in built)
 
 
 # --------------------------------------------------------------------------- #
