@@ -47,7 +47,15 @@ Phases (any failure exits non-zero and prints no result line):
    one live entry and an all -inf row: draws equal, rows 0-7 equal inside
    40 rows and row 0 alone, the same draws at 256- and 8192-element
    chunks; its noise (``gumbel_noise``) against ``sampling.gumbel`` bit
-   for bit or within 4 ulp (the gap recorded);
+   for bit or within 4 ulp (the gap recorded); the flash backward kernel
+   (``csrc/flash_attention_bwd.cu``: dQ, dK, dV of the training form)
+   against ``flash_attention_bwd_plain`` at the families' training shapes
+   (qwen2-0.5b G 7 D 64 causal at S 512 and 2048, glm4-9b G 16 D 128 with
+   a 256 window, deepseek-moe-16b G 1 D 128, the vision cross shape,
+   seamless's causal encoder and non-causal cross over 512 frames, Sq 333)
+   in bf16 (1e-2) and float32 (1e-5), each gradient relative to its
+   largest plain entry, two calls bit for bit equal; ``RmsnormFn``'s dx
+   and dw against autograd through ``rmsnorm_plain``;
 3. full-width models — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (attention and rmsnorm; max |Δlogit|
@@ -249,11 +257,28 @@ Phases (any failure exits non-zero and prints no result line):
    as a draw's floor, the integer-operation bound); one
    ``masked_sample_inner`` step on [8, 151936] greedy, stochastic, and
    stochastic with top-p, each through the kernel and with the plain
-   draw.
+   draw; the flash backward at 6a's bf16 step shape (B 8 x S 512, causal)
+   beside its plain version and SDPA's backward, bound by five products of
+   the forward's size halved under causal;
+6. training — (a) ``qwen2-0.5b`` at full depth: in float32 at B 4 x S 512
+   one loss and every gradient leaf through the kernels (flash forward and
+   backward, rmsnorm) against the plain versions (1e-3 of each leaf's
+   largest entry), remat on against off bit for bit, a step with
+   microbatches 2 against 1; in bf16 at B 8 x S 512, 30 AdamW steps on
+   the bigram data (ids cut to 512): the loss falls, 24 flash and 24
+   backward launches a step, tokens/s and peak memory read; the state's
+   checkpoint restored bit for bit; ``launch/train.py`` for 3 steps; (b)
+   ``deepseek-moe-16b`` at published widths cut to 3 layers, float32:
+   kernels vs plain with remat on, aux loss > 0, capacity drops > 0; (c)
+   ``mamba2-780m`` in float32: kernels vs plain (only rmsnorm differs;
+   the differentiable SSD runs) cut to 2 layers (1e-3) and at full depth
+   (48 layers; within twice the plain path's own change when the SSD's
+   decay matrix runs in float64).  Phase 6 runs after phase 4; phase 5
+   last.
 
 The last lines are one ``serve`` JSON line (4k under ``k4``, 4m under
-``m4``, 4n under ``n4``), one ``spec``
-JSON line, one ``{"kernels": [...]}`` JSON line (six kernels), the card's
+``m4``, 4n under ``n4``, phase 6 under ``train``), one ``spec``
+JSON line, one ``{"kernels": [...]}`` JSON line (seven kernels), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -262,8 +287,10 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
@@ -280,6 +307,9 @@ TOL = {"bfloat16": 2e-2, "float32": 1e-4}
 REPLACES = {
     "decode_attention": "src/repro/kernels/decode_attention.py:61",
     "flash_attention": "src/repro/kernels/flash_attention.py:84",
+    # no TPU kernel: pallas_call has no transpose rule, so the reference's
+    # gradient through attention is XLA's autodiff of _flash_jnp
+    "flash_attention_bwd": "src/repro/kernels/ops.py:63",
     "paged_attention": "src/repro/kernels/paged_attention.py:86",
     "quant_matmul": "src/repro/kernels/quant_matmul.py:42",
     # no TPU kernel: the reference computes rmsnorm in plain jnp; the port's
@@ -290,6 +320,11 @@ REPLACES = {
     "categorical": "src/repro/core/sampling.py:168",
 }
 REPLACES_NOTE = {
+    "flash_attention_bwd": "no TPU kernel: jax's pallas_call has a JVP rule "
+                           "and no transpose rule, so the reference trains "
+                           "through XLA's autodiff of _flash_jnp (the line "
+                           "named); the backward of the port's "
+                           "FlashAttentionFn around the forward kernel",
     "rmsnorm": "no TPU kernel: the reference's rmsnorm is plain jnp; a "
                "kernel of the port's own, row-invariant",
     "categorical": "no TPU kernel: the reference's draw is "
@@ -3362,6 +3397,7 @@ def check_media_serving(torch, ns, wrappers, *, layout, want_tokens=None,
     # two norms a layer (self- or cross-attention, then the MLP) + the final
     want["rmsnorm"] = (2 * (n_self + n_cross) + 1) * (steps + waves)
     want["categorical"] = 0          # every media request is greedy
+    want["flash_attention_bwd"] = 0  # serving runs no backward
     log(f"  {layout}: 13 media requests, {tokens} completion tokens in "
         f"{wall:.3f} s, {waves} prefill waves, {steps} decode steps, "
         f"launches {launches} (flash: {n_self} causal + {n_cross} "
@@ -4506,6 +4542,426 @@ def check_router_drain(torch, ns, serve_mod, wrappers):
 
 
 # --------------------------------------------------------------------------- #
+# the flash backward (phase 2 checks, phase 5 times)
+# --------------------------------------------------------------------------- #
+# (label, B, Sq, Skv, H, Hkv, D, causal, window): the training shapes of the
+# families, from qwen2-0.5b's main path to the audio encoder-decoder's
+BWD_FORMS = (
+    ("qwen2 S512", 4, 512, 512, 14, 2, 64, True, 0),
+    ("qwen2 S2048", 1, 2048, 2048, 14, 2, 64, True, 0),
+    ("glm4 window 256", 1, 1024, 1024, 32, 2, 128, True, 256),
+    ("deepseek G1 D128", 2, 512, 512, 16, 16, 128, True, 0),
+    ("vision cross", 1, 300, 2304, 64, 8, 128, False, 0),
+    ("seamless encoder", 2, 512, 512, 16, 16, 64, True, 0),
+    ("seamless cross", 2, 200, 512, 16, 16, 64, False, 0),
+    ("ragged Sq 333", 2, 333, 333, 14, 2, 64, True, 0),
+)
+# the backward kernel against its plain version, relative to the largest
+# plain gradient: float32 products summed in another order (readings ~1e-6
+# on the H100 before this script held them), and in bf16 one rounding of
+# each output at the store on both sides (readings up to 2.2e-3)
+BWD_REL = {"bfloat16": 1e-2, "float32": 1e-5}
+BWD_TRAIN = dict(b=8, s=512, h=14, hkv=2, d=64)   # 6a's bf16 training step
+
+
+def bwd_case(torch, fla, dtype, b, sq, skv, h, hkv, d, causal, window,
+             seed=0):
+    """(q, k, v, out, dout): random inputs, the forward kernel's output."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
+    return q, k, v, fla.flash_attention_cuda(q, k, v, causal=causal,
+                                             window=window), do
+
+
+def check_flash_bwd(torch, fla) -> dict:
+    """The backward kernel against ``flash_attention_bwd_plain`` at
+    :data:`BWD_FORMS` in bf16 and float32 (each of dq, dk, dv relative to
+    its largest plain entry), and two calls bit for bit equal.  Returns the
+    largest absolute and relative errors."""
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for label, *shape in BWD_FORMS:
+            causal, window = shape[-2:]
+            args = bwd_case(torch, fla, dtype, *shape)
+            got = fla.flash_attention_bwd_cuda(*args, causal=causal,
+                                               window=window)
+            again = fla.flash_attention_bwd_cuda(*args, causal=causal,
+                                                 window=window)
+            torch.cuda.synchronize()
+            want = fla.flash_attention_bwd_plain(*args, causal=causal,
+                                                 window=window)
+            errs = [max_err(torch, a, w) for a, w in zip(got, want)]
+            rels = [e / w.float().abs().max().item()
+                    for e, w in zip(errs, want)]
+            same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+            ok = (max(rels) <= BWD_REL[dname] and same
+                  and all(bool(torch.isfinite(a).all()) for a in got))
+            log(f"  flash_attention_bwd {dname:8s} {label:18s} "
+                f"max|kernel-plain|/max|plain| dq {rels[0]:.2e} dk "
+                f"{rels[1]:.2e} dv {rels[2]:.2e} (tol {BWD_REL[dname]:g}); "
+                f"two calls bit for bit {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {dname} {label}: "
+                                     f"{rels}, repeat equal {same}")
+            worst["max_abs_err"] = max(worst["max_abs_err"], *errs)
+            worst["max_rel_err"] = max(worst["max_rel_err"], *rels)
+            del args, got, again, want
+        torch.cuda.empty_cache()
+    return worst
+
+
+def check_rmsnorm_fn(torch, ops, rms) -> float:
+    """``RmsnormFn`` (the kernel forward, the float32 backward) against
+    autograd through ``rmsnorm_plain``: dx and dw at 2048 rows of D 896
+    (qwen2-0.5b's training rows), float32 (1e-5 of the largest plain
+    gradient) and bf16 x with float32 w (1e-2)."""
+    worst = 0.0
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        x = (torch.randn((2048, 896), generator=g, device="cuda") * 2
+             ).to(dtype)
+        w = 1 + 0.1 * torch.randn((896,), generator=g, device="cuda")
+        dy = torch.randn((2048, 896), generator=g, device="cuda").to(dtype)
+        xs = [x.clone().requires_grad_() for _ in range(2)]
+        ws = [w.clone().requires_grad_() for _ in range(2)]
+        got = torch.autograd.grad(ops.RmsnormFn.apply(
+            xs[0], ws[0], 1e-6, rms.rmsnorm_cuda), (xs[0], ws[0]), dy)
+        want = torch.autograd.grad(rms.rmsnorm_plain(xs[1], ws[1], 1e-6),
+                                   (xs[1], ws[1]), dy)
+        rels = [max_err(torch, a, b) / b.float().abs().max().item()
+                for a, b in zip(got, want)]
+        ok = max(rels) <= tol
+        log(f"  RmsnormFn         {str(dtype).split('.')[-1]:8s} 2048x896: "
+            f"dx {rels[0]:.2e} dw {rels[1]:.2e} of the largest plain "
+            f"gradient (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"RmsnormFn grads disagree: {rels}")
+        worst = max(worst, *rels)
+    return worst
+
+
+def time_flash_bwd(torch, fla, F) -> dict:
+    """The backward kernel at 6a's bf16 training shape (B 8 x S 512,
+    qwen2-0.5b's heads, causal): a call and device alone, its plain
+    version, and SDPA's backward as the library yardstick (autograd.grad
+    of one ``scaled_dot_product_attention`` graph, kept between calls);
+    ``bound_ms`` by operations, five products of the forward's size halved
+    under causal, at the bf16 tensor-core rate, against the bytes of q, k,
+    v, out, dout read and dq, dk, dv written once."""
+    b, s, h, hkv, d = (BWD_TRAIN[k] for k in ("b", "s", "h", "hkv", "d"))
+    one = bwd_case(torch, fla, torch.bfloat16, b, s, s, h, hkv, d, True, 0)
+    n_sets = max(2, 2 * L2_BYTES // nbytes(*one) + 1)
+    sets = [bwd_case(torch, fla, torch.bfloat16, b, s, s, h, hkv, d, True, 0,
+                     seed=i) for i in range(n_sets)]
+    graphs = []
+    for q, k, v, _, do in sets:
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+        graphs.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    kern = lambda i: fla.flash_attention_bwd_cuda(*sets[i])  # noqa: E731
+    lib = lambda i: torch.autograd.grad(  # noqa: E731
+        graphs[i][0], graphs[i][1], graphs[i][2], retain_graph=True)
+    flops = 5 * 2 * b * h * s * s * d / 2
+    byts = nbytes(*one) + nbytes(*one[:3])
+    row = {"ms": time_ms(torch, kern, n_sets),
+           "device_ms": device_ms(torch, kern, n_sets),
+           "plain_ms": time_ms(torch, lambda i: fla.flash_attention_bwd_plain(
+               *sets[i]), n_sets, cycles=1),
+           "library_ms": time_ms(torch, lib, n_sets),
+           "library_device_ms": device_ms(torch, lib, n_sets),
+           "library": "SDPA backward",
+           **bound(byts, flops),
+           "shape": f"B{b} S{s} H{h} Hkv{hkv} D{d} bf16 causal, {n_sets} sets"}
+    del sets, graphs
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: training
+# --------------------------------------------------------------------------- #
+# kernels vs plain gradients, each leaf relative to its largest plain
+# entry, in float32: the attention and norm kernels' outputs differ from
+# the plain versions' by float32 summation order (~1e-6), which the
+# 24-layer backward carries into every leaf
+TRAIN_GRAD_REL = 1e-3
+TRAIN_LOSS_REL = 1e-5
+# microbatches 2 against 1: the same gradient summed over two halves, in
+# float32 (the first moment after one step is 0.1 x the clipped gradient)
+MICRO_REL = 1e-4
+TRAIN_STEPS = 30
+TRAIN_DATA_VOCAB = 512    # the bigram data's ids, as examples/train_tiny.py
+
+
+def train_batch(torch, tts, vocab, b, s, seed, phrase=False):
+    """A training batch of random tokens (``phrase``: row 0 one repeated
+    6-token phrase, which crowds an MoE layer's experts past capacity)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, vocab, (b, s), generator=g, device="cuda")
+    if phrase:
+        toks[0] = phrase_prompt(torch, g, vocab, s)
+    return tts.batch_to({"tokens": toks, "labels": toks.roll(-1, 1),
+                         "mask": torch.ones((b, s), device="cuda")}, "cuda")
+
+
+def grads_vs_plain(torch, ns, cfg, params, batch, what, *,
+                   tol=TRAIN_GRAD_REL, **kw) -> dict:
+    """One loss and every gradient leaf through the kernels against the
+    same through the plain versions (autograd through
+    ``flash_attention_plain`` and ``rmsnorm_plain``): every leaf has a
+    finite gradient, each within ``tol`` of its largest plain entry.
+    Returns the
+    readings, the kernels' launches and the kernels' (loss, grads)."""
+    zero(ns.wrappers)
+    loss, parts, grads = ns.tts.loss_and_grads(params, batch, cfg=cfg, **kw)
+    torch.cuda.synchronize()
+    launches = counted(ns.wrappers)
+    with plain_attention(ns.ops, names=("flash_attention", "rmsnorm")):
+        ploss, pparts, pgrads = ns.tts.loss_and_grads(params, batch, cfg=cfg,
+                                                      **kw)
+    paths = [p for p, _ in ns.tree_flatten_with_path(params)]
+    worst, where = 0.0, None
+    for path, g, pg in zip(paths, grads, pgrads):
+        if g is None or pg is None:
+            raise AssertionError(f"{what}: no gradient for {path}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: non-finite gradient for {path}")
+        rel = max_err(torch, g, pg) / max(pg.float().abs().max().item(),
+                                          1e-30)
+        if rel > worst:
+            worst, where = rel, "/".join(map(str, path))
+    loss_rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
+    aux = float(parts["aux_loss"])
+    log(f"  {what}: loss {float(loss):.6f} (plain {float(ploss):.6f}, rel "
+        f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL:g}), aux {aux:.6f}; "
+        f"{len(paths)} leaves, every one with a finite gradient, worst "
+        f"max|Δ|/max|plain| {worst:.2e} at {where} (tol {tol:.2g}); "
+        f"launches {launches}")
+    if loss_rel > TRAIN_LOSS_REL or worst > tol:
+        raise AssertionError(f"{what}: kernels vs plain loss {loss_rel}, "
+                             f"grads {worst} at {where}")
+    return {"loss": float(loss), "plain_loss": float(ploss),
+            "loss_rel": loss_rel, "aux_loss": aux, "worst_leaf_rel": worst,
+            "worst_leaf": where, "leaves": len(paths),
+            "launches": launches, "result": (loss, grads)}
+
+
+def check_training_qwen(torch, ns, get_config) -> dict:
+    """6a: ``qwen2-0.5b`` at full depth.  float32 at B 4 x S 512: the
+    kernels against the plain versions, remat on against off bit for bit,
+    a step with microbatches 2 against 1; bf16 at B 8 x S 512: 30 steps on
+    the bigram data (the loss falls; tokens/s and peak memory read), a
+    checkpoint round trip bit for bit, and the launcher for a few steps."""
+    out = {}
+    cfg32 = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
+    params = ns.Model(cfg32).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batch(torch, ns.tts, cfg32.vocab_size, 4, 512, seed=1)
+    kp = grads_vs_plain(torch, ns, cfg32, params, batch,
+                        "6a float32 B4xS512, remat off", remat=False)
+    loss0, grads0 = kp.pop("result")
+    if not (kp["launches"]["flash_attention"] and
+            kp["launches"]["flash_attention_bwd"]
+            and kp["launches"]["rmsnorm"]):
+        raise AssertionError(f"6a: a kernel of the path never ran: "
+                             f"{kp['launches']}")
+    out["f32_kernels_vs_plain"] = kp
+    loss1, _, grads1 = ns.tts.loss_and_grads(params, batch, cfg=cfg32,
+                                             remat=True)
+    same = bool(torch.equal(loss0, loss1)) and all(
+        bool(torch.equal(a, b)) for a, b in zip(grads0, grads1))
+    log(f"  6a remat on vs off: loss and all {len(grads0)} gradient leaves "
+        f"bit for bit {same}")
+    if not same:
+        raise AssertionError("6a: remat on differs from remat off")
+    out["remat_bit_for_bit"] = same
+    del grads0, grads1
+    opt = ns.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    states, metrics = [], []
+    for mb in (1, 2):
+        state = ns.tts.init_train_state(
+            cfg32, params=ns.tree_map(torch.clone, params))
+        _, m = ns.tts.make_train_step(cfg32, opt, remat=False,
+                                      microbatches=mb)(state, batch)
+        states.append(state["opt"]["m"])
+        metrics.append(m)
+    worst = max(max_err(torch, a, b) / max(b.abs().max().item(), 1e-30)
+                for a, b in zip(ns.tree_leaves(states[1]),
+                                ns.tree_leaves(states[0])))
+    mrel = max(abs(metrics[1][k] - metrics[0][k]) / max(abs(metrics[0][k]),
+                                                         1e-30)
+               for k in ("loss", "grad_norm"))
+    log(f"  6a microbatches 2 vs 1 (one step, float32): loss / grad norm "
+        f"rel {mrel:.2e}, first moments (0.1 x the clipped gradient) "
+        f"max|Δ|/max {worst:.2e} (tol {MICRO_REL:g})")
+    if worst > MICRO_REL or mrel > MICRO_REL:
+        raise AssertionError(f"6a: microbatches 2 vs 1 {worst}, {mrel}")
+    out["microbatch_2_vs_1"] = {"moment_rel": worst, "metric_rel": mrel}
+    del params, states, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("qwen2-0.5b")
+    state = ns.tts.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    data = ns.BigramDataPipeline(TRAIN_DATA_VOCAB, 512, 8, seed=0)
+    step = ns.tts.make_train_step(
+        cfg, ns.AdamWConfig(lr=1e-3, warmup_steps=6,
+                            total_steps=TRAIN_STEPS), remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, t_steady = [], None
+    zero(ns.wrappers)
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        if i == 5:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        state, m = step(state, data.batch(i))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = counted(ns.wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok_s = 8 * 512 * (TRAIN_STEPS - 5) / (t_end - t_steady)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"  6a bf16 B8xS512, {TRAIN_STEPS} steps: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the first 5 {first:.4f}, last 5 "
+        f"{last:.4f}); {tok_s:,.0f} tokens/s over steps 5-{TRAIN_STEPS - 1} "
+        f"({(t_end - t0) / TRAIN_STEPS:.3f} s a step with the first), peak "
+        f"{peak:.2f} GiB allocated; launches {launches} on {smi()}")
+    if not last < first - 0.3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"6a: the loss did not fall: {losses}")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    if not (per_step["flash_attention"] == per_step["flash_attention_bwd"]
+            == cfg.num_layers and launches["rmsnorm"] > 0):
+        raise AssertionError(f"6a: expected {cfg.num_layers} flash and "
+                             f"flash_attention_bwd launches a step: "
+                             f"{launches}")
+    out["bf16_steps"] = {"losses": losses, "tokens_per_s": tok_s,
+                         "peak_gib": peak, "launches": launches,
+                         "s_per_step": (t_end - t0) / TRAIN_STEPS}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        ns.save_checkpoint(path, state, step=TRAIN_STEPS)
+        size = os.path.getsize(path) / 2**30
+        back = ns.restore_checkpoint(path, state)
+        step_back = ns.checkpoint_step(path)
+    same = step_back == TRAIN_STEPS and all(
+        a.dtype == b.dtype and bool(torch.equal(a, b))
+        for a, b in zip(ns.tree_leaves(back), ns.tree_leaves(state)))
+    log(f"  6a checkpoint of the bf16 state ({size:.2f} GiB .npz): restored "
+        f"bit for bit {same} in {time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("6a: the checkpoint round trip differs")
+    out["checkpoint"] = {"bit_for_bit": same, "gib": size}
+    del state, back
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = ns.train_launcher.main(["--arch", "qwen2-0.5b", "--steps", "3",
+                                  "--batch", "2", "--seq", "256",
+                                  "--log-every", "1"])
+    log(f"  6a launch/train.py --arch qwen2-0.5b --steps 3 --batch 2 --seq "
+        f"256: loss {res['first_loss']:.4f} -> {res['last_loss']:.4f} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not math.isfinite(res["last_loss"]):
+        raise AssertionError("6a: the launcher's loss is not finite")
+    out["launcher"] = res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_training_moe(torch, ns, get_config) -> dict:
+    """6b: ``deepseek-moe-16b`` at published widths cut to 3 layers (the
+    dense layer 0 and 2 MoE layers, as phase 3 cuts it), float32, B 2 x S
+    512 with a repeated phrase in row 0, remat on (the reference loss's
+    default; its 2 MoE layers are the repeat groups, recomputed in the
+    backward): kernels against plain, the aux loss > 0 and capacity drops
+    > 0."""
+    cfg = dataclasses.replace(get_config(MOE), dtype="float32", num_layers=3)
+    params = ns.Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = train_batch(torch, ns.tts, cfg.vocab_size, 2, 512, seed=2,
+                        phrase=True)
+    with counting_drops(torch, ns.layers, []) as drops:
+        kp = grads_vs_plain(torch, ns, cfg, params, batch,
+                            f"6b {MOE} 3 layers float32 B2xS512, remat on",
+                            remat=True)
+    kp.pop("result")
+    dropped = sum(drops[:2])       # the kernels' run (the plain run follows)
+    log(f"  6b capacity factor {cfg.moe.capacity_factor} dropped {dropped} "
+        f"(token, expert) pairs over the 2 MoE layers; aux loss "
+        f"{kp['aux_loss']:.6f}")
+    if not (kp["aux_loss"] > 0 and dropped > 0 and
+            kp["launches"]["flash_attention_bwd"]):
+        raise AssertionError(f"6b: aux {kp['aux_loss']}, drops {dropped}, "
+                             f"launches {kp['launches']}")
+    kp["dropped"] = dropped
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return kp
+
+
+def ssd_grad_sensitivity(torch, ns, cfg, params, batch) -> float:
+    """The plain path's own float32 sensitivity: its worst gradient leaf
+    (max|Δ| / max) against the same plain path with the SSD's decay matrix
+    in float64 (``segsum_in_float64``), the cancellation phase 3's decode
+    check reads."""
+    with plain_attention(ns.ops, names=("flash_attention", "rmsnorm")):
+        _, _, g32 = ns.tts.loss_and_grads(params, batch, cfg=cfg)
+        with segsum_in_float64(ns.ops):
+            _, _, g64 = ns.tts.loss_and_grads(params, batch, cfg=cfg)
+    return max(max_err(torch, a, b) / max(b.float().abs().max().item(), 1e-30)
+               for a, b in zip(g32, g64))
+
+
+def check_training_mamba(torch, ns, get_config) -> dict:
+    """6c: ``mamba2-780m`` in float32, B 2 x S 512, remat on (the reference
+    loss's default): kernels against plain (only rmsnorm differs; the SSD
+    runs its differentiable path), cut to 2 layers within
+    :data:`TRAIN_GRAD_REL`, and at full depth (48 layers) within twice the
+    plain path's own sensitivity to the SSD's float32 decay matrix
+    (:func:`ssd_grad_sensitivity`; at least :data:`TRAIN_GRAD_REL`): 48
+    layers of random weights carry a last-bit difference of the norm into
+    every leaf."""
+    out = {}
+    for depth in (2, None):
+        cfg = dataclasses.replace(get_config(MAMBA), dtype="float32",
+                                  **({"num_layers": depth} if depth else {}))
+        layers_n = depth or cfg.num_layers
+        params = ns.Model(cfg).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        batch = train_batch(torch, ns.tts, cfg.vocab_size, 2, 512, seed=3)
+        tol, control = TRAIN_GRAD_REL, None
+        if depth is None:
+            control = ssd_grad_sensitivity(torch, ns, cfg, params, batch)
+            tol = max(TRAIN_GRAD_REL, 2 * control)
+            log(f"  6c the plain path's gradients with the SSD's decay "
+                f"matrix in float64 against float32: worst leaf "
+                f"{control:.2e}; the kernels' limit {tol:.2e}")
+        kp = grads_vs_plain(torch, ns, cfg, params, batch,
+                            f"6c {MAMBA} {layers_n} layers float32 B2xS512",
+                            tol=tol, remat=True)
+        kp.pop("result")
+        kp["tol"], kp["plain_f64_segsum_rel"] = tol, control
+        if not kp["launches"]["rmsnorm"] or kp["launches"]["flash_attention"]:
+            raise AssertionError(f"6c: launches {kp['launches']}")
+        out[f"{layers_n}_layers"] = kp
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = out["48_layers"]["launches"]
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # phase 5: times
 # --------------------------------------------------------------------------- #
 def time_ms(torch, fn, n_sets: int, cycles: int = 2) -> float:
@@ -5119,7 +5575,17 @@ def main() -> int:
     from repro_torch.core.request import Request, SamplingParams
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import layers
-    from repro_torch.models.model import Model, init_cache, tree_leaves
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.model import (Model, init_cache, tree_leaves,
+                                          tree_map)
+    from repro_torch.training import train_step as tts
+    from repro_torch.training.checkpoint import (checkpoint_step,
+                                                 restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.training.data import BigramDataPipeline
+    from repro_torch.training.optimizer import (AdamWConfig,
+                                                tree_flatten_with_path)
+    from repro_torch.training.optimizer import tree_leaves as sorted_leaves
     from repro_torch.serving.api import OpenAIServer
     from repro_torch.serving.client import EngineClient
     from repro_torch.serving import media
@@ -5153,9 +5619,13 @@ def main() -> int:
     threefry = check_threefry(torch, sampling)
     cat_check = check_categorical(torch, cat, sampling)
     errs["categorical"] = cat_check["max_abs_err"]
+    bwd_check = check_flash_bwd(torch, fla)
+    errs["flash_attention_bwd"] = bwd_check["max_abs_err"]
+    bwd_check["rmsnorm_fn_rel"] = check_rmsnorm_fn(torch, ops, rms)
 
     wrappers = {"decode_attention": dec.decode_attention_cuda,
                 "flash_attention": fla.flash_attention_cuda,
+                "flash_attention_bwd": fla.flash_attention_bwd_cuda,
                 "paged_attention": pag.paged_attention_cuda,
                 "quant_matmul": qm.quant_matmul_cuda,
                 "rmsnorm": rms.rmsnorm_cuda,
@@ -5374,6 +5844,24 @@ def main() -> int:
         "requests, dense ring and fp pages; a seeded request on each replica "
         "and after the drain")
     k4["b_drain"] = check_router_drain(torch, ns, serve_mod, wrappers)
+    ns6 = types.SimpleNamespace(
+        ops=ops, layers=ns3.layers, Model=Model, tts=tts, wrappers=wrappers,
+        AdamWConfig=AdamWConfig, BigramDataPipeline=BigramDataPipeline,
+        save_checkpoint=save_checkpoint,
+        restore_checkpoint=restore_checkpoint,
+        checkpoint_step=checkpoint_step, train_launcher=train_launcher,
+        tree_flatten_with_path=tree_flatten_with_path,
+        tree_leaves=sorted_leaves, tree_map=tree_map)
+    log("== 6a. training qwen2-0.5b at full depth: float32 kernels vs plain "
+        "gradients, remat, microbatches; 30 bf16 steps, a checkpoint, the "
+        "launcher")
+    six = {"a_qwen": check_training_qwen(torch, ns6, get_config)}
+    log(f"== 6b. training {MOE} at published widths, 3 layers, float32: "
+        "kernels vs plain, the aux loss and capacity drops")
+    six["b_moe"] = check_training_moe(torch, ns6, get_config)
+    log(f"== 6c. training {MAMBA} at full depth, float32: kernels vs plain "
+        "(the differentiable SSD)")
+    six["c_mamba"] = check_training_mamba(torch, ns6, get_config)
     spec["phase3_verify"] = verify3
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
@@ -5381,7 +5869,10 @@ def main() -> int:
                 "paged_attention": paged_launches["paged_attention"],
                 "quant_matmul": qmm_launches,
                 "rmsnorm": dense_launches["rmsnorm"],
-                "categorical": sampled["kernel"]["launches"]["categorical"]}
+                "categorical": sampled["kernel"]["launches"]["categorical"],
+                "flash_attention_bwd":
+                    six["a_qwen"]["bf16_steps"]["launches"][
+                        "flash_attention_bwd"]}
 
     log("== 5. times at the serving shapes (CUDA events)")
     times = time_kernels(torch, dec, fla, pag, qm)
@@ -5390,10 +5881,18 @@ def main() -> int:
     times["rmsnorm"] = time_rmsnorm(torch, rms, F)
     times["categorical"] = time_categorical(torch, cat, sampling)
     sampler_step = time_sampler(torch, sampling, ops)
+    times["flash_attention_bwd"] = time_flash_bwd(torch, fla, F)
     kernels = []
     for name in KERNEL_NAMES:
         t = times[name]
-        if name == "categorical":
+        if name == "flash_attention_bwd":
+            log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms "
+                f"(device alone {t['device_ms']:.4f}), plain "
+                f"{t['plain_ms']:.4f} ms, SDPA backward {t['library_ms']:.4f}"
+                f" ms (device alone {t['library_device_ms']:.4f}; kernel/"
+                f"library {t['ms'] / t['library_ms']:.3f}), bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}) on {card}")
+        elif name == "categorical":
             log(f"  {name:17s} {t['shape']}: kernel {t['ms']:.4f} ms (device "
                 f"alone {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
                 f"no library call (torch.argmax alone {t['argmax_ms']:.4f} "
@@ -5426,7 +5925,20 @@ def main() -> int:
                                        "paged": moe_paged_launches[name]},
                 "pressure_round_launches":
                     pressure["pressure"]["launches"][name]}
-               if name not in ("quant_matmul", "categorical") else {}),
+               if name not in ("quant_matmul", "categorical",
+                               "flash_attention_bwd") else {}),
+            **({"train_launches": {
+                    "a_f32_step": six["a_qwen"]["f32_kernels_vs_plain"][
+                        "launches"].get(name, 0),
+                    "a_bf16_30_steps": six["a_qwen"]["bf16_steps"][
+                        "launches"].get(name, 0),
+                    "b_moe_step": six["b_moe"]["launches"].get(name, 0),
+                    "c_mamba_step": six["c_mamba"]["launches"].get(name, 0)}}
+               if name in ("flash_attention", "flash_attention_bwd",
+                           "rmsnorm") else {}),
+            **({"max_rel_err": bwd_check["max_rel_err"],
+                "rmsnorm_fn_rel": bwd_check["rmsnorm_fn_rel"]}
+               if name == "flash_attention_bwd" else {}),
             "ssm_round_launches": {
                 f"{m}_{layout}": m4[k][layout]["launches"][name]
                 for m, k in (("mamba", "a_mamba"), ("jamba", "c_jamba"))
@@ -5440,7 +5952,7 @@ def main() -> int:
              "policy_preemption": policy_preempt, "pressure": pressure,
              "admission": admission, "j4": j4, "k4": k4, "m4": m4,
              "mamba_phase3": ssm3,
-             "n4": n4,
+             "n4": n4, "train": six,
              "threefry_card_vs_cpu": threefry, "sampler_step": sampler_step,
              "categorical_check": cat_check, "sampled": sampled,
              "card": card, "smoke_s": time.perf_counter() - t_start}

@@ -42,6 +42,8 @@ SIGNATURES = {
                          [_PTR] * 6 + [_INT] * 7 + [_LL] * 7 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
                         [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
+    "flash_attention_bwd": ("flash_attention_bwd_launch",
+                            [_PTR] * 10 + [_INT] * 9 + [_PTR]),
     "paged_attention": ("paged_attention_launch",
                         [_PTR] * 9 + [_INT] * 9 + [_LL] * 13 + [_PTR]),
     "quant_matmul": ("quant_matmul_launch", [_PTR] * 5 + [_INT] * 6 + [_PTR]),

@@ -1,5 +1,6 @@
-"""Blocked flash attention for prefill: the hand-written CUDA kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch version.
+"""Blocked flash attention for prefill and training: the hand-written CUDA
+kernels (``csrc/flash_attention.cu``, the forward; ``csrc/
+flash_attention_bwd.cu``, the backward) and their plain PyTorch versions.
 
 Replaces the reference's Pallas TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention.py``), widened to the whole
@@ -24,6 +25,13 @@ heads of one kv head packed into the rows of a tile; float32 runs on the
 CUDA cores.  :func:`packed_rows` and :func:`tile_range` mirror the bf16
 kernel's row packing and tile skipping so the CPU tests can hold them to
 :func:`live_mask`.
+
+The backward (:func:`flash_attention_bwd_cuda`, :func:`flash_attention_bwd_plain`)
+takes the training form only — causal or not, a window, GQA, ``q_offset``
+0, no ``q_positions`` or ``kv_valid`` — and gives dQ, dK and dV; dK and dV
+sum the G query heads of each kv head.  No TPU kernel stands behind it:
+``pallas_call`` has no transpose rule, and the reference's gradient is
+XLA's autodiff of ``_flash_jnp``.
 """
 from __future__ import annotations
 
@@ -232,3 +240,136 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# the backward (training): dQ, dK, dV
+# --------------------------------------------------------------------------- #
+def first_dead_row(sq: int, skv: int, *, causal: bool, window: int):
+    """The first query row of the training form (``q_offset`` 0, no
+    ``q_positions`` or ``kv_valid``) that sees no key, or None.  Row ``i``
+    sees ``[max(0, i - window + 1), i]`` (causal) or ``[.., Skv - 1]``,
+    clipped to ``[0, Skv)``; its upper end never falls below 0, so only the
+    lower end can pass ``Skv - 1``, first at ``i = Skv + window - 1``."""
+    if sq and not skv:
+        return 0
+    if window > 0 and sq - window >= skv:
+        return skv + window - 1
+    return None
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, chunk: int = 1024):
+    """(dq, dk, dv) of :func:`flash_attention_plain`'s training form (no
+    ``q_positions``, ``kv_valid`` or ``q_offset``), the algorithm of
+    ``csrc/flash_attention_bwd.cu`` written out in torch, in float32 over
+    KV chunks: each row's log-sum-exp of its scaled live scores and
+    ``delta = rowsum(dout * out)``; then per chunk ``P = exp(S - lse)``
+    (0 where masked), ``dP = dout V^T``, ``dS = P * (dP - delta)``,
+    ``dV = P^T dout``, ``dK = dS^T Q * scale``, ``dQ += dS K * scale``.
+    Each gradient comes back in its input's dtype."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    ck = max(1, min(chunk, skv))
+    scale = 1.0 / d ** 0.5
+    qpos = torch.arange(sq, device=q.device)[None].expand(b, sq)
+    qf = q.reshape(b, sq, hkv, g, d).float()
+    dof = dout.reshape(b, sq, hkv, g, d).float()
+    delta = (dof * out.reshape(b, sq, hkv, g, d).float()).sum(-1) \
+        .permute(0, 2, 3, 1)                                  # [B,Hkv,G,Sq]
+
+    def chunk_scores(k0):
+        kc = k[:, k0:k0 + ck].float()
+        live = torch.ones((b, kc.shape[1]), dtype=torch.bool, device=q.device)
+        mask = live_mask(qpos, skv, causal=causal, window=window,
+                         kv_valid=live, k_start=k0)[:, None, None]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc) * scale
+        return kc, mask, torch.where(mask, s, NEG_INF)
+
+    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), device=q.device)
+    for k0 in range(0, skv, ck):
+        _, _, s = chunk_scores(k0)
+        m_new = torch.maximum(m, s.amax(-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
+        m = m_new
+    lse = m + torch.log(l)
+
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((b, skv, hkv, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, skv, hkv, d), dtype=v.dtype, device=v.device)
+    for k0 in range(0, skv, ck):
+        kc, mask, s = chunk_scores(k0)
+        vc = v[:, k0:k0 + ck].float()
+        p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vc)
+        ds = p * (dp - delta[..., None])
+        dv[:, k0:k0 + ck] = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+        dk[:, k0:k0 + ck] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * scale
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kc)
+    return (dq.mul_(scale).reshape(b, sq, h, d).to(q.dtype), dk, dv)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             dout: torch.Tensor, *, causal: bool = True,
+                             window: int = 0, q_offset: int = 0,
+                             q_positions: Optional[torch.Tensor] = None,
+                             kv_valid: Optional[torch.Tensor] = None):
+    """Launch ``csrc/flash_attention_bwd.cu`` (its pre-pass, dK/dV and dQ
+    kernels, one C call) on PyTorch's current stream: (dq, dk, dv) in the
+    inputs' dtype.  It takes the training form only and raises on
+    ``q_positions``, ``kv_valid``, a ``q_offset`` or a row with no live key
+    (:func:`first_dead_row`), never computing those plainly.  Non-contiguous
+    inputs are copied contiguous first."""
+    if q_positions is not None or kv_valid is not None or q_offset:
+        raise ValueError("flash_attention_bwd_cuda takes the training form "
+                         "only: no q_positions, kv_valid or q_offset")
+    tensors = [t.contiguous() for t in (q, k, v, out, dout)]
+    q, k, v, out, dout = tensors
+    check_device(tensors, "flash_attention_bwd_cuda")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError("the flash backward takes float32 or bfloat16 "
+                         "q/k/v/out/dout of one dtype, got "
+                         f"{[str(t.dtype) for t in tensors]}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v "
+                         f"{tuple(v.shape)} out {tuple(out.shape)} dout "
+                         f"{tuple(dout.shape)}: want [B,Sq,H,D] and "
+                         "[B,Skv,Hkv,D]")
+    b, sq, h, d = q.shape
+    kb, skv, hkv, kd = k.shape
+    if kb != b or kd != d or h % hkv:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         "do not agree")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported (want one of "
+                         f"{HEAD_DIMS})")
+    dead = first_dead_row(sq, skv, causal=causal, window=window)
+    if dead is not None:
+        raise ValueError(f"query row {dead} sees no key (Skv {skv}, window "
+                         f"{window}): the flash backward takes no dead row")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention_bwd_cuda needs 16-byte aligned "
+                         "tensors")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not b * sq:
+        return dq, dk.zero_(), dv.zero_()
+    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    launch, lib = build.load("flash_attention_bwd")
+    code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), b, sq, skv,
+                  h, hkv, d, _DTYPES[q.dtype], int(causal), int(window),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, code, "flash_attention_bwd")
+    build.count_launch(flash_attention_bwd_cuda)
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0

@@ -10,7 +10,10 @@ CPU path of its ``paged_attention``, ``_qmm_plain`` the arithmetic of its
 ``_qmm_kernel``, ``rmsnorm_plain`` the body of its ``rmsnorm`` (a kernel of
 the port's own, row-invariant on the card), ``categorical_plain`` its
 vmapped ``random.categorical`` of folded step keys (the port's other
-own kernel, the sampler's draw).  The Mamba-2 SSD functions (:func:`ssd`,
+own kernel, the sampler's draw).  With grad enabled, attention's training
+form and rmsnorm run through the autograd nodes :class:`FlashAttentionFn`
+(the backward kernel ``flash_attention_bwd_cuda`` on the card) and
+:class:`RmsnormFn`.  The Mamba-2 SSD functions (:func:`ssd`,
 :func:`ssd_decode_step`) are the reference's plain-jnp ones in plain torch
 on every device: no Pallas kernel stands behind them.  The kernels
 themselves live in
@@ -32,19 +35,69 @@ from repro_torch.kernels.categorical import (categorical_cuda,
                                              categorical_plain)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                 flash_attention_bwd_plain,
+                                                 flash_attention_cuda,
                                                  flash_attention_plain)
 from repro_torch.kernels.paged_attention import (paged_attention_cuda,
                                                  paged_attention_plain)
 from repro_torch.kernels.quant_matmul import (quant_matmul_cuda,
                                               quant_matmul_plain,
                                               quantize_int8)  # noqa: F401
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain, rmsnorm_cuda,
+                                         rmsnorm_plain)
 
 _flash_plain = flash_attention_plain
 _decode_plain = decode_attention_plain
 _paged_plain = paged_attention_plain
 _qmm_plain = quant_matmul_plain
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention's training form (no ``q_positions``, ``kv_valid`` or
+    ``q_offset``) as an autograd node: ``fwd(q, k, v, causal=, window=)``
+    gives the output, ``bwd(q, k, v, out, dout, causal=, window=)`` gives
+    (dq, dk, dv).  :func:`flash_attention` passes the kernels
+    (``flash_attention_cuda``, ``flash_attention_bwd_cuda``) on the card
+    and the plain versions on the CPU; tests pass either pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, fwd, bwd):
+        out = fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window, ctx.bwd = causal, window, bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, out, dout, causal=ctx.causal,
+                             window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+class RmsnormFn(torch.autograd.Function):
+    """rmsnorm as an autograd node: ``fwd(x, w, eps)`` gives the output
+    (the row-invariant kernel on the card, the plain version on the CPU);
+    the backward is :func:`repro_torch.kernels.rmsnorm.rmsnorm_bwd_plain`,
+    the float32 formula in torch (the reference's rmsnorm and its
+    gradient are plain jnp: no kernel stands behind either)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, fwd):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return fwd(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd_plain(x, w, dy, ctx.eps)
+        return dx, dw, None, None
 
 
 def flash_attention(
@@ -58,6 +111,23 @@ def flash_attention(
     q_positions: Optional[torch.Tensor] = None,   # [B, Sq] absolute positions
     kv_valid: Optional[torch.Tensor] = None,      # [B, Skv] liveness mask
 ) -> torch.Tensor:
+    """With grad enabled and an input that requires it, the training form
+    runs through :class:`FlashAttentionFn` (the forward and backward
+    kernels on the card).  On the card any other form then raises: the
+    backward kernel does not take it, and nothing falls back; on the CPU it
+    differentiates through the plain version."""
+    if _needs_grad(q, k, v):
+        train_form = q_positions is None and kv_valid is None and not q_offset
+        if train_form:
+            fwd, bwd = ((flash_attention_cuda, flash_attention_bwd_cuda)
+                        if q.is_cuda else
+                        (_flash_plain, flash_attention_bwd_plain))
+            return FlashAttentionFn.apply(q, k, v, causal, window, fwd, bwd)
+        if q.is_cuda:
+            raise ValueError("flash attention with grad takes the training "
+                             "form only (no q_positions, kv_valid or "
+                             "q_offset): the backward kernel does not take "
+                             "this call")
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset,
@@ -109,7 +179,11 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor,
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """``x [..., D] * rsqrt(mean(x^2) + eps) * w [D]`` in float32, cast to
     x's dtype; on the card each row's sum runs in one fixed order whatever
-    the number of rows."""
+    the number of rows.  With grad enabled and an input that requires it,
+    it runs through :class:`RmsnormFn`."""
+    if _needs_grad(x, w):
+        return RmsnormFn.apply(x, w, eps,
+                               rmsnorm_cuda if x.is_cuda else rmsnorm_plain)
     if x.is_cuda:
         return rmsnorm_cuda(x, w, eps)
     return rmsnorm_plain(x, w, eps)
@@ -160,7 +234,7 @@ def ssd(
     is.  Each einsum of the reference runs as explicit products in an
     order that keeps the intermediates small: ``C.B`` per group ``[B, nc,
     G, Q, Q]`` scales the decay matrix in place (the one ``[B, nc, H, Q,
-    Q]`` tensor), and the chunk states and their read-out contract each
+    Q]`` tensor; out of place when an input requires grad), and the chunk states and their read-out contract each
     group's ``rep * P`` columns at once, so no ``[.., Q, Q, H, N]`` or
     ``[.., P, N]``-per-step tensor appears."""
     bsz, s, h, p = x.shape
@@ -183,10 +257,16 @@ def ssd(
         .permute(0, 1, 3, 2)                             # [B,nc,H,Q]
     cs = torch.cumsum(dac, dim=-1)
 
-    # 1) intra-chunk (diagonal blocks): (C.B per group) * L, then @ x
-    l_mat = _segsum(dac).exp_()                          # [B,nc,H,Q,Q]
-    l_mat.view(bsz, nc, g, rep, q, q).mul_(
-        (cc @ bc.transpose(-1, -2))[:, :, :, None])
+    # 1) intra-chunk (diagonal blocks): (C.B per group) * L, then @ x; in
+    # place when nothing is differentiated (exp's backward reads its result)
+    cb = (cc @ bc.transpose(-1, -2))[:, :, :, None]
+    if _needs_grad(x, dt, a, b_mat, c_mat,
+                   *(() if init_state is None else (init_state,))):
+        l_mat = (torch.exp(_segsum(dac)).view(bsz, nc, g, rep, q, q) * cb) \
+            .view(bsz, nc, h, q, q)
+    else:
+        l_mat = _segsum(dac).exp_()                      # [B,nc,H,Q,Q]
+        l_mat.view(bsz, nc, g, rep, q, q).mul_(cb)
     y = l_mat @ xc                                       # [B,nc,H,Q,P]
     del l_mat
 

@@ -14,7 +14,10 @@ its host path, which takes one test on the common case.
 
 :func:`rmsnorm_cuda` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`rmsnorm_plain` serves CPU tensors, the
-tests and the on-card comparison in ``chip_smoke.py``.
+tests and the on-card comparison in ``chip_smoke.py``.  Training's
+gradient is :func:`rmsnorm_bwd_plain`, plain torch on every device (the
+reference differentiates its plain-jnp rmsnorm; no kernel stands behind
+it).
 """
 from __future__ import annotations
 
@@ -47,6 +50,23 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return ((xf * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_plain(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                      eps: float = 1e-5):
+    """(dx, dw) of :func:`rmsnorm_plain` for the output gradient ``dy``,
+    in float32, cast to x's and w's dtypes: with ``r = rsqrt(mean(x^2) +
+    eps)``, ``xhat = x r`` and ``gw = dy w``, ``dx = r (gw - xhat
+    mean(gw xhat))`` and ``dw`` the sum over rows of ``dy xhat`` (one
+    ``sum`` over the row axis: a fixed order for a given shape)."""
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    g = dy.float()
+    dw = (g * xhat).reshape(-1, x.shape[-1]).sum(0)
+    gw = g * w.float()
+    dx = r * (gw - xhat * torch.mean(gw * xhat, dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 def _resolve():

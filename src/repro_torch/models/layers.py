@@ -636,13 +636,15 @@ def apply_layer(
     context: Optional[torch.Tensor] = None,
     cross_cached: bool = False,
     ctx_valid: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Returns (x, cache); the cache is updated in place.  The blocks run
-    in the reference's order: self-attention, the ungated cross-attention
-    of an audio decoder layer, the gated one of an ``xattn`` layer, the
-    Mamba block, then the MoE or the MLP.  An ``xattn`` layer's MLP output
-    is gated like its attention (``tanh`` in float32).  An MoE block's
-    load-balance loss is dropped (serving only)."""
+) -> Tuple[torch.Tensor, Optional[Params], Optional[torch.Tensor]]:
+    """Returns (x, cache, aux); the cache is updated in place.  The blocks
+    run in the reference's order: self-attention, the ungated
+    cross-attention of an audio decoder layer, the gated one of an
+    ``xattn`` layer, the Mamba block, then the MoE or the MLP.  An
+    ``xattn`` layer's MLP output is gated like its attention (``tanh`` in
+    float32).  ``aux`` is the MoE block's load-balance loss (float32,
+    :func:`moe_route`), None for a layer without one; ``Model.apply`` sums
+    it into ``ModelOutput.aux_loss``."""
     if "attn" in p:
         x, _ = apply_self_attn(p["attn"], x, cfg=cfg, mode=mode,
                                positions=positions, cache=cache,
@@ -658,9 +660,10 @@ def apply_layer(
         x, _ = apply_ssm(p["ssm"], x, cfg=cfg, mode=mode, cache=cache,
                          resume=resume, seq_valid=seq_valid,
                          slot_active=slot_active)
+    aux = None
     if "moe" in p:
-        x, _ = apply_moe(p["moe"], x, cfg, seq_valid=seq_valid)
+        x, aux = apply_moe(p["moe"], x, cfg, seq_valid=seq_valid)
     elif "ffn" in p:
         out = apply_mlp(p["ffn"], rmsnorm(x, p["ffn_ln"], cfg.rms_eps))
         x = x + (_gate(p["xgate_ffn"], out) if kind == "xattn" else out)
-    return x, cache if mode != "train" else None
+    return x, cache if mode != "train" else None, aux

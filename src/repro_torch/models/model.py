@@ -25,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -80,8 +81,14 @@ def tree_leaves(tree: Any):
 
 
 class ModelOutput(NamedTuple):
+    """``logits``; ``cache`` (prefill and decode; None in train mode);
+    ``aux_loss``, the float32 sum of the MoE blocks' load-balance losses in
+    the reference's order (prefix layers, then the repeat groups), 0 for a
+    model without MoE.  Training adds it to the loss; serving ignores
+    it."""
     logits: torch.Tensor
     cache: Optional[Params]
+    aux_loss: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -145,8 +152,9 @@ class Model:
             x.shape[:2])
         for g in range(cfg.audio.encoder_layers):
             p = tree_map(lambda a: a[g], params["encoder"])
-            x, _ = layers.apply_layer(p, "attn", x, cfg=cfg, mode="train",
-                                      positions=pos, cache=None)
+            x, _, _ = layers.apply_layer(p, "attn", x, cfg=cfg,
+                                         mode="train", positions=pos,
+                                         cache=None)
         return layers.rmsnorm(x, params["enc_ln"], cfg.rms_eps)
 
     def apply(
@@ -168,6 +176,9 @@ class Model:
         audio_frames: Optional[torch.Tensor] = None,  # [B, F, De]
         cross_cached: bool = False,     # content-cache hit: xk/xv in cache
         ctx_valid: Optional[torch.Tensor] = None,   # [B, T_ctx] media liveness
+        remat: bool = False,            # train: recompute each repeat group
+        attn_schedule: str = "full",    # accepted for the reference's
+        unroll_scan: bool = False,      # signature; one function either way
     ) -> ModelOutput:
         """``last_idx`` (a port addition for the engine's prefill waves)
         takes each row's hidden state at its own last real token before
@@ -181,7 +192,18 @@ class Model:
         Decode takes ``S > 1`` tokens per slot too (speculative
         verification): ``positions [B, S]`` and ``seq_valid [B, S]`` (the
         slot's input and staged drafts) reach the layers as in prefill, and
-        the logits are ``[B, S, V]``."""
+        the logits are ``[B, S, V]``.
+
+        In train mode ``remat`` wraps each repeat group in
+        ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the
+        reference checkpoints its scan body: the group's activations are
+        recomputed in the backward pass.  ``attn_schedule``
+        (``'full'`` or ``'causal'``) and ``unroll_scan`` are accepted for
+        the reference's signature and change nothing: the groups run as a
+        Python loop, and the flash kernel already skips the KV tiles a
+        causal or windowed row cannot see."""
+        if attn_schedule not in ("full", "causal"):
+            raise ValueError(f"unknown attn_schedule {attn_schedule!r}")
         cfg = self.cfg
         b, s = tokens.shape
         window_eff = cfg.sliding_window if window is None else window
@@ -203,16 +225,40 @@ class Model:
                   page_table=page_table, context=context,
                   cross_cached=cross_cached, ctx_valid=ctx_valid)
 
+        aux_total = None
         for i, kind in enumerate(prefix):
             sub = cache["prefix"][i] if cache is not None else None
-            x, _ = layers.apply_layer(params["prefix_layers"][i], kind, x,
-                                      cache=sub, **kw)
-        for g in range(repeats if pattern else 0):
+            x, _, aux = layers.apply_layer(params["prefix_layers"][i], kind,
+                                           x, cache=sub, **kw)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+
+        def group(x, g):
+            """Repeat group ``g``: (x, the sum of its MoE losses or None)."""
+            aux_g = None
             for i, kind in enumerate(pattern):
                 p = tree_map(lambda a: a[g], params["block"][f"pos{i}"])
                 sub = (tree_map(lambda a: a[g], cache["block"][f"pos{i}"])
                        if cache is not None else None)
-                x, _ = layers.apply_layer(p, kind, x, cache=sub, **kw)
+                x, _, aux = layers.apply_layer(p, kind, x, cache=sub, **kw)
+                if aux is not None:
+                    aux_g = aux if aux_g is None else aux_g + aux
+            return x, aux_g
+
+        group_aux = []
+        for g in range(repeats if pattern else 0):
+            if remat and mode == "train":
+                x, aux_g = torch.utils.checkpoint.checkpoint(
+                    group, x, g, use_reentrant=False)
+            else:
+                x, aux_g = group(x, g)
+            if aux_g is not None:
+                group_aux.append(aux_g)
+        if group_aux:
+            aux_g = torch.stack(group_aux).sum()
+            aux_total = aux_g if aux_total is None else aux_total + aux_g
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
 
         x = layers.rmsnorm(x, params["final_ln"], cfg.rms_eps)
         if last_idx is not None:
@@ -221,7 +267,9 @@ class Model:
             x = x[:, -1:]
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         logits = x @ head
-        return ModelOutput(logits, cache if mode in ("prefill", "decode") else None)
+        return ModelOutput(logits,
+                           cache if mode in ("prefill", "decode") else None,
+                           aux_total)
 
 
 def _stack(trees):
