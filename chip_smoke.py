@@ -10,8 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``sm_90a`` (TF32 off for every float32 product); ``ptxas`` registers and
    spills of every ``__global__`` function, and the tensor-core proof: the
    ``HGMMA`` / ``HMMA`` instructions ``cuobjdump -sass`` finds in each bf16
-   instantiation of flash, decode, paged and ``quant_matmul`` (none fails
-   the run);
+   instantiation of flash, the flash backward's dK/dV and dQ kernels,
+   decode, paged and ``quant_matmul`` (none fails the run);
 2. kernels — each CUDA kernel against its plain PyTorch version at the
    serving paths' shapes, in bf16 (atol 2e-2) and float32 (atol 1e-4); the
    paged kernel over fp and int8 pages with q in either dtype, also a row
@@ -54,8 +54,12 @@ Phases (any failure exits non-zero and prints no result line):
    a 256 window, deepseek-moe-16b G 1 D 128, the vision cross shape,
    seamless's causal encoder and non-causal cross over 512 frames, Sq 333)
    in bf16 (1e-2) and float32 (1e-5), each gradient relative to its
-   largest plain entry, two calls bit for bit equal; ``RmsnormFn``'s dx
-   and dw against autograd through ``rmsnorm_plain``;
+   largest plain entry, given the forward's log-sum-exp, two calls and a
+   call that gets the LSE itself bit for bit equal; at the same shapes the
+   forward's LSE (``return_lse``) against the plain LSE (atol 1e-4) and
+   its output bit for bit the output without it (also at every flash
+   serving form above); ``RmsnormFn``'s dx and dw against autograd
+   through ``rmsnorm_plain``;
 3. full-width models — ``qwen2-0.5b`` in float32 with seeded random weights:
    a resume-prefill and 8 decode steps through the kernels against the same
    model through the plain versions (attention and rmsnorm; max |Δlogit|
@@ -257,17 +261,21 @@ Phases (any failure exits non-zero and prints no result line):
    as a draw's floor, the integer-operation bound); one
    ``masked_sample_inner`` step on [8, 151936] greedy, stochastic, and
    stochastic with top-p, each through the kernel and with the plain
-   draw; the flash backward at 6a's bf16 step shape (B 8 x S 512, causal)
-   beside its plain version and SDPA's backward, bound by five products of
-   the forward's size halved under causal;
+   draw; the flash backward at 6a's bf16 step shape (B 8 x S 512, causal),
+   given the forward's LSE, beside its plain version and SDPA's backward,
+   bound by five products of the forward's size halved under causal;
 6. training — (a) ``qwen2-0.5b`` at full depth: in float32 at B 4 x S 512
    one loss and every gradient leaf through the kernels (flash forward and
    backward, rmsnorm) against the plain versions (1e-3 of each leaf's
    largest entry), remat on against off bit for bit, a step with
-   microbatches 2 against 1; in bf16 at B 8 x S 512, 30 AdamW steps on
+   microbatches 2 against 1; in bf16 at B 8 x S 512, one loss and its
+   gradients with remat on against off bit for bit, 30 AdamW steps on
    the bigram data (ids cut to 512): the loss falls, 24 flash and 24
    backward launches a step, tokens/s and peak memory read; the state's
-   checkpoint restored bit for bit; ``launch/train.py`` for 3 steps; (b)
+   checkpoint restored bit for bit; one more steady step under
+   ``torch.profiler``: device time by kind (flash forward, the flash
+   backward, GEMMs, rmsnorm forward and backward, AdamW, the rest) and
+   the device's busy share of the step; ``launch/train.py`` for 3 steps; (b)
    ``deepseek-moe-16b`` at published widths cut to 3 layers, float32:
    kernels vs plain with remat on, aux loss > 0, capacity drops > 0; (c)
    ``mamba2-780m`` in float32: kernels vs plain (only rmsnorm differs;
@@ -459,20 +467,25 @@ def mma_count(build, name: str, kernel: str) -> dict:
 
 
 # (library, kernel, bf16 instantiations): every one must hold tensor-core
-# instructions (flash: HGMMA; decode, paged, quant_matmul: HMMA)
+# instructions (flash and its backward: HGMMA; decode, paged,
+# quant_matmul: HMMA)
 TENSOR_CORE_KERNELS = (
     ("flash_attention", "flash_attention_tc_kernel", 3),
+    ("flash_attention_bwd", "dkdv_kernel", 3),
+    ("flash_attention_bwd", "dq_kernel", 3),
     ("decode_attention", "decode_attention_mma_kernel", 3),
     ("paged_attention", "paged_attention_mma_kernel", 6),
     ("quant_matmul", "qmm_mma_kernel", 2))
 
 
 def check_tensor_cores(build) -> dict:
-    """Phase 1's proof that every bf16 instantiation of the four kernels
-    runs on the tensor cores; returns {kernel name: {instantiation: n}}."""
+    """Phase 1's proof that every bf16 instantiation of the tensor-core
+    kernels runs on the tensor cores; returns {library: {instantiation:
+    n}}."""
     out = {}
     for lib, kernel, want in TENSOR_CORE_KERNELS:
-        counts = out[lib] = mma_count(build, lib, kernel)
+        counts = mma_count(build, lib, kernel)
+        out.setdefault(lib, {}).update(counts)
         for kern, n in sorted(counts.items()):
             log(f"  sass {kern}: {n} HGMMA/HMMA instructions")
         if len(counts) != want or not all(counts.values()):
@@ -722,6 +735,10 @@ def check_kernels(torch, dec, fla, pag, qm):
             kern = getattr(mod, f"{name}_cuda")
             plain = getattr(mod, f"{name}_plain")
             got = kern(*args, **kw)
+            if name == "flash_attention" and not torch.equal(
+                    kern(*args, **kw, return_lse=True)[0], got):
+                raise AssertionError(f"flash_attention {dname} {what}: the "
+                                     "output changes with return_lse")
             torch.cuda.synchronize()
             want = plain(*args, **kw)
             err = max_err(torch, got, want)
@@ -4561,55 +4578,81 @@ BWD_FORMS = (
 # on the H100 before this script held them), and in bf16 one rounding of
 # each output at the store on both sides (readings up to 2.2e-3)
 BWD_REL = {"bfloat16": 1e-2, "float32": 1e-5}
+# the forward's log-sum-exp against the plain version's, absolute: both sum
+# the same (bf16-valued) products in float32 in another order (readings up
+# to 2e-6 on the H100)
+LSE_ATOL = 1e-4
 BWD_TRAIN = dict(b=8, s=512, h=14, hkv=2, d=64)   # 6a's bf16 training step
 
 
 def bwd_case(torch, fla, dtype, b, sq, skv, h, hkv, d, causal, window,
              seed=0):
-    """(q, k, v, out, dout): random inputs, the forward kernel's output."""
+    """((q, k, v, out, dout), lse): random inputs, the forward kernel's
+    output and log-sum-exp (``return_lse``), as the training form's
+    autograd node keeps them."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
     k = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
     v = torch.randn((b, skv, hkv, d), generator=g, device="cuda").to(dtype)
     do = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
-    return q, k, v, fla.flash_attention_cuda(q, k, v, causal=causal,
-                                             window=window), do
+    out, lse = fla.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                        return_lse=True)
+    return (q, k, v, out, do), lse
 
 
 def check_flash_bwd(torch, fla) -> dict:
-    """The backward kernel against ``flash_attention_bwd_plain`` at
-    :data:`BWD_FORMS` in bf16 and float32 (each of dq, dk, dv relative to
-    its largest plain entry), and two calls bit for bit equal.  Returns the
-    largest absolute and relative errors."""
-    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0}
+    """At :data:`BWD_FORMS` in bf16 and float32: the forward's output with
+    ``return_lse`` bit for bit the output without it, its LSE against the
+    plain LSE (:data:`LSE_ATOL`); the backward kernel given that LSE
+    against ``flash_attention_bwd_plain`` (each of dq, dk, dv relative to
+    its largest plain entry), two calls and a call that gets the LSE
+    itself bit for bit equal.  Returns the largest absolute and relative
+    errors and the largest LSE error."""
+    worst = {"max_abs_err": 0.0, "max_rel_err": 0.0, "lse_max_abs_err": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for label, *shape in BWD_FORMS:
             causal, window = shape[-2:]
-            args = bwd_case(torch, fla, dtype, *shape)
+            args, lse = bwd_case(torch, fla, dtype, *shape)
+            q, k, v, out, _ = args
+            out_same = bool(torch.equal(out, fla.flash_attention_cuda(
+                q, k, v, causal=causal, window=window)))
             got = fla.flash_attention_bwd_cuda(*args, causal=causal,
-                                               window=window)
+                                               window=window, lse=lse)
             again = fla.flash_attention_bwd_cuda(*args, causal=causal,
-                                                 window=window)
+                                                 window=window, lse=lse)
+            own = fla.flash_attention_bwd_cuda(*args, causal=causal,
+                                               window=window)
             torch.cuda.synchronize()
+            _, plse = fla.flash_attention_plain(q, k, v, causal=causal,
+                                                window=window,
+                                                return_lse=True)
+            lse_err = max_err(torch, lse, plse)
             want = fla.flash_attention_bwd_plain(*args, causal=causal,
                                                  window=window)
             errs = [max_err(torch, a, w) for a, w in zip(got, want)]
             rels = [e / w.float().abs().max().item()
                     for e, w in zip(errs, want)]
-            same = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
-            ok = (max(rels) <= BWD_REL[dname] and same
+            same = all(bool(torch.equal(a, c)) and bool(torch.equal(a, o))
+                       for a, c, o in zip(got, again, own))
+            ok = (max(rels) <= BWD_REL[dname] and same and out_same
+                  and lse_err <= LSE_ATOL
                   and all(bool(torch.isfinite(a).all()) for a in got))
             log(f"  flash_attention_bwd {dname:8s} {label:18s} "
                 f"max|kernel-plain|/max|plain| dq {rels[0]:.2e} dk "
                 f"{rels[1]:.2e} dv {rels[2]:.2e} (tol {BWD_REL[dname]:g}); "
-                f"two calls bit for bit {same} {'ok' if ok else 'FAIL'}")
+                f"two calls and one without the LSE bit for bit {same}; "
+                f"forward LSE max|kernel-plain| {lse_err:.2e} (tol "
+                f"{LSE_ATOL:g}), out unchanged by return_lse {out_same} "
+                f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_attention_bwd {dname} {label}: "
-                                     f"{rels}, repeat equal {same}")
+                                     f"{rels}, repeat equal {same}, lse "
+                                     f"{lse_err}, out equal {out_same}")
             worst["max_abs_err"] = max(worst["max_abs_err"], *errs)
             worst["max_rel_err"] = max(worst["max_rel_err"], *rels)
-            del args, got, again, want
+            worst["lse_max_abs_err"] = max(worst["lse_max_abs_err"], lse_err)
+            del args, lse, got, again, own, want, plse
         torch.cuda.empty_cache()
     return worst
 
@@ -4646,33 +4689,37 @@ def check_rmsnorm_fn(torch, ops, rms) -> float:
 
 def time_flash_bwd(torch, fla, F) -> dict:
     """The backward kernel at 6a's bf16 training shape (B 8 x S 512,
-    qwen2-0.5b's heads, causal): a call and device alone, its plain
-    version, and SDPA's backward as the library yardstick (autograd.grad
-    of one ``scaled_dot_product_attention`` graph, kept between calls);
+    qwen2-0.5b's heads, causal), given the forward's LSE as training gives
+    it, so the backward alone is timed, as SDPA's graph is: a call and
+    device alone, its plain version (given the same LSE), and SDPA's
+    backward as the library yardstick (autograd.grad of one
+    ``scaled_dot_product_attention`` graph, kept between calls);
     ``bound_ms`` by operations, five products of the forward's size halved
     under causal, at the bf16 tensor-core rate, against the bytes of q, k,
-    v, out, dout read and dq, dk, dv written once."""
+    v, out, dout and the LSE read and dq, dk, dv written once."""
     b, s, h, hkv, d = (BWD_TRAIN[k] for k in ("b", "s", "h", "hkv", "d"))
-    one = bwd_case(torch, fla, torch.bfloat16, b, s, s, h, hkv, d, True, 0)
-    n_sets = max(2, 2 * L2_BYTES // nbytes(*one) + 1)
+    one, one_lse = bwd_case(torch, fla, torch.bfloat16, b, s, s, h, hkv, d,
+                            True, 0)
+    n_sets = max(2, 2 * L2_BYTES // nbytes(*one, one_lse) + 1)
     sets = [bwd_case(torch, fla, torch.bfloat16, b, s, s, h, hkv, d, True, 0,
                      seed=i) for i in range(n_sets)]
     graphs = []
-    for q, k, v, _, do in sets:
+    for (q, k, v, _, do), _ in sets:
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                              enable_gqa=True)
         graphs.append((out, (qt, kt, vt), do.transpose(1, 2).contiguous()))
-    kern = lambda i: fla.flash_attention_bwd_cuda(*sets[i])  # noqa: E731
+    kern = lambda i: fla.flash_attention_bwd_cuda(  # noqa: E731
+        *sets[i][0], lse=sets[i][1])
     lib = lambda i: torch.autograd.grad(  # noqa: E731
         graphs[i][0], graphs[i][1], graphs[i][2], retain_graph=True)
     flops = 5 * 2 * b * h * s * s * d / 2
-    byts = nbytes(*one) + nbytes(*one[:3])
+    byts = nbytes(*one, one_lse) + nbytes(*one[:3])
     row = {"ms": time_ms(torch, kern, n_sets),
            "device_ms": device_ms(torch, kern, n_sets),
            "plain_ms": time_ms(torch, lambda i: fla.flash_attention_bwd_plain(
-               *sets[i]), n_sets, cycles=1),
+               *sets[i][0], lse=sets[i][1]), n_sets, cycles=1),
            "library_ms": time_ms(torch, lib, n_sets),
            "library_device_ms": device_ms(torch, lib, n_sets),
            "library": "SDPA backward",
@@ -4751,12 +4798,72 @@ def grads_vs_plain(torch, ns, cfg, params, batch, what, *,
             "launches": launches, "result": (loss, grads)}
 
 
+# device kernels by kind in 6a's profiled step: (kind, name fragments);
+# a kernel whose name matches none falls to the autograd node or traced
+# range it was launched from (PROFILE_SCOPES), else to "the rest"
+PROFILE_KERNELS = (
+    ("flash forward", ("flash_attention_tc_kernel", "flash_attention_kernel")),
+    ("flash backward", ("dkdv_kernel", "dq_kernel", "bwd_delta_kernel")),
+    ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass")),
+    ("rmsnorm forward", ("rmsnorm",)))
+PROFILE_SCOPES = (("rmsnorm backward", "RmsnormFnBackward"),
+                  ("AdamW", "adamw_update"))
+
+
+def profile_train_step(torch, ns, step, state, batch) -> dict:
+    """One steady training step under ``torch.profiler`` (CPU and CUDA
+    activity): device ms by kind (:data:`PROFILE_KERNELS`, then the
+    enclosing autograd node or range, :data:`PROFILE_SCOPES`; the AdamW
+    update is wrapped in a ``record_function`` range for this call only),
+    the step's host wall time and the device's busy share of it.  Returns
+    the state after the step too."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    adamw = ns.tts.adamw_update
+
+    def traced(*a, **kw):
+        with record_function("adamw_update"):
+            return adamw(*a, **kw)
+
+    ns.tts.adamw_update = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ns.tts.adamw_update = adamw
+    kinds = [k for k, _ in PROFILE_KERNELS] + [k for k, _ in PROFILE_SCOPES]
+    ms = {k: 0.0 for k in kinds + ["the rest"]}
+    launches = {k: 0 for k in ms}
+    for ev in prof.events():
+        for kern in ev.kernels:
+            kind = next((k for k, frags in PROFILE_KERNELS
+                         if any(f in kern.name for f in frags)), None)
+            up = ev
+            while kind is None and up is not None:
+                kind = next((k for k, scope in PROFILE_SCOPES
+                             if scope in up.name), None)
+                up = up.cpu_parent
+            kind = kind or "the rest"
+            ms[kind] += kern.duration / 1e3
+            launches[kind] += 1
+    busy = sum(ms.values())
+    return state, {"device_ms": ms, "kernels": launches,
+                   "device_busy_ms": busy, "step_wall_ms": wall_ms,
+                   "busy_share": busy / wall_ms if wall_ms else None}
+
+
 def check_training_qwen(torch, ns, get_config) -> dict:
     """6a: ``qwen2-0.5b`` at full depth.  float32 at B 4 x S 512: the
     kernels against the plain versions, remat on against off bit for bit,
-    a step with microbatches 2 against 1; bf16 at B 8 x S 512: 30 steps on
-    the bigram data (the loss falls; tokens/s and peak memory read), a
-    checkpoint round trip bit for bit, and the launcher for a few steps."""
+    a step with microbatches 2 against 1; bf16 at B 8 x S 512: remat on
+    against off bit for bit, 30 steps on the bigram data (the loss falls;
+    tokens/s and peak memory read), a checkpoint round trip bit for bit,
+    one steady step under the profiler, and the launcher for a few
+    steps."""
     out = {}
     cfg32 = dataclasses.replace(get_config("qwen2-0.5b"), dtype="float32")
     params = ns.Model(cfg32).init(torch.Generator(device="cuda").manual_seed(0))
@@ -4809,6 +4916,18 @@ def check_training_qwen(torch, ns, get_config) -> dict:
     state = ns.tts.init_train_state(
         cfg, torch.Generator(device="cuda").manual_seed(0))
     data = ns.BigramDataPipeline(TRAIN_DATA_VOCAB, 512, 8, seed=0)
+    batch0 = ns.tts.batch_to(data.batch(0), "cuda")
+    runs = [ns.tts.loss_and_grads(state["params"], batch0, cfg=cfg,
+                                  remat=remat) for remat in (False, True)]
+    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        (a is None and b is None) or bool(torch.equal(a, b))
+        for a, b in zip(runs[0][2], runs[1][2]))
+    log(f"  6a bf16 B8xS512 remat on vs off: loss and all {len(runs[0][2])} "
+        f"gradient leaves bit for bit {same}")
+    if not same:
+        raise AssertionError("6a: bf16 remat on differs from remat off")
+    out["bf16_remat_bit_for_bit"] = same
+    del runs, batch0
     step = ns.tts.make_train_step(
         cfg, ns.AdamWConfig(lr=1e-3, warmup_steps=6,
                             total_steps=TRAIN_STEPS), remat=False)
@@ -4860,7 +4979,21 @@ def check_training_qwen(torch, ns, get_config) -> dict:
     if not same:
         raise AssertionError("6a: the checkpoint round trip differs")
     out["checkpoint"] = {"bit_for_bit": same, "gib": size}
-    del state, back
+    del back
+    state, prof = profile_train_step(torch, ns, step, state,
+                                     data.batch(TRAIN_STEPS))
+    if prof["device_busy_ms"] > 0:
+        parts = ", ".join(f"{k} {v:.2f} ms ({prof['kernels'][k]})"
+                          for k, v in prof["device_ms"].items())
+        log(f"  6a profile of one steady bf16 step (torch.profiler): device "
+            f"{prof['device_busy_ms']:.2f} ms of {prof['step_wall_ms']:.2f} "
+            f"ms wall (busy {prof['busy_share']:.1%}); by kind (kernels): "
+            f"{parts} on {smi()}")
+    else:
+        log("  6a profile: torch.profiler recorded no device time (not "
+            "measured)")
+    out["bf16_step_profile"] = prof
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5937,6 +6070,7 @@ def main() -> int:
                if name in ("flash_attention", "flash_attention_bwd",
                            "rmsnorm") else {}),
             **({"max_rel_err": bwd_check["max_rel_err"],
+                "lse_max_abs_err": bwd_check["lse_max_abs_err"],
                 "rmsnorm_fn_rel": bwd_check["rmsnorm_fn_rel"]}
                if name == "flash_attention_bwd" else {}),
             "ssm_round_launches": {

@@ -12,6 +12,12 @@
 // Masked keys contribute exactly 0.  A row with no live key at all yields 0
 // here; the wrapper (kernels/flash_attention.py) replaces it with the mean
 // of V, the reference's value (the sliding-window prefill makes such rows).
+// Given a non-null lse (float32 [B, H, Sq]), both kernels also write each
+// row's log-sum-exp of its scaled live scores in their epilogue, from the
+// running (m, l) they already keep: the training form's forward
+// (kernels/ops.py FlashAttentionFn) hands it to the backward
+// (flash_attention_bwd.cu), which then recomputes no softmax statistics.
+// Serving passes null; the key loop and the output do not change.
 //
 // What bounds it: at prefill widths the 4*D multiply-adds per live
 // (query, key) pair, i.e. operations, not bytes.  Two kernels, chosen by
@@ -52,12 +58,12 @@
 //    sum reduce over the 16 threads of a row by shuffles, the running
 //    (m, l) live in registers, P goes through shared memory for P @ V;
 //  * tiles are skipped as in the bf16 kernel.
-#include <cuda.h>   // CUtensorMap and its enums (the encoder is fetched at
-                    // run time, so the library needs no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"   // TMA, mbarriers, wgmma forms, the tensor-map encoder
 
 namespace {
 
@@ -103,10 +109,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v,
                        const int32_t* __restrict__ q_positions,
                        const uint8_t* __restrict__ kv_valid,
-                       T* __restrict__ out, int Sq, int Skv, int H, int G,
-                       int causal, int window, int q_offset, long long k_sb,
-                       long long k_ss, long long k_sh, long long v_sb,
-                       long long v_ss, long long v_sh, float scale) {
+                       T* __restrict__ out, float* __restrict__ lse, int Sq,
+                       int Skv, int H, int G, int causal, int window,
+                       int q_offset, long long k_sb, long long k_ss,
+                       long long k_sh, long long v_sb, long long v_ss,
+                       long long v_sh, float scale) {
   constexpr int QP = D + 4;          // Q/K row pitch (floats): conflict-free
   constexpr int NC = D / 16;         // output columns per thread
   extern __shared__ float smem[];
@@ -245,16 +252,19 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) store(o + c, acc[i][c] * inv);
+    // the training form's log-sum-exp of the row's scaled scores
+    if (lse != nullptr && tc == 0)
+      lse[((long long)b * H + h) * Sq + q0 + r] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_positions, const void* kv_valid, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int causal,
-                   int window, int q_offset, long long k_sb, long long k_ss,
-                   long long k_sh, long long v_sb, long long v_ss,
-                   long long v_sh, cudaStream_t stream) {
+                   void* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, int q_offset, long long k_sb,
+                   long long k_ss, long long k_sh, long long v_sb,
+                   long long v_ss, long long v_sh, cudaStream_t stream) {
   constexpr int QP = D + 4;
   const size_t smem = sizeof(float) * ((size_t)(kBQ + kBK) * QP + kBK * D +
                                        kBQ * (kBK + 1)) +
@@ -269,9 +279,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(q_positions),
-      static_cast<const uint8_t*>(kv_valid), static_cast<T*>(out), Sq, Skv,
-      H, H / Hkv, causal, window, q_offset, k_sb, k_ss, k_sh, v_sb, v_ss,
-      v_sh, 1.0f / sqrtf((float)D));
+      static_cast<const uint8_t*>(kv_valid), static_cast<T*>(out),
+      static_cast<float*>(lse), Sq, Skv, H, H / Hkv, causal, window,
+      q_offset, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -280,6 +290,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // --------------------------------------------------------------------------
 namespace tc {
 
+using namespace wg;
+
 constexpr int kBM = 128;                  // packed (token, head) rows a CTA
 constexpr int kBN = 64;                   // keys a KV tile
 constexpr int kConsumerWarps = 8;         // two warpgroups of 64 rows
@@ -287,183 +299,15 @@ constexpr int kThreads = (kConsumerWarps + 1) * 32;   // + the producer warp
 
 template <int D>
 struct Cfg {
-  static constexpr int SW = D * 2 < 128 ? D * 2 : 128;   // swizzle span, B
-  static constexpr int ATOMS = D * 2 / SW;   // swizzle atoms along head_dim
+  static constexpr int SW = Swz<D>::SW;
   static constexpr int STAGES = D == 128 ? 2 : 3;
   static constexpr int Q_BYTES = kBM * D * 2;
   static constexpr int KV_BYTES = kBN * D * 2;           // K or V, one stage
-  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;
   // Q, the K and V rings, the liveness masks, token positions, barriers,
   // and 1 KB to align the tiles to the swizzle pattern's period
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES +
                               STAGES * 8 + kBM * 4 + 2 * STAGES * 8;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// arrive, and expect `bytes` more of asynchronous copies this phase
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed (a fresh
-// barrier counts its phase of parity 1 as completed).
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), swizzle layout (1 = 128 B, 2 = 64 B)
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared
-// memory (descriptors); `accumulate` 0 overwrites D
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D[64 x 32] += A[64 x 16] B[16 x 32], A as bf16 pairs in registers
-// (the accumulator layout of a score tile), B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 64] += A[64 x 16] B[16 x 64], A as bf16 pairs in registers
-// (the accumulator layout of a score tile), B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D[64 x 128] += A[64 x 16] B[16 x 128], A as bf16 pairs in registers
-// (the accumulator layout of a score tile), B MN-major in shared memory
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float* o, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (D == 32) wgmma_rs_n32(o, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else wgmma_rs_n128(o, a, db);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -472,13 +316,12 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
                           const __nv_bfloat16* __restrict__ q,
                           const int32_t* __restrict__ q_positions,
                           const uint8_t* __restrict__ kv_valid,
-                          __nv_bfloat16* __restrict__ out, int Sq, int Skv,
-                          int H, int G, int causal, int window, int q_offset,
+                          __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ lse, int Sq, int Skv, int H,
+                          int G, int causal, int window, int q_offset,
                           float scale_log2) {
   using C = Cfg<D>;
   constexpr int CPR = D / 8;                // 16-byte chunks a row
-  constexpr int CPA = C::SW / 16;           // of them in one swizzle atom
-  constexpr int KPA = C::SW / 32;           // k16 steps in one swizzle atom
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* qs = smem;                                   // [ATOMS][kBM][SW]
@@ -516,9 +359,7 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
       val = *reinterpret_cast<const uint4*>(
           q + ((long long)b * Sq + t0 + r / G) * q_row +
           (long long)(kvh * G + r % G) * D + c * 8);
-    uint32_t off = (c / CPA) * (kBM * C::SW) + r * C::SW + (c % CPA) * 16;
-    off ^= ((off >> 7) & (CPA - 1)) << 4;
-    *reinterpret_cast<uint4*>(qs + off) = val;
+    *reinterpret_cast<uint4*>(qs + Swz<D>::offset(kBM, r, c)) = val;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
@@ -553,12 +394,8 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
       if (lane == 0) {
         live[s] = ((uint64_t)hi << 32) | lo;
         mbar_arrive_tx(bar, 2 * C::KV_BYTES);
-#pragma unroll
-        for (int a = 0; a < C::ATOMS; ++a) {
-          const int off = s * C::KV_BYTES + a * kBN * C::SW;
-          tma_load_4d(smem_u32(ks + off), &tm_k, bar, a * (C::SW / 2), kvh, k0, b);
-          tma_load_4d(smem_u32(vs + off), &tm_v, bar, a * (C::SW / 2), kvh, k0, b);
-        }
+        tma_tile<D>(ks + s * C::KV_BYTES, &tm_k, bar, kBN, kvh, k0, b);
+        tma_tile<D>(vs + s * C::KV_BYTES, &tm_v, bar, kBN, kvh, k0, b);
       } else {
         mbar_arrive(bar);
       }
@@ -590,16 +427,11 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
       float sc[kBN / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t step = (kk % KPA) * 32;
-        const uint64_t dq = make_desc(q_base + (kk / KPA) * (kBM * C::SW) + step,
-                                      16, 8 * C::SW, C::LAYOUT);
-        const uint64_t dk = make_desc(k_base + (kk / KPA) * (kBN * C::SW) + step,
-                                      16, 8 * C::SW, C::LAYOUT);
-        wgmma_ss_n64(sc, dq, dk, kk > 0);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(sc, kmajor_desc<D>(q_base, kBM, kk),
+                     kmajor_desc<D>(k_base, kBN, kk), kk > 0);
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(sc);
 
       // liveness and the online softmax on the fragment: element
@@ -645,25 +477,16 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
         }
       }
 
-      // P as bf16 A fragments (the m64k16 A layout is the accumulator's
-      // layout of two neighbouring n8 column blocks)
+      // P as bf16 A fragments
       uint32_t pa[kBN / 4];
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        pa[4 * kk + 0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[4 * kk + 1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[4 * kk + 2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[4 * kk + 3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
-      }
+      pack_a(sc, pa);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        wgmma_pv<D>(o, pa + 4 * kk,
-                    make_desc(v_base + kk * 16 * C::SW, kBN * C::SW,
-                              8 * C::SW, C::LAYOUT));
+        wgmma_rs<D>(o, pa + 4 * kk, mn_desc<D>(v_base, kBN, kk));
       wgmma_commit();
-      wgmma_wait_all();
+      wgmma_wait<0>();
       fence_regs(o);
       if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
     }
@@ -679,70 +502,28 @@ flash_attention_tc_kernel(__grid_constant__ const CUtensorMap tm_k,
       for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
             o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+      // the training form's log-sum-exp of the row's scaled scores, in
+      // natural units (m is in log2 units)
+      if (lse != nullptr && lane % 4 == 0)
+        lse[((long long)b * H + kvh * G + row[h] % G) * Sq + t0 + row[h] / G] =
+            (m[h] + log2f(l[h])) * 0.6931471805599453f;
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The 4-D map (D, Hkv, Skv, B) of one K or V view with the view's strides
-// (elements), box (one swizzle atom of head_dim, 1, kBN, 1); keys past Skv
-// read as zeros.
-template <int D>
-cudaError_t kv_map(CUtensorMap* map, const void* base, int B, int Skv,
-                   int Hkv, long long sb, long long ss, long long sh) {
-  const EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return cudaErrorSymbolNotFound;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)Skv,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Cfg<D>::SW / 2, 1, (cuuint32_t)kBN, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      Cfg<D>::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_positions, const void* kv_valid, void* out,
-                   int B, int Sq, int Skv, int H, int Hkv, int causal,
-                   int window, int q_offset, long long k_sb, long long k_ss,
-                   long long k_sh, long long v_sb, long long v_ss,
-                   long long v_sh, cudaStream_t stream) {
+                   void* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, int q_offset, long long k_sb,
+                   long long k_ss, long long k_sh, long long v_sb,
+                   long long v_ss, long long v_sh, cudaStream_t stream) {
   const int G = H / Hkv;
   if (G > kBM) return cudaErrorInvalidValue;
   CUtensorMap tm_k, tm_v;
-  cudaError_t err = kv_map<D>(&tm_k, k, B, Skv, Hkv, k_sb, k_ss, k_sh);
-  if (err == cudaSuccess) err = kv_map<D>(&tm_v, v, B, Skv, Hkv, v_sb, v_ss, v_sh);
+  cudaError_t err = tile_map<D>(&tm_k, k, B, Skv, Hkv, k_sb, k_ss, k_sh, kBN);
+  if (err == cudaSuccess)
+    err = tile_map<D>(&tm_v, v, B, Skv, Hkv, v_sb, v_ss, v_sh, kBN);
   if (err != cudaSuccess) return err;
   auto kern = flash_attention_tc_kernel<D>;
   static bool smem_set = false;
@@ -758,7 +539,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       tm_k, tm_v, static_cast<const __nv_bfloat16*>(q),
       static_cast<const int32_t*>(q_positions),
       static_cast<const uint8_t*>(kv_valid), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, G, causal, window, q_offset,
+      static_cast<float*>(lse), Sq, Skv, H, G, causal, window, q_offset,
       1.4426950408889634f / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -773,16 +554,18 @@ extern "C" {
 // q and out are contiguous [B, Sq, H, D]; k and v are [B, Skv, Hkv, D] with
 // the given element strides, a contiguous last axis and 16-byte aligned
 // rows.  q_positions (int32 [B, Sq]) and kv_valid (bool [B, Skv]) are
-// contiguous or null.
+// contiguous or null.  lse (float32 [B, H, Sq], contiguous) is null, or
+// takes each row's log-sum-exp of its scaled live scores (the training
+// form's, for the backward); the output is the same either way.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            const void* q_positions, const void* kv_valid,
-                           void* out, int B, int Sq, int Skv, int H, int Hkv,
+                           void* out, void* lse, int B, int Sq, int Skv, int H, int Hkv,
                            int D, int dtype, int causal, int window,
                            int q_offset, long long k_sb, long long k_ss,
                            long long k_sh, long long v_sb, long long v_ss,
                            long long v_sh, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, q_positions, kv_valid, out, B, Sq, Skv, H, Hkv, \
+#define FLASH_ARGS q, k, v, q_positions, kv_valid, out, lse, B, Sq, Skv, H, Hkv, \
                    causal, window, q_offset, k_sb, k_ss, k_sh, v_sb, v_ss,  \
                    v_sh, st
   if (dtype == 0) {

@@ -41,7 +41,7 @@ SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_PTR] * 6 + [_INT] * 7 + [_LL] * 7 + [_PTR]),
     "flash_attention": ("flash_attention_launch",
-                        [_PTR] * 6 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
+                        [_PTR] * 7 + [_INT] * 10 + [_LL] * 6 + [_PTR]),
     "flash_attention_bwd": ("flash_attention_bwd_launch",
                             [_PTR] * 10 + [_INT] * 9 + [_PTR]),
     "paged_attention": ("paged_attention_launch",

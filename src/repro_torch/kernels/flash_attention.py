@@ -26,12 +26,20 @@ CUDA cores.  :func:`packed_rows` and :func:`tile_range` mirror the bf16
 kernel's row packing and tile skipping so the CPU tests can hold them to
 :func:`live_mask`.
 
+With ``return_lse=True`` the forward (kernel and plain version) also
+returns each row's log-sum-exp of its scaled live scores, ``lse [B, H, Sq]``
+in float32: the statistics the backward needs, which the training form's
+autograd node saves.
+
 The backward (:func:`flash_attention_bwd_cuda`, :func:`flash_attention_bwd_plain`)
 takes the training form only — causal or not, a window, GQA, ``q_offset``
-0, no ``q_positions`` or ``kv_valid`` — and gives dQ, dK and dV; dK and dV
-sum the G query heads of each kv head.  No TPU kernel stands behind it:
-``pallas_call`` has no transpose rule, and the reference's gradient is
-XLA's autodiff of ``_flash_jnp``.
+0, no ``q_positions`` or ``kv_valid`` — and the forward's ``lse``, and gives
+dQ, dK and dV; dK and dV sum the G query heads of each kv head.  bf16 runs
+on the tensor cores, float32 on the CUDA cores; :func:`bwd_tile_plan`
+mirrors the bf16 kernels' tile plan and the order in which they sum the
+query heads, so the CPU tests can hold them to :func:`live_mask`.  No TPU
+kernel stands behind it: ``pallas_call`` has no transpose rule, and the
+reference's gradient is XLA's autodiff of ``_flash_jnp``.
 """
 from __future__ import annotations
 
@@ -127,10 +135,13 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_offset: int = 0,
                           q_positions: Optional[torch.Tensor] = None,
                           kv_valid: Optional[torch.Tensor] = None,
-                          chunk: int = 1024) -> torch.Tensor:
+                          chunk: int = 1024, return_lse: bool = False):
     """Flash-style chunked attention (torch form of the reference's
     ``_flash_jnp``): a loop over KV chunks carrying the running (m, l, acc)
-    in f32, so memory stays O(Sq * chunk) per head."""
+    in f32, so memory stays O(Sq * chunk) per head.  With ``return_lse``,
+    ``(out, lse)``: ``lse [B, H, Sq]`` float32 is ``m + log(l)``, each row's
+    log-sum-exp of its scaled live scores (undefined for a row with no live
+    key)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -160,7 +171,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vc)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l)).reshape(b, h, sq)
+    return out
 
 
 def _check(q, k, v, q_positions, kv_valid) -> None:
@@ -205,11 +219,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True, window: int = 0,
                          q_offset: int = 0,
                          q_positions: Optional[torch.Tensor] = None,
-                         kv_valid: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         kv_valid: Optional[torch.Tensor] = None,
+                         return_lse: bool = False):
     """Launch the CUDA kernel on PyTorch's current stream.  ``k``/``v`` may
     be strided views (one layer of a stacked cache); ``q_positions`` int64
-    is narrowed to int32 here."""
+    is narrowed to int32 here.  With ``return_lse``, ``(out, lse)``: the
+    kernel's epilogue also writes each row's log-sum-exp (float32
+    ``[B, H, Sq]``, undefined for a row with no live key); ``out`` is the
+    same bits either way."""
     if q_positions is not None and q_positions.dtype == torch.int64:
         q_positions = q_positions.to(torch.int32)
     if q_positions is not None:
@@ -219,12 +236,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if q_positions is None else q_positions.data_ptr(),
         None if kv_valid is None else kv_valid.data_ptr(), out.data_ptr(),
-        b, sq, skv, h, hkv, d, _DTYPES[q.dtype], int(causal), int(window),
+        None if lse is None else lse.data_ptr(), b, sq, skv, h, hkv, d, _DTYPES[q.dtype], int(causal), int(window),
         int(q_offset), *k.stride()[:3], *v.stride()[:3], stream)
     build.check(lib, code, "flash_attention")
     build.count_launch(flash_attention_cuda)
@@ -236,7 +255,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_offset + torch.arange(sq, device=q.device))[None].expand(b, sq)
         out = fill_dead_rows(out, v, qpos, causal=causal, window=window,
                              kv_valid=kv_valid)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
@@ -258,18 +277,68 @@ def first_dead_row(sq: int, skv: int, *, causal: bool, window: int):
     return None
 
 
+def dkdv_warpgroups(d: int) -> int:
+    """Consumer warpgroups of the bf16 dK/dV kernel at head dim ``d``: one
+    at D 128 (its dK and dV accumulators take 128 registers a thread), two
+    below."""
+    return 1 if d == 128 else 2
+
+
+def dkdv_query_rows(d: int) -> int:
+    """Queries of one work item of the bf16 dK/dV kernel at head dim ``d``:
+    64 at D 128, 128 below."""
+    return 64 if d == 128 else 128
+
+
+def bwd_tile_plan(sq: int, skv: int, g: int, d: int, *, causal: bool,
+                  window: int) -> dict:
+    """The bf16 backward kernels' tile plan for one (batch row, kv head).
+
+    ``"dkdv"``: for each key tile ``kt`` of :data:`TILE_KEYS` keys, one list
+    per consumer warpgroup (:func:`dkdv_warpgroups`) of the items
+    ``(query head g, query tile qt)`` it sums, in its order, query tiles
+    of :func:`dkdv_query_rows` queries; the items run over the heads, and
+    for each over the query tiles that can see the key tile (from the tile
+    holding its first key under causal, to the tile of the last query its
+    window reaches), and warpgroup ``w`` takes items ``w, w + n, ...``.  The kernel then adds warpgroup 1's sums to
+    warpgroup 0's.  ``"dq"``: for each packed tile of ``TILE_ROWS // g``
+    tokens, ``(first token, tokens, key tiles)`` — the forward's
+    :func:`tile_range` over its tokens."""
+    qn = dkdv_query_rows(d)
+    nqt = -(-sq // qn)
+    nw = dkdv_warpgroups(d)
+    dkdv = []
+    for k0 in range(0, skv, TILE_KEYS):
+        nk = min(TILE_KEYS, skv - k0)
+        qt0 = k0 // qn if causal else 0
+        qt1 = (min(nqt, (k0 + nk - 1 + window - 1) // qn + 1)
+               if window > 0 else nqt)
+        per = max(0, qt1 - qt0)
+        items = [(i // per, qt0 + i % per) for i in range(g * per)]
+        dkdv.append([items[w::nw] for w in range(nw)])
+    tpb = TILE_ROWS // g
+    dq = [(t0, min(tpb, sq - t0),
+           tile_range(range(t0, min(t0 + tpb, sq)), skv, causal=causal,
+                      window=window))
+          for t0 in range(0, sq, tpb)]
+    return {"dkdv": dkdv, "dq": dq}
+
+
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, out: torch.Tensor,
                               dout: torch.Tensor, *, causal: bool = True,
-                              window: int = 0, chunk: int = 1024):
+                              window: int = 0, chunk: int = 1024,
+                              lse: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of :func:`flash_attention_plain`'s training form (no
     ``q_positions``, ``kv_valid`` or ``q_offset``), the algorithm of
     ``csrc/flash_attention_bwd.cu`` written out in torch, in float32 over
-    KV chunks: each row's log-sum-exp of its scaled live scores and
-    ``delta = rowsum(dout * out)``; then per chunk ``P = exp(S - lse)``
-    (0 where masked), ``dP = dout V^T``, ``dS = P * (dP - delta)``,
-    ``dV = P^T dout``, ``dK = dS^T Q * scale``, ``dQ += dS K * scale``.
-    Each gradient comes back in its input's dtype."""
+    KV chunks: each row's log-sum-exp of its scaled live scores (``lse
+    [B, H, Sq]`` as the forward's ``return_lse`` gives it, or computed here
+    when None) and ``delta = rowsum(dout * out)``; then per chunk
+    ``P = exp(S - lse)`` (0 where masked), ``dP = dout V^T``,
+    ``dS = P * (dP - delta)``, ``dV = P^T dout``, ``dK = dS^T Q * scale``,
+    ``dQ += dS K * scale``.  Each gradient comes back in its input's
+    dtype."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -289,14 +358,18 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
         s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc) * scale
         return kc, mask, torch.where(mask, s, NEG_INF)
 
-    m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
-    l = torch.zeros((b, hkv, g, sq), device=q.device)
-    for k0 in range(0, skv, ck):
-        _, _, s = chunk_scores(k0)
-        m_new = torch.maximum(m, s.amax(-1))
-        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
-        m = m_new
-    lse = m + torch.log(l)
+    if lse is None:
+        m = torch.full((b, hkv, g, sq), NEG_INF, device=q.device)
+        l = torch.zeros((b, hkv, g, sq), device=q.device)
+        for k0 in range(0, skv, ck):
+            _, _, s = chunk_scores(k0)
+            m_new = torch.maximum(m, s.amax(-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                s - m_new[..., None]).sum(-1)
+            m = m_new
+        lse = m + torch.log(l)
+    else:
+        lse = lse.reshape(b, hkv, g, sq).float()
 
     dq = torch.zeros_like(qf)
     dk = torch.empty((b, skv, hkv, d), dtype=k.dtype, device=k.device)
@@ -318,16 +391,27 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              dout: torch.Tensor, *, causal: bool = True,
                              window: int = 0, q_offset: int = 0,
                              q_positions: Optional[torch.Tensor] = None,
-                             kv_valid: Optional[torch.Tensor] = None):
-    """Launch ``csrc/flash_attention_bwd.cu`` (its pre-pass, dK/dV and dQ
+                             kv_valid: Optional[torch.Tensor] = None,
+                             lse: Optional[torch.Tensor] = None):
+    """Launch ``csrc/flash_attention_bwd.cu`` (its delta pass, dK/dV and dQ
     kernels, one C call) on PyTorch's current stream: (dq, dk, dv) in the
-    inputs' dtype.  It takes the training form only and raises on
-    ``q_positions``, ``kv_valid``, a ``q_offset`` or a row with no live key
-    (:func:`first_dead_row`), never computing those plainly.  Non-contiguous
-    inputs are copied contiguous first."""
+    inputs' dtype.  ``lse`` is the forward's log-sum-exp (float32
+    ``[B, H, Sq]``, :func:`flash_attention_cuda` with ``return_lse``), as
+    the training form's autograd node passes it; given None (a direct call,
+    as in the tests), the wrapper gets it by running the forward kernel
+    with ``return_lse=True`` first: never a plain path.  It takes the
+    training form only and raises on ``q_positions``, ``kv_valid``, a
+    ``q_offset``, a row with no live key (:func:`first_dead_row`) or an
+    ``lse`` of another shape or dtype, never computing those plainly.
+    Non-contiguous inputs are copied contiguous first."""
     if q_positions is not None or kv_valid is not None or q_offset:
         raise ValueError("flash_attention_bwd_cuda takes the training form "
                          "only: no q_positions, kv_valid or q_offset")
+    if lse is not None and (lse.dtype != torch.float32 or lse.shape != (
+            q.shape[0], q.shape[2], q.shape[1])):
+        raise ValueError(f"lse must be the forward's float32 [B, H, Sq] = "
+                         f"{(q.shape[0], q.shape[2], q.shape[1])}, got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
     tensors = [t.contiguous() for t in (q, k, v, out, dout)]
     q, k, v, out, dout = tensors
     check_device(tensors, "flash_attention_bwd_cuda")
@@ -349,6 +433,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported (want one of "
                          f"{HEAD_DIMS})")
+    if q.dtype == torch.bfloat16 and h // hkv > TILE_ROWS:
+        raise ValueError(f"query group {h // hkv} exceeds the bf16 dQ "
+                         f"kernel's {TILE_ROWS}-row tile")
     dead = first_dead_row(sq, skv, causal=causal, window=window)
     if dead is not None:
         raise ValueError(f"query row {dead} sees no key (Skv {skv}, window "
@@ -359,8 +446,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not b * sq:
         return dq, dk.zero_(), dv.zero_()
-    lse, delta = (torch.empty((b, h, sq), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    if lse is None:
+        _, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                      return_lse=True)
+    check_device([lse], "flash_attention_bwd_cuda")
+    lse = lse.contiguous()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     launch, lib = build.load("flash_attention_bwd")
     code = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -59,24 +59,25 @@ def _needs_grad(*tensors) -> bool:
 
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention's training form (no ``q_positions``, ``kv_valid`` or
-    ``q_offset``) as an autograd node: ``fwd(q, k, v, causal=, window=)``
-    gives the output, ``bwd(q, k, v, out, dout, causal=, window=)`` gives
-    (dq, dk, dv).  :func:`flash_attention` passes the kernels
+    ``q_offset``) as an autograd node: ``fwd(q, k, v, causal=, window=,
+    return_lse=True)`` gives the output and each row's log-sum-exp, which
+    the node saves; ``bwd(q, k, v, out, dout, causal=, window=, lse=)``
+    gives (dq, dk, dv) from it.  :func:`flash_attention` passes the kernels
     (``flash_attention_cuda``, ``flash_attention_bwd_cuda``) on the card
     and the plain versions on the CPU; tests pass either pair."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, fwd, bwd):
-        out = fwd(q, k, v, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window, ctx.bwd = causal, window, bwd
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = ctx.bwd(q, k, v, out, dout, causal=ctx.causal,
-                             window=ctx.window)
+                             window=ctx.window, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 
