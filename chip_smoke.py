@@ -2,6 +2,8 @@
 """On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py            # needs one CUDA card and nvcc
+    python3 chip_smoke.py --rounds DIR   # serving and training rounds of
+                                         # the checkout at DIR (A/B runs)
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -281,17 +283,41 @@ Phases (any failure exits non-zero and prints no result line):
    ``mamba2-780m`` in float32: kernels vs plain (only rmsnorm differs;
    the differentiable SSD runs) cut to 2 layers (1e-3) and at full depth
    (48 layers; within twice the plain path's own change when the SSD's
-   decay matrix runs in float64).  Phase 6 runs after phase 4; phase 5
-   last.
+   decay matrix runs in float64); (d) ``llama-3.2-vision-90b`` at
+   published widths cut to 5 layers (4 self, 1 gated cross over 576
+   image tokens, gates 0.5) with images: float32 B 2 x S 256 kernels vs
+   plain with the kernels' gradients in host memory (remat on vs off not
+   applicable: all 5 are prefix layers), launches against the layer
+   count; bf16 B 2 x S 512 loss and gradients kernels vs plain (1e-2 loss,
+   5e-2 a leaf; the two scalar gates 5e-5 of the sum of their gradients'
+   absolute terms) with tokens/s and peak memory (weights, gradients and
+   float32 AdamW moments would need ~71 GiB before activations); (e)
+   ``seamless-m4t-medium`` at full depth with frames: float32 B 2 x S 512
+   kernels vs plain, remat bit for bit, launches; 20 bf16 AdamW steps B 8
+   x S 512 whose loss must fall, tokens/s and peak memory;
+7. distribution and the examples — (a) ``build_step_spec``'s prefill,
+   decode and train steps of full-width ``qwen2-0.5b`` (bf16) at small
+   shapes, their meta arguments filled with seeded tensors on the card,
+   as DTensors on ``make_host_mesh()`` (1 x 1, NCCL) under
+   ``use_sharding`` against the same calls with no mesh: every output bit
+   for bit, the same kernel launches; (b) the multi-pod dry-run on the
+   host (meta DTensors on the fake process group) for ``qwen2-0.5b`` and
+   ``deepseek-moe-16b`` x train_4k and decode_32k on the 16 x 16 mesh and
+   ``qwen2-0.5b`` decode_32k on 2 x 16 x 16, each record printed; (c)
+   ``examples/quickstart.py``, ``openai_server.py`` and
+   ``multimodal_cache.py`` of the port on the card, each held to its
+   contract.  Phases 6 and 7 run after phase 4; phase 5 last.
 
 The last lines are one ``serve`` JSON line (4k under ``k4``, 4m under
-``m4``, 4n under ``n4``, phase 6 under ``train``), one ``spec``
+``m4``, 4n under ``n4``, phase 6 under ``train``, phase 7 under
+``distribution``), one ``spec``
 JSON line, one ``{"kernels": [...]}`` JSON line (seven kernels), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -974,12 +1000,21 @@ def plain_attention(ops, names=("flash_attention", "decode_attention",
     whatever the tensors' device."""
     saved = {name: getattr(ops, name) for name in names}
     for name in names:
-        setattr(ops, name, getattr(ops, PLAIN_OPS[name]))
+        plain = getattr(ops, PLAIN_OPS[name])
+        if name == "flash_attention":      # the layers pass a schedule
+            plain = functools.partial(_unscheduled, plain)
+        setattr(ops, name, plain)
     try:
         yield
     finally:
         for name, fn in saved.items():
             setattr(ops, name, fn)
+
+
+def _unscheduled(plain, q, k, v, schedule="full", **kw):
+    """The plain flash for a caller that names ``ops.flash_attention``'s
+    schedule (the layers): the card's path takes none either."""
+    return plain(q, k, v, **kw)
 
 
 def phrase_prompt(torch, g, vocab, s, period=6):
@@ -4756,45 +4791,115 @@ def train_batch(torch, tts, vocab, b, s, seed, phrase=False):
                          "mask": torch.ones((b, s), device="cuda")}, "cuda")
 
 
+@contextmanager
+def traced_gate_terms(torch, layers, names: dict, sums: dict):
+    """``layers._gate`` traced for the gate leaves in ``names`` (id ->
+    path): for each, ``sums[path]`` gathers the sum of the absolute terms of
+    its gradient, ``(1 - tanh(g)**2) * sum |d loss/d r * out|`` over the
+    gated product ``r = tanh(g) * out``'s entries, in float32 (where remat
+    recomputes a group, only the graph the gradient runs through fires)."""
+    real = layers._gate
+
+    def gate(g, out):
+        r = real(g, out)
+        path = names.get(id(g))
+        if path is not None and r.requires_grad:
+            kept = out.detach()
+            sech2 = 1 - torch.tanh(g.detach().float()) ** 2
+
+            def hook(dr):
+                sums[path] = sums.get(path, 0.0) + float(
+                    sech2 * (dr.float() * kept.float()).abs().sum())
+            r.register_hook(hook)
+        return r
+
+    layers._gate = gate
+    try:
+        yield
+    finally:
+        layers._gate = real
+
+
 def grads_vs_plain(torch, ns, cfg, params, batch, what, *,
-                   tol=TRAIN_GRAD_REL, **kw) -> dict:
+                   tol=TRAIN_GRAD_REL, loss_tol=TRAIN_LOSS_REL,
+                   offload=False, gate_tol=None, **kw) -> dict:
     """One loss and every gradient leaf through the kernels against the
     same through the plain versions (autograd through
     ``flash_attention_plain`` and ``rmsnorm_plain``): every leaf has a
-    finite gradient, each within ``tol`` of its largest plain entry.
-    Returns the
-    readings, the kernels' launches and the kernels' (loss, grads)."""
+    finite gradient, each within ``tol`` of its largest plain entry, the
+    loss within ``loss_tol``.  ``offload`` moves the kernels' gradients to
+    host memory before the plain run (a model whose two sets of gradients
+    do not fit the card beside its weights).  ``gate_tol`` holds the
+    0-dim leaves (the cross-attention gates) within ``gate_tol`` of the sum
+    of their gradient's absolute terms instead (:func:`traced_gate_terms`, the
+    kernels' run): a scalar's gradient is one sum of B * S * D products,
+    which no larger entry normalises and which cancels, so its own size is
+    no scale.  Each gate's control, |plain| over that sum, is what a
+    gradient off by a factor 2 would read.  Returns the readings, the
+    kernels' launches and the kernels' (loss, grads)."""
+    paths = [p for p, _ in ns.tree_flatten_with_path(params)]
+    names = {id(t): "/".join(map(str, p))
+             for p, t in ns.tree_flatten_with_path(params)
+             if gate_tol is not None and t.dim() == 0}
+    gate_paths, sums = set(names.values()), {}
     zero(ns.wrappers)
-    loss, parts, grads = ns.tts.loss_and_grads(params, batch, cfg=cfg, **kw)
+    with (traced_gate_terms(torch, ns.layers, names, sums) if names
+          else nullcontext()):
+        loss, parts, grads = ns.tts.loss_and_grads(params, batch, cfg=cfg,
+                                                   **kw)
     torch.cuda.synchronize()
     launches = counted(ns.wrappers)
+    if offload:
+        grads = [None if g is None else g.cpu() for g in grads]
+        torch.cuda.empty_cache()
     with plain_attention(ns.ops, names=("flash_attention", "rmsnorm")):
         ploss, pparts, pgrads = ns.tts.loss_and_grads(params, batch, cfg=cfg,
                                                       **kw)
-    paths = [p for p, _ in ns.tree_flatten_with_path(params)]
-    worst, where = 0.0, None
+    worst, where, scalars = 0.0, None, {}
     for path, g, pg in zip(paths, grads, pgrads):
         if g is None or pg is None:
             raise AssertionError(f"{what}: no gradient for {path}")
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{what}: non-finite gradient for {path}")
-        rel = max_err(torch, g, pg) / max(pg.float().abs().max().item(),
-                                          1e-30)
+        key = "/".join(map(str, path))
+        if key in gate_paths:
+            if not sums.get(key):
+                raise AssertionError(f"{what}: no gated product traced for "
+                                     f"{key}")
+            diff = abs(float(g) - float(pg))
+            scalars[key] = {"rel_to_terms": diff / sums[key],
+                            "control": abs(float(pg)) / sums[key],
+                            "rel_to_plain": diff / max(abs(float(pg)),
+                                                       1e-30),
+                            "abs_terms": sums[key]}
+            continue
+        rel = max_err(torch, g.to(pg.device), pg) / max(
+            pg.float().abs().max().item(), 1e-30)
         if rel > worst:
-            worst, where = rel, "/".join(map(str, path))
+            worst, where = rel, key
+    del pgrads
     loss_rel = abs(float(loss) - float(ploss)) / abs(float(ploss))
     aux = float(parts["aux_loss"])
+    worst_gate = max((v["rel_to_terms"] for v in scalars.values()),
+                     default=0.0)
     log(f"  {what}: loss {float(loss):.6f} (plain {float(ploss):.6f}, rel "
-        f"{loss_rel:.2e}, tol {TRAIN_LOSS_REL:g}), aux {aux:.6f}; "
+        f"{loss_rel:.2e}, tol {loss_tol:g}), aux {aux:.6f}; "
         f"{len(paths)} leaves, every one with a finite gradient, worst "
         f"max|Δ|/max|plain| {worst:.2e} at {where} (tol {tol:.2g}); "
-        f"launches {launches}")
-    if loss_rel > TRAIN_LOSS_REL or worst > tol:
+        + (f"the gates |Δ|/sum|terms| (tol {gate_tol:.2g}), control "
+           f"|plain|/sum|terms|, |Δ|/|plain|: "
+           + ", ".join(f"{k} {v['rel_to_terms']:.2e}, {v['control']:.2e}, "
+                       f"{v['rel_to_plain']:.2e}"
+                       for k, v in scalars.items()) + "; "
+           if scalars else "") + f"launches {launches}")
+    if (loss_rel > loss_tol or worst > tol
+            or (scalars and worst_gate > gate_tol)):
         raise AssertionError(f"{what}: kernels vs plain loss {loss_rel}, "
-                             f"grads {worst} at {where}")
+                             f"grads {worst} at {where}, gates {scalars}")
     return {"loss": float(loss), "plain_loss": float(ploss),
             "loss_rel": loss_rel, "aux_loss": aux, "worst_leaf_rel": worst,
             "worst_leaf": where, "leaves": len(paths),
+            **({"gates": scalars} if scalars else {}),
             "launches": launches, "result": (loss, grads)}
 
 
@@ -5091,6 +5196,359 @@ def check_training_mamba(torch, ns, get_config) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"] = out["48_layers"]["launches"]
+    return out
+
+
+# the bf16 kernels-vs-plain limits of 6d, relative (loss; each gradient leaf
+# to its largest plain entry): bf16 keeps 8 mantissa bits (2**-8 = 3.9e-3 a
+# rounding); the backward kernel rounds P and dS to bf16 for the tensor
+# cores where the plain backward keeps them in float32 (phase 2 holds one
+# call to 1e-2 of its largest entry), and 5 layers of bf16 products carry
+# those differences into every leaf.  A scalar gate's gradient is one sum of
+# B * S * D bf16 products that no larger entry normalises and that cancels
+# (the first H100 run read |Δ|/|plain| 7.1e-2 at xgate_ffn): the gates are
+# held to a share of the sum of their gradients' absolute terms, the scale
+# of the rounding in that sum.  5e-2 before any run of this form; the H100
+# read 1.17e-6 (xgate_attn) and 1.47e-5 (xgate_ffn) against controls (what
+# a gradient off by 2x reads) of 1.19e-4 and 2.07e-4: the sum cancels to
+# ~1e-4 of its terms.  5e-5 is over 3x the larger reading and under half
+# the smaller control, so a 2x error fails
+BF16_TRAIN_LOSS_REL = 1e-2
+BF16_TRAIN_GRAD_REL = 5e-2
+BF16_GATE_TERMS_REL = 5e-5
+MEDIA_STEPS = 20
+
+
+def flash_calls(cfg, kinds) -> int:
+    """Flash calls of ``kinds``' layers in one train-mode forward: one a
+    self-attention or gated cross-attention layer, two an audio decoder
+    layer (self, then cross to the encoder)."""
+    per = {"attn": 2 if cfg.family == "audio" else 1, "moe": 1, "xattn": 1}
+    return sum(per.get(k, 0) for k in kinds)
+
+
+def train_flash_launches(ns, cfg, remat) -> tuple:
+    """(forward, backward) flash launches of one loss-and-grads call: each
+    attention call of the encoder and the layers once each way, plus the
+    forward again for every repeat group that remat recomputes (the
+    prefix layers and the encoder are not checkpointed)."""
+    _, pattern, repeats = ns.find_pattern(cfg.layer_kinds())
+    calls = ((cfg.audio.encoder_layers if cfg.audio else 0)
+             + flash_calls(cfg, cfg.layer_kinds()))
+    return calls + (flash_calls(cfg, pattern) * repeats if remat else 0), calls
+
+
+def require_train_launches(ns, cfg, launches, remat, what, steps=1):
+    fwd, bwd = train_flash_launches(ns, cfg, remat)
+    got = (launches["flash_attention"], launches["flash_attention_bwd"])
+    if got != (fwd * steps, bwd * steps) or not launches["rmsnorm"]:
+        raise AssertionError(f"{what}: expected {fwd * steps} flash and "
+                             f"{bwd * steps} flash_attention_bwd launches "
+                             f"and rmsnorm's: {launches}")
+    log(f"  {what}: flash {got[0]} and flash_attention_bwd {got[1]} "
+        f"launches, as the layer count gives ({fwd} forward, {bwd} backward "
+        f"a call{', remat recomputing the repeat groups' if remat else ''})")
+
+
+def media_batch(torch, ns, cfg, b, s, seed, tokens=None):
+    """A training batch (random tokens, or ``tokens`` numpy) with the
+    model's media: image embeddings uniform in [-1, 1) or frame embeddings
+    from a unit normal, float32, drawn from ``seed``."""
+    batch = (train_batch(torch, ns.tts, cfg.vocab_size, b, s, seed)
+             if tokens is None else ns.tts.batch_to(tokens, "cuda"))
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    if cfg.vision is not None:
+        batch["image_embeds"] = torch.rand(
+            (b, cfg.vision.num_image_tokens, cfg.vision.embed_dim),
+            generator=g, device="cuda") * 2 - 1
+    if cfg.audio is not None:
+        batch["audio_frames"] = torch.randn(
+            (b, cfg.audio.num_frames, cfg.audio.embed_dim), generator=g,
+            device="cuda")
+    return batch
+
+
+def remat_bit_for_bit(torch, ns, cfg, params, batch, result, what) -> bool:
+    """loss_and_grads with remat off against ``result`` (the kernels' run
+    with remat on; its gradients on the card or in host memory), bit for
+    bit."""
+    loss0, grads0 = result
+    loss1, _, grads1 = ns.tts.loss_and_grads(params, batch, cfg=cfg,
+                                             remat=False)
+    same = bool(torch.equal(loss0.to(loss1.device), loss1)) and all(
+        bool(torch.equal(a.to(b.device), b)) for a, b in zip(grads0, grads1))
+    log(f"  {what} remat on vs off: loss and all {len(grads1)} gradient "
+        f"leaves bit for bit {same}")
+    if not same:
+        raise AssertionError(f"{what}: remat on differs from remat off")
+    return same
+
+
+def check_training_vision(torch, ns, get_config) -> dict:
+    """6d: ``llama-3.2-vision-90b`` at published widths cut to 5 layers (4
+    self-attention, 1 gated cross-attention over 576 image tokens; the
+    smallest cut with a cross layer), gates set to GATE so the image and
+    the cross-attention's backward reach the loss.  float32 B 2 x S 256,
+    remat on: the kernels against the plain path with the kernels'
+    gradients kept in host memory (two float32 sets beside the weights
+    would need ~71 GiB); launches against the layer count.  Remat on
+    against off is reported as not applicable where every layer is a
+    prefix layer (5 layers: remat recomputes nothing).  bf16 weights,
+    gradients and float32 AdamW moments would need ~71 GiB before
+    activations and the update's float32 temporaries, so bf16 runs as loss
+    and gradients, kernels against plain (:data:`BF16_TRAIN_LOSS_REL`,
+    :data:`BF16_TRAIN_GRAD_REL`; the two scalar gates against the sums of
+    their gradients' absolute terms, :func:`grads_vs_plain`), with tokens/s
+    and peak memory of the kernels' pass read."""
+    out = {}
+    cfg = vision_config(get_config, 5, "float32")
+    params = ns.Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    open_gates(torch, params)
+    n = sum(t.numel() for t in ns.tree_leaves(params))
+    log(f"  {VISION} {cfg.num_layers} layers "
+        f"{''.join('x' if k == 'xattn' else 'a' for k in cfg.layer_kinds())}"
+        f": {n / 1e9:.2f} B parameters, float32 weights + gradients "
+        f"{2 * 4 * n / 2**30:.1f} GiB, bf16 weights + gradients + float32 "
+        f"moments {(2 + 2 + 8) * n / 2**30:.1f} GiB; the card holds "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+        f"GiB")
+    batch = media_batch(torch, ns, cfg, 2, 256, seed=4)
+    kp = grads_vs_plain(torch, ns, cfg, params, batch,
+                        "6d float32 B2xS256, remat on", offload=True,
+                        remat=True)
+    require_train_launches(ns, cfg, kp["launches"], True, "6d float32")
+    if ns.tree_leaves(params["block"]):
+        out["remat_bit_for_bit"] = remat_bit_for_bit(
+            torch, ns, cfg, params, batch, kp.pop("result"), "6d float32")
+    else:
+        kp.pop("result")
+        out["remat_bit_for_bit"] = ("not applicable: every layer is a prefix "
+                                    "layer, so remat recomputes nothing")
+        log(f"  6d float32 remat on vs off: {out['remat_bit_for_bit']}")
+    out["f32_kernels_vs_plain"] = kp
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = vision_config(get_config, 5, "bfloat16")
+    params = ns.Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    open_gates(torch, params)
+    b, s = 2, 512
+    batch = media_batch(torch, ns, cfg, b, s, seed=5)
+    ns.tts.loss_and_grads(params, batch, cfg=cfg)          # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reps = 3
+    for _ in range(reps):
+        ns.tts.loss_and_grads(params, batch, cfg=cfg)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / reps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  6d bf16 B{b}xS{s} loss and gradients through the kernels: "
+        f"{dt:.3f} s a pass, {b * s / dt:,.0f} tokens/s, peak {peak:.2f} GiB "
+        f"allocated on {smi()}")
+    kp = grads_vs_plain(torch, ns, cfg, params, batch,
+                        f"6d bf16 B{b}xS{s}, remat on",
+                        tol=BF16_TRAIN_GRAD_REL, loss_tol=BF16_TRAIN_LOSS_REL,
+                        gate_tol=BF16_GATE_TERMS_REL, remat=True)
+    kp.pop("result")
+    require_train_launches(ns, cfg, kp["launches"], True, "6d bf16")
+    out["bf16_kernels_vs_plain"] = kp
+    out["bf16_pass"] = {"s": dt, "tokens_per_s": b * s / dt,
+                        "peak_gib": peak, "params": n}
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_training_audio(torch, ns, get_config) -> dict:
+    """6e: ``seamless-m4t-medium`` at full depth (12 encoder + 12 decoder
+    layers) with frame embeddings over its 512 frames: float32 B 2 x S 512,
+    remat on, kernels against plain (the causal encoder flash, the
+    decoder's self and cross attention and their backward), remat on
+    against off bit for bit, launches against the layer count; then
+    :data:`MEDIA_STEPS` bf16 AdamW steps, B 8 x S 512 on the bigram data
+    with fresh frames a step: the loss must fall; tokens/s and peak memory
+    read."""
+    out = {}
+    cfg = dataclasses.replace(get_config(AUDIO), dtype="float32")
+    params = ns.Model(cfg).init(torch.Generator(device="cuda").manual_seed(0))
+    batch = media_batch(torch, ns, cfg, 2, 512, seed=6)
+    kp = grads_vs_plain(torch, ns, cfg, params, batch,
+                        "6e float32 B2xS512, remat on", remat=True)
+    require_train_launches(ns, cfg, kp["launches"], True, "6e float32")
+    out["remat_bit_for_bit"] = remat_bit_for_bit(
+        torch, ns, cfg, params, batch, kp.pop("result"), "6e float32")
+    out["f32_kernels_vs_plain"] = kp
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config(AUDIO)
+    state = ns.tts.init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    data = ns.BigramDataPipeline(TRAIN_DATA_VOCAB, 512, 8, seed=0)
+    step = ns.tts.make_train_step(
+        cfg, ns.AdamWConfig(lr=1e-3, warmup_steps=4,
+                            total_steps=MEDIA_STEPS), remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    zero(ns.wrappers)
+    for i in range(MEDIA_STEPS):
+        if i == 4:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        state, m = step(state, media_batch(torch, ns, cfg, 8, 512, seed=i,
+                                           tokens=data.batch(i)))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_steady
+    launches = counted(ns.wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tok_s = 8 * 512 * (MEDIA_STEPS - 4) / dt
+    first, last = sum(losses[:4]) / 4, sum(losses[-4:]) / 4
+    log(f"  6e bf16 B8xS512, {MEDIA_STEPS} AdamW steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 4 "
+        f"{first:.4f}, last 4 {last:.4f}); {tok_s:,.0f} tokens/s over steps "
+        f"4-{MEDIA_STEPS - 1}, peak {peak:.2f} GiB allocated on {smi()}")
+    if not last < first - 0.3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"6e: the loss did not fall: {losses}")
+    require_train_launches(ns, cfg, launches, False, "6e bf16 steps",
+                           steps=MEDIA_STEPS)
+    out["bf16_steps"] = {"losses": losses, "tokens_per_s": tok_s,
+                         "peak_gib": peak, "launches": launches}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: distribution and the examples
+# --------------------------------------------------------------------------- #
+# 7a's step shapes (full-width qwen2-0.5b): the dry-run's step kinds at a
+# size one card runs in seconds
+HOST_MESH_SHAPES = {
+    "train_4k": dict(seq=256, batch=2, kind="train"),
+    "prefill_32k": dict(seq=512, batch=2, kind="prefill"),
+    "decode_32k": dict(seq=512, batch=4, kind="decode"),
+    "long_500k": dict(seq=1024, batch=1, kind="decode"),
+}
+# 7b's dry-run combinations: (arch, shape, multi-pod)
+DRYRUN_COMBOS = (("qwen2-0.5b", "train_4k", False),
+                 ("qwen2-0.5b", "decode_32k", False),
+                 (MOE, "train_4k", False), (MOE, "decode_32k", False),
+                 ("qwen2-0.5b", "decode_32k", True))
+
+
+@contextmanager
+def step_shapes(specs, shapes):
+    """``specs.SHAPES`` replaced by ``shapes`` for the block."""
+    saved = specs.SHAPES
+    specs.SHAPES = shapes
+    try:
+        yield
+    finally:
+        specs.SHAPES = saved
+
+
+def full_tensors(ns, tree) -> list:
+    return [t.full_tensor() if hasattr(t, "full_tensor") else t
+            for t in ns.tree_leaves(tree)]
+
+
+def check_host_mesh_steps(torch, ns, get_config) -> dict:
+    """7a: full-width ``qwen2-0.5b`` (bf16) through ``build_step_spec``'s
+    prefill, decode and train steps at :data:`HOST_MESH_SHAPES`, their meta
+    arguments filled with seeded random tensors on the card: once with no
+    mesh, once as DTensors on ``make_host_mesh()`` (one card: 1 x 1, NCCL)
+    under ``use_sharding`` (the dry-run's ``run_step``: placements from the
+    spec, outputs placed as ``out_shardings`` says).  Every output bit for
+    bit equal, and the kernels launched as many times as with no mesh:
+    flash per layer in prefill, decode per layer in decode, flash forward
+    (twice with remat) and backward per layer in train."""
+    cfg = get_config("qwen2-0.5b")
+    out = {}
+    with step_shapes(ns.specs, HOST_MESH_SHAPES):
+        for shape in ("prefill_32k", "decode_32k", "train_4k"):
+            seq = HOST_MESH_SHAPES[shape]["seq"]
+            spec = ns.specs.build_step_spec(cfg, shape)
+            args = ns.specs.materialize(
+                spec.args, torch.Generator(device="cuda").manual_seed(7),
+                "cuda", high=seq)
+            zero(ns.wrappers)
+            want = full_tensors(ns, spec.fn(*ns.tree_map(torch.clone, args)))
+            torch.cuda.synchronize()
+            plain_launches = counted(ns.wrappers)
+            t0 = time.perf_counter()
+            with ns.make_host_mesh() as mesh:
+                rules = ns.specs.shape_rules(cfg, shape, mesh)
+                zero(ns.wrappers)
+                res = ns.dryrun.run_step(dataclasses.replace(
+                    spec, args=ns.tree_map(torch.clone, args)), mesh, rules)
+                got = full_tensors(ns, res["out"])
+                torch.cuda.synchronize()
+                launches = counted(ns.wrappers)
+                mesh_desc = str(mesh)
+            dt = time.perf_counter() - t0
+            same = len(got) == len(want) and all(
+                a.dtype == b.dtype and bool(torch.equal(a, b))
+                for a, b in zip(got, want))
+            log(f"  7a {spec.name} ({shape} cut to {HOST_MESH_SHAPES[shape]}"
+                f") on {mesh_desc}: {len(got)} outputs bit for bit equal to "
+                f"the no-mesh step {same}; launches {launches} (no mesh "
+                f"{plain_launches}); {dt:.2f} s")
+            kinds = {"prefill_step": ("flash_attention",),
+                     "serve_step": ("decode_attention",),
+                     "train_step": ("flash_attention",
+                                    "flash_attention_bwd")}[spec.name]
+            if not same or launches != plain_launches or not all(
+                    launches[k] >= cfg.num_layers for k in kinds):
+                raise AssertionError(f"7a {spec.name}: bit for bit {same}, "
+                                     f"launches {launches} vs "
+                                     f"{plain_launches}")
+            out[spec.name] = {"bit_for_bit": same, "launches": launches,
+                              "outputs": len(got), "s": dt}
+            del args, want, got, res
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_dryrun_combos(ns) -> list:
+    """7b: the dry-run on the host (meta DTensors on the fake process
+    group; the card is not touched) for :data:`DRYRUN_COMBOS`; each record
+    printed."""
+    recs = []
+    for arch, shape, mp in DRYRUN_COMBOS:
+        rec = ns.dryrun.run_combo(arch, shape, multi_pod=mp, save_dir="")
+        log(f"  7b dry-run {json.dumps(rec)}")
+        if not rec["ok"]:
+            raise AssertionError(f"7b {arch} {shape}: {rec}")
+        recs.append(rec)
+    return recs
+
+
+def check_examples(torch, ns) -> dict:
+    """7c: the three examples on the card, each held to its contract
+    (``check``)."""
+    out = {}
+    for name, mod in ns.examples.items():
+        zero(ns.wrappers)
+        t0 = time.perf_counter()
+        res = mod.main([])
+        torch.cuda.synchronize()
+        mod.check(res)
+        launches = counted(ns.wrappers)
+        log(f"  7c examples/{name}.py on the card: contract held in "
+            f"{time.perf_counter() - t0:.1f} s; launches {launches}")
+        if not launches["flash_attention"] or not (
+                launches["decode_attention"] or launches["paged_attention"]):
+            raise AssertionError(f"7c {name}: launches {launches}")
+        out[name] = {"result": res, "launches": launches}
     return out
 
 
@@ -5683,6 +6141,109 @@ def log_kernel_times(name, t, card) -> None:
             f"{t['cross_device_ms'] / t['cross_library_device_ms']:.3f})")
 
 
+def serving_rounds(src: str) -> int:
+    """``--rounds SRC``: the counted serving rounds of 4a, 4b, 4g (dense)
+    and 4m-a (dense and paged), and 6a's 30 bf16 steps and its profiled
+    step, of the ``repro_torch`` under ``SRC/src`` (a checkout, this one or
+    another commit unpacked beside it) with this script's checks, on one
+    card.  Prints one JSON line of the readings.  Run trees in turn in one
+    call (parent, change, change, parent) to compare them on one card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(src).resolve() / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import InferenceEngine
+    from repro_torch.kernels import build
+    from repro_torch.kernels import categorical as cat
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fla
+    from repro_torch.kernels import paged_attention as pag
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.models.model import Model
+    from repro_torch.serving.api import OpenAIServer
+    from repro_torch.serving.client import EngineClient
+    from repro_torch.serving.server import ApiServer
+    from repro_torch.training import train_step as tts
+    from repro_torch.training.data import BigramDataPipeline
+    from repro_torch.training.optimizer import AdamWConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build()
+    for name in build.KERNELS:
+        build.load(name)
+    log(f"== rounds of {Path(src).resolve()} on {smi()}")
+    wrappers = {"decode_attention": dec.decode_attention_cuda,
+                "flash_attention": fla.flash_attention_cuda,
+                "flash_attention_bwd": fla.flash_attention_bwd_cuda,
+                "paged_attention": pag.paged_attention_cuda,
+                "quant_matmul": qm.quant_matmul_cuda,
+                "rmsnorm": rms.rmsnorm_cuda,
+                "categorical": cat.categorical_cuda}
+    serving = (torch, get_config, InferenceEngine, EngineClient, OpenAIServer,
+               ApiServer, wrappers)
+    keep = ("wall_s", "tokens_per_s", "completion_tokens", "prefill_waves",
+            "decode_steps")
+    out = {}
+    log("== 4a")
+    out["4a"] = {k: v for k, v in check_serving(
+        *serving, bodies=serve_requests(), profile=False)[1].items()
+        if k in keep}
+    log("== 4b")
+    out["4b"] = {k: v for k, v in check_serving(
+        *serving, bodies=serve_requests() + shared_prompt_chats(),
+        profile=False, kv_layout="paged", kv_page_size=16)[1].items()
+        if k in keep}
+    log("== 4g (dense)")
+    params = Model(get_config(MOE)).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    out["4g"] = {k: v for k, v in check_serving(
+        *serving, bodies=serve_requests(), arch=MOE, params=params,
+        profile=False)[1].items() if k in keep}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 4m-a")
+    mcfg = get_config(MAMBA)
+    params = Model(mcfg).init(torch.Generator(device="cuda").manual_seed(0))
+    rec = check_ssm_serving(torch, serving, MAMBA, mcfg, params, what="4m-a",
+                            require_equal=True)
+    out["4m-a"] = {lay: {k: v for k, v in rec[lay].items() if k in keep}
+                   for lay in ("dense", "paged")}
+    del params, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("== 6a (bf16 steps)")
+    ns = types.SimpleNamespace(tts=tts, wrappers=wrappers)
+    cfg = get_config("qwen2-0.5b")
+    state = tts.init_train_state(cfg,
+                                 torch.Generator(device="cuda").manual_seed(0))
+    data = BigramDataPipeline(TRAIN_DATA_VOCAB, 512, 8, seed=0)
+    step = tts.make_train_step(
+        cfg, AdamWConfig(lr=1e-3, warmup_steps=6, total_steps=TRAIN_STEPS),
+        remat=False)
+    for i in range(TRAIN_STEPS):
+        if i == 5:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, _ = step(state, data.batch(i))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    state, prof = profile_train_step(torch, ns, step, state,
+                                     data.batch(TRAIN_STEPS))
+    out["6a"] = {"tokens_per_s": 8 * 512 * (TRAIN_STEPS - 5) / dt,
+                 "s_per_step": dt / (TRAIN_STEPS - 5),
+                 "profiled_step_wall_ms": prof["step_wall_ms"],
+                 "profiled_device_busy_ms": prof["device_busy_ms"],
+                 "profiled_kernels": sum(prof["kernels"].values())}
+    log(f"  6a {out['6a']}")
+    del state
+    print(json.dumps({"rounds": out, "src": str(Path(src).resolve()),
+                      "card": smi()}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5709,8 +6270,8 @@ def main() -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import layers
     from repro_torch.launch import train as train_launcher
-    from repro_torch.models.model import (Model, init_cache, tree_leaves,
-                                          tree_map)
+    from repro_torch.models.model import (Model, find_pattern, init_cache,
+                                          tree_leaves, tree_map)
     from repro_torch.training import train_step as tts
     from repro_torch.training.checkpoint import (checkpoint_step,
                                                  restore_checkpoint,
@@ -5723,6 +6284,10 @@ def main() -> int:
     from repro_torch.serving.client import EngineClient
     from repro_torch.serving import media
     from repro_torch.serving.server import ApiServer
+    from repro_torch.examples import (multimodal_cache, openai_server,
+                                      quickstart)
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_host_mesh
     t_start = time.perf_counter()
 
     log("== 1. environment")
@@ -5984,7 +6549,8 @@ def main() -> int:
         restore_checkpoint=restore_checkpoint,
         checkpoint_step=checkpoint_step, train_launcher=train_launcher,
         tree_flatten_with_path=tree_flatten_with_path,
-        tree_leaves=sorted_leaves, tree_map=tree_map)
+        tree_leaves=sorted_leaves, tree_map=tree_map,
+        find_pattern=find_pattern)
     log("== 6a. training qwen2-0.5b at full depth: float32 kernels vs plain "
         "gradients, remat, microbatches; 30 bf16 steps, a checkpoint, the "
         "launcher")
@@ -5995,6 +6561,27 @@ def main() -> int:
     log(f"== 6c. training {MAMBA} at full depth, float32: kernels vs plain "
         "(the differentiable SSD)")
     six["c_mamba"] = check_training_mamba(torch, ns6, get_config)
+    log(f"== 6d. training {VISION} at published widths, 5 layers, with "
+        "images: float32 kernels vs plain gradients (kept in host memory), "
+        "remat; bf16 loss and gradients, kernels vs plain")
+    six["d_vision"] = check_training_vision(torch, ns6, get_config)
+    log(f"== 6e. training {AUDIO} at full depth with frames: float32 "
+        f"kernels vs plain gradients, remat; {MEDIA_STEPS} bf16 AdamW steps")
+    six["e_audio"] = check_training_audio(torch, ns6, get_config)
+    ns7 = types.SimpleNamespace(
+        specs=specs, dryrun=dryrun, make_host_mesh=make_host_mesh,
+        tree_map=tree_map, tree_leaves=tree_leaves, wrappers=wrappers,
+        examples={"quickstart": quickstart, "openai_server": openai_server,
+                  "multimodal_cache": multimodal_cache})
+    log("== 7a. the dry-run's steps on the card: qwen2-0.5b (bf16, 24 "
+        "layers) prefill, decode and train over a 1 x 1 host mesh vs no "
+        "mesh")
+    seven = {"a_host_mesh": check_host_mesh_steps(torch, ns7, get_config)}
+    log("== 7b. the multi-pod dry-run on the host (meta DTensors, fake "
+        "process group)")
+    seven["b_dryrun"] = run_dryrun_combos(ns7)
+    log("== 7c. the examples on the card")
+    seven["c_examples"] = check_examples(torch, ns7)
     spec["phase3_verify"] = verify3
     # each kernel's launches in the counted round of its own path
     launches = {"decode_attention": dense_launches["decode_attention"],
@@ -6066,7 +6653,11 @@ def main() -> int:
                     "a_bf16_30_steps": six["a_qwen"]["bf16_steps"][
                         "launches"].get(name, 0),
                     "b_moe_step": six["b_moe"]["launches"].get(name, 0),
-                    "c_mamba_step": six["c_mamba"]["launches"].get(name, 0)}}
+                    "c_mamba_step": six["c_mamba"]["launches"].get(name, 0),
+                    "d_vision_f32_step": six["d_vision"][
+                        "f32_kernels_vs_plain"]["launches"].get(name, 0),
+                    "e_audio_bf16_steps": six["e_audio"]["bf16_steps"][
+                        "launches"].get(name, 0)}}
                if name in ("flash_attention", "flash_attention_bwd",
                            "rmsnorm") else {}),
             **({"max_rel_err": bwd_check["max_rel_err"],
@@ -6086,7 +6677,7 @@ def main() -> int:
              "policy_preemption": policy_preempt, "pressure": pressure,
              "admission": admission, "j4": j4, "k4": k4, "m4": m4,
              "mamba_phase3": ssm3,
-             "n4": n4, "train": six,
+             "n4": n4, "train": six, "distribution": seven,
              "threefry_card_vs_cpu": threefry, "sampler_step": sampler_step,
              "categorical_check": cat_check, "sampled": sampled,
              "card": card, "smoke_s": time.perf_counter() - t_start}
@@ -6102,6 +6693,8 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--rounds"] and len(sys.argv) == 3:
+            sys.exit(serving_rounds(sys.argv[2]))
         sys.exit(main())
     except Exception:
         traceback.print_exc()

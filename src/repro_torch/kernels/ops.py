@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import gather, is_dtensor
+
 from repro_torch.kernels.categorical import (categorical_cuda,
                                              categorical_plain)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -51,6 +53,52 @@ _flash_plain = flash_attention_plain
 _decode_plain = decode_attention_plain
 _paged_plain = paged_attention_plain
 _qmm_plain = quant_matmul_plain
+
+
+def on_shards(fn, args: tuple, dims: tuple, out_dims: tuple):
+    """``fn(*args)`` over the local shards of DTensors (under an active
+    mesh), through ``local_map``: a kernel has no sharding rule, and the
+    plain attention's einsums flatten dims DTensor may refuse to.
+    ``dims[i]`` is arg i's (batch dim, head dim), either None, or None for
+    an arg taken whole; ``out_dims`` the result's.  Each mesh dim that
+    splits the first arg's batch dim splits every arg's batch dim; one that
+    splits its head dim splits every arg's heads when all their head counts
+    divide (a query head shard then holds its kv heads' groups whole);
+    every other split is gathered first.  Rows and heads of attention and
+    rows of a norm are independent, so each shard's call is exact; on one
+    card's 1 x 1 mesh the local tensors are the whole ones."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    lead = args[0]
+    mesh = lead.device_mesh
+    call = fn
+
+    def fn(*local):
+        # a kernel takes contiguous rows; a shard may come strided
+        return call(*(t.contiguous() if torch.is_tensor(t) else t
+                      for t in local))
+
+    bdim, hdim = dims[0]
+    kinds = ["batch" if isinstance(p, Shard) and p.dim == bdim else
+             "head" if isinstance(p, Shard) and p.dim == hdim else None
+             for p in lead.placements]
+    heads = 1
+    for kind, n in zip(kinds, mesh.shape):
+        heads *= n if kind == "head" else 1
+    if any(a is not None and d is not None and d[1] is not None
+           and a.shape[d[1]] % heads for a, d in zip(args, dims)):
+        kinds = [k if k == "batch" else None for k in kinds]
+
+    def place(d):
+        return [Shard(d[0]) if k == "batch" and d[0] is not None else
+                Shard(d[1]) if k == "head" and d[1] is not None else
+                Replicate() for k in kinds]
+
+    in_pl = tuple(None if a is None else
+                  place(d if d is not None else (None, None))
+                  for a, d in zip(args, dims))
+    return local_map(fn, out_placements=place(out_dims), in_placements=in_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def _needs_grad(*tensors) -> bool:
@@ -111,12 +159,33 @@ def flash_attention(
     q_offset: int = 0,
     q_positions: Optional[torch.Tensor] = None,   # [B, Sq] absolute positions
     kv_valid: Optional[torch.Tensor] = None,      # [B, Skv] liveness mask
+    schedule: str = "full",
 ) -> torch.Tensor:
     """With grad enabled and an input that requires it, the training form
     runs through :class:`FlashAttentionFn` (the forward and backward
     kernels on the card).  On the card any other form then raises: the
     backward kernel does not take it, and nothing falls back; on the CPU it
-    differentiates through the plain version."""
+    differentiates through the plain version.
+
+    ``schedule='causal'`` is the reference's causal-blocks schedule
+    (:func:`flash_causal_blocks`), taken where the reference takes it:
+    off the card, causal, ``Sq`` over one chunk, no ``q_positions`` or
+    ``kv_valid`` (autograd differentiates it as plain torch).  On the card
+    the kernel comes first, as the Pallas kernel does on a TPU: it skips
+    the KV tiles a causal row cannot see either way.  DTensors run it on
+    their batch and head shards (:func:`on_shards`): the kernel on the
+    card, the plain version elsewhere (the dry-run's meta tensors)."""
+    if is_dtensor(q):
+        return on_shards(
+            lambda q, k, v, qp, kv: flash_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                q_positions=qp, kv_valid=kv, schedule=schedule),
+            (q, k, v, q_positions, kv_valid),
+            ((0, 2), (0, 2), (0, 2), (0, None), (0, None)), (0, 2))
+    if (not q.is_cuda and schedule == "causal" and causal
+            and q.shape[1] > FLASH_CHUNK and q_positions is None
+            and kv_valid is None):
+        return flash_causal_blocks(q, k, v, window=window, q_offset=q_offset)
     if _needs_grad(q, k, v):
         train_form = q_positions is None and kv_valid is None and not q_offset
         if train_form:
@@ -139,12 +208,48 @@ def flash_attention(
                         kv_valid=kv_valid)
 
 
+FLASH_CHUNK = 1024          # the plain flash's KV chunk and the q chunk
+
+
+def flash_causal_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, q_offset: int = 0,
+                        chunk: int = FLASH_CHUNK) -> torch.Tensor:
+    """The reference's ``_flash_jnp_causal_blocks``: q split into chunks,
+    each attending only to the chunk-aligned KV range its causal (and
+    window) mask permits — static slice bounds, so the masked-out upper
+    triangle is never computed.  Plain torch: the dry-run's and the CPU's
+    ``attn_schedule='causal'``."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    cq = min(chunk, sq)
+    if sq % cq:
+        raise ValueError(f"prefill length {sq} is not a multiple of the q "
+                         f"chunk {cq}")
+    outs = []
+    for iq in range(sq // cq):
+        off = q_offset + iq * cq
+        hi = min(off + cq, skv)                        # causal upper bound
+        lo = 0 if window <= 0 else max(0, off + 1 - window)
+        lo = (lo // cq) * cq                           # chunk-aligned
+        hi = min(-(-hi // cq) * cq, skv)
+        outs.append(_flash_plain(q[:, iq * cq:(iq + 1) * cq], k[:, lo:hi],
+                                 v[:, lo:hi], causal=True, window=window,
+                                 q_offset=off - lo, chunk=cq))
+    return torch.cat(outs, dim=1)
+
+
 def decode_attention(
     q: torch.Tensor,                   # [B, H, D]
     k_cache: torch.Tensor,             # [B, S, Hkv, D]
     v_cache: torch.Tensor,             # [B, S, Hkv, D]
     kv_valid: torch.Tensor,            # [B, S] bool
 ) -> torch.Tensor:
+    if q.is_cuda and is_dtensor(q):
+        return on_shards(decode_attention, (q, k_cache, v_cache, kv_valid),
+                         ((0, None),) * 4, (0, None))
+    # over DTensors the plain einsums flatten (batch, kv head): keep one of
+    # them split (DTensor may refuse to flatten two split dims)
+    q = gather(q, 1)
     if q.is_cuda:
         return decode_attention_cuda(q, k_cache, v_cache, kv_valid)
     return _decode_plain(q, k_cache, v_cache, kv_valid)
@@ -160,6 +265,13 @@ def paged_attention(
     k_scale: Optional[torch.Tensor] = None,   # [N, ps, Hkv] f32 (int8 pages)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    if q.is_cuda and is_dtensor(q):
+        return on_shards(
+            lambda q, kp, vp, pt, pos, ks, vs: paged_attention(
+                q, kp, vp, pt, pos, k_scale=ks, v_scale=vs),
+            (q, k_pages, v_pages, page_table, positions, k_scale, v_scale),
+            ((0, None), None, None, (0, None), (0, None), None, None),
+            (0, None))
     if q.is_cuda:
         return paged_attention_cuda(q, k_pages, v_pages, page_table,
                                     positions, k_scale=k_scale,
@@ -181,7 +293,11 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     """``x [..., D] * rsqrt(mean(x^2) + eps) * w [D]`` in float32, cast to
     x's dtype; on the card each row's sum runs in one fixed order whatever
     the number of rows.  With grad enabled and an input that requires it,
-    it runs through :class:`RmsnormFn`."""
+    it runs through :class:`RmsnormFn`.  A CUDA DTensor runs the kernel on
+    its shards (:func:`on_shards`)."""
+    if x.is_cuda and is_dtensor(x):
+        return on_shards(lambda x, w: rmsnorm(x, w, eps), (x, w),
+                         ((0, None), None), (0, None))
     if _needs_grad(x, w):
         return RmsnormFn.apply(x, w, eps,
                                rmsnorm_cuda if x.is_cuda else rmsnorm_plain)

@@ -46,6 +46,13 @@ value, the in-place form of the reference's ``select_cache_slots`` rule; in
 a paged arena its write goes to its reserved trash cell instead, as in the
 reference.  A Mamba layer rewrites ``conv``/``state`` wholesale, and a
 frozen slot's rows are written back with their old values.
+
+Sharding is expressed as in the reference, through
+:func:`repro_torch.distributed.constrain` with logical axis names at the
+reference's sites (identity with no active mesh or on a plain tensor).
+Where the port runs one branch for two of the reference's (decode at S = 1
+and S > 1; the output projection after the resume, paged and other
+branches), one call serves the sites of both.
 """
 from __future__ import annotations
 
@@ -56,6 +63,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ModelConfig
+from repro_torch.distributed import constrain
+from repro_torch.distributed.sharding import (is_dtensor, replicated_call,
+                                              reshape)
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant_matmul import quantize_kv_int8
 
@@ -71,6 +81,8 @@ def dtype_of(name: str) -> torch.dtype:
 # primitives
 # --------------------------------------------------------------------------- #
 def _dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
+    if gen.device.type == "meta":         # shapes only (Model.init_shapes)
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = fan_in if fan_in is not None else shape[-2] if len(shape) > 1 else shape[0]
     std = 1.0 / math.sqrt(fan_in)
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
@@ -104,6 +116,54 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
                      dim=-1).to(x.dtype)
 
 
+def write_cells(dst: torch.Tensor, bidx: torch.Tensor, slots: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """``dst[bidx, slots] = src`` in place: ``dst [B, Sc, ...]``, ``bidx``
+    the rows ``[B, 1]``, ``slots [B, S]``, ``src [B, S, ...]``.  Over a
+    DTensor (a sharded cache) each position is a masked select of the whole
+    ring, which keeps the cache's layout: an index write into a sharded dim
+    has no in-place DTensor rule."""
+    if not is_dtensor(dst):
+        dst[bidx, slots] = src
+        return
+    cells = torch.arange(dst.shape[1], device=dst.device)[None, :]
+    tail = (1,) * (dst.dim() - 2)
+    new = dst
+    for j in range(slots.shape[1]):
+        hit = (cells == slots[:, j:j + 1]).reshape(
+            (slots.shape[0], dst.shape[1]) + tail)
+        new = torch.where(hit, src[:, j:j + 1], new)
+    _copy_into(dst, new)
+
+
+def write_prefill(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """A fresh prefill's ring write, in place: the last ``min(S, Sc)`` of
+    ``src [B, S, ...]`` into ``dst [B, Sc, ...]`` at ``pos % Sc``.  Over a
+    DTensor it is built whole (the window's tail rolled into place, or the
+    prefix beside the ring's untouched cells) and copied in."""
+    s, sc = src.shape[1], dst.shape[1]
+    take = min(s, sc)
+    slots = (s - take + torch.arange(take, device=dst.device)) % sc
+    if not is_dtensor(dst):
+        dst[:, slots] = src[:, s - take:]
+        return
+    if take == sc:                          # the window's tail, rotated
+        new, shift = src[:, s - sc:], (s - sc) % sc
+        if shift:
+            new = torch.cat([new[:, sc - shift:], new[:, :sc - shift]], dim=1)
+    else:
+        new = torch.cat([src, dst[:, take:]], dim=1)
+    _copy_into(dst, new)
+
+
+def _copy_into(dst, new) -> None:
+    """``dst.copy_(new)`` for DTensors, ``new`` first laid out as ``dst``
+    (an in-place op keeps its destination's placements)."""
+    if tuple(new.placements) != tuple(dst.placements):
+        new = new.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(new)
+
+
 # --------------------------------------------------------------------------- #
 # MLP (SwiGLU)
 # --------------------------------------------------------------------------- #
@@ -116,7 +176,9 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> Params:
 
 
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = constrain(h, "batch", *((None,) * (h.dim() - 2)), "tp")
+    return h @ p["w_down"]
 
 
 # --------------------------------------------------------------------------- #
@@ -149,8 +211,10 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     v = x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(b, -1, h, hd), k.reshape(b, -1, hkv, hd),
-            v.reshape(b, -1, hkv, hd))
+    q = reshape(constrain(q, "batch", None, "tp"), b, -1, h, hd)
+    k = reshape(constrain(k, "batch", None, "tp"), b, -1, hkv, hd)
+    v = reshape(constrain(v, "batch", None, "tp"), b, -1, hkv, hd)
+    return q, k, v
 
 
 def apply_self_attn(
@@ -166,6 +230,7 @@ def apply_self_attn(
     seq_valid: Optional[torch.Tensor] = None,    # [B, S] prefix mask
     slot_active: Optional[torch.Tensor] = None,  # [B] live mask (decode)
     page_table: Optional[torch.Tensor] = None,   # [B, P] int32 (paged decode)
+    attn_schedule: str = "full",     # train / fresh prefill: ops' schedule
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     b, s, _ = x.shape
     hn = rmsnorm(x, p["ln"], cfg.rms_eps)
@@ -186,8 +251,8 @@ def apply_self_attn(
             keep = seq_valid[..., None, None]
             k = torch.where(keep, k, kc[bidx, slots])
             v = torch.where(keep, v, vc[bidx, slots])
-        kc[bidx, slots] = k
-        vc[bidx, slots] = v
+        write_cells(kc, bidx, slots, k)
+        write_cells(vc, bidx, slots, v)
         out = ops.flash_attention(q, kc, vc, causal=True, window=window,
                                   q_positions=positions)
         new_cache = cache
@@ -260,8 +325,10 @@ def apply_self_attn(
             keep = keep[..., None, None]
             k = torch.where(keep, k, kc[bidx, slots])
             v = torch.where(keep, v, vc[bidx, slots])
-        kc[bidx, slots] = k
-        vc[bidx, slots] = v
+        write_cells(kc, bidx, slots, k)
+        write_cells(vc, bidx, slots, v)
+        kc = constrain(kc, "kv_batch", "kv_seq", None, None)
+        vc = constrain(vc, "kv_batch", "kv_seq", None, None)
         idx = torch.arange(sc, device=x.device)[None, :]
         qs = q.transpose(0, 1).contiguous()      # contiguous rows per j
         outs = []
@@ -272,20 +339,22 @@ def apply_self_attn(
         out = torch.stack(outs, dim=1)
         new_cache = cache
     elif mode in ("train", "prefill"):
-        out = ops.flash_attention(q, k, v, causal=True, window=window)
+        out = ops.flash_attention(q, k, v, causal=True, window=window,
+                                  schedule=attn_schedule)
         new_cache = None
         if mode == "prefill":
-            kc, vc = cache["k"], cache["v"]
-            sc = kc.shape[1]
-            take = min(s, sc)
-            slots = (s - take + torch.arange(take, device=x.device)) % sc
-            kc[:, slots] = k[:, s - take:]
-            vc[:, slots] = v[:, s - take:]
+            # the cache keeps its own layout: the new cells are laid out
+            # as it is before the in-place write
+            write_prefill(cache["k"], constrain(k, "kv_batch", "kv_seq",
+                                                None, None))
+            write_prefill(cache["v"], constrain(v, "kv_batch", "kv_seq",
+                                                None, None))
             new_cache = cache
     else:
         raise ValueError(f"unknown mode {mode!r}")
 
     out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+    out = constrain(out, "batch", None, "tp")
     return x + out @ p["wo"], new_cache
 
 
@@ -327,7 +396,7 @@ def apply_cross_attn(
     if mode == "prefill" and cross_cached:
         # Alg.3 hit: the layer's cross KV came from the content cache, so
         # the context is not projected again
-        q = (hn @ p["wq"]).reshape(b, s, h, hd)
+        q = reshape(hn @ p["wq"], b, s, h, hd)
         out = ops.flash_attention(q, cache["xk"], cache["xv"], causal=False,
                                   kv_valid=ctx_valid)
     elif mode == "decode":
@@ -335,7 +404,7 @@ def apply_cross_attn(
         # every position, so each query j takes one decode call over the
         # shared mask
         xk, xv = cache["xk"], cache["xv"]
-        q = (hn @ p["wq"]).reshape(b, s, h, hd)
+        q = reshape(hn @ p["wq"], b, s, h, hd)
         valid = (torch.ones((b, xk.shape[1]), dtype=torch.bool,
                             device=x.device) if ctx_valid is None
                  else ctx_valid)
@@ -344,16 +413,16 @@ def apply_cross_attn(
                            for j in range(s)], dim=1)
     elif mode in ("train", "prefill"):
         hkv = cfg.num_kv_heads
-        q = (hn @ p["wq"]).reshape(b, s, h, hd)
-        xk = (context @ p["wk"]).reshape(b, -1, hkv, hd)
-        xv = (context @ p["wv"]).reshape(b, -1, hkv, hd)
+        q = reshape(hn @ p["wq"], b, s, h, hd)
+        xk = reshape(context @ p["wk"], b, -1, hkv, hd)
+        xv = reshape(context @ p["wv"], b, -1, hkv, hd)
         out = ops.flash_attention(q, xk, xv, causal=False, kv_valid=ctx_valid)
         if mode == "prefill":
             cache["xk"].copy_(xk)
             cache["xv"].copy_(xv)
     else:
         raise ValueError(f"unknown mode {mode!r}")
-    out = out.reshape(b, s, h * hd) @ p["wo"]
+    out = constrain(out.reshape(b, s, h * hd), "batch", None, "tp") @ p["wo"]
     return x + (_gate(p["xgate_attn"], out) if gated else out), cache
 
 
@@ -434,24 +503,40 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig,
     expert), the experts' SwiGLU products run as batched matrix products
     over every expert's ``cap`` rows, and each token sums its k outputs
     times their gates in the output dtype, plus the shared experts'
-    MLP."""
+    MLP.  Over DTensors the routing, dispatch and combine run on whole
+    tensors (:func:`repro_torch.distributed.sharding.replicated_call`);
+    the expert products stay sharded as the rules lay them out."""
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
     e, k = m.num_experts, m.experts_per_token
-    flat = rmsnorm(x, p["ln"], cfg.rms_eps).reshape(t, d)
-    gates, slot, cap, aux = moe_route(
-        p, flat, cfg, None if seq_valid is None else seq_valid.reshape(t))
-    buf = flat.new_zeros((e * cap + 1, d))
-    buf[slot] = flat.repeat_interleave(k, dim=0)
-    hbuf = buf[:-1].reshape(e, cap, d)
-    h2 = F.silu(torch.bmm(hbuf, p["we_gate"])) * torch.bmm(hbuf, p["we_up"])
-    o = torch.bmm(h2, p["we_down"]).reshape(e * cap, d)
-    obuf = torch.cat([o, o.new_zeros((1, d))])
-    y = obuf[slot] * gates.reshape(t * k, 1).to(o.dtype)
-    y = y.reshape(t, k, d).sum(dim=1)
+    cap = moe_capacity(cfg, t)
+    hn = rmsnorm(x, p["ln"], cfg.rms_eps)
+    flat = hn.reshape(t, d)
+    valid = None if seq_valid is None else seq_valid.reshape(t)
+
+    def dispatch(flat, router, valid):
+        gates, slot, _, aux = moe_route({"router": router}, flat, cfg, valid)
+        buf = flat.new_zeros((e * cap + 1, d))
+        buf[slot] = flat.repeat_interleave(k, dim=0)
+        return buf[:-1].reshape(e, cap, d), gates, slot, aux
+
+    def combine(o, gates, slot):
+        obuf = torch.cat([o.reshape(e * cap, d), o.new_zeros((1, d))])
+        y = obuf[slot] * gates.reshape(t * k, 1).to(o.dtype)
+        return y.reshape(t, k, d).sum(dim=1)
+
+    hbuf, gates, slot, aux = replicated_call(
+        dispatch, (flat, p["router"], valid), 4)
+    hbuf = constrain(hbuf, "expert", "batch", None)
+    h2 = constrain(F.silu(torch.bmm(hbuf, p["we_gate"]))
+                   * torch.bmm(hbuf, p["we_up"]), "expert", "batch", "e_out")
+    o = constrain(torch.bmm(h2, p["we_down"]), "expert", "batch", None)
+    y = replicated_call(combine, (o, gates, slot), 1)
     if "shared" in p:
-        y = y + apply_mlp(p["shared"], flat)
+        # on [B, S, D]: over DTensors a [B * S, D] row split can take the
+        # model axis too, which the gradient's unflatten cannot undo
+        y = y + apply_mlp(p["shared"], hn).reshape(t, d)
     return x + y.reshape(b, s, d), aux
 
 
@@ -542,7 +627,7 @@ def apply_ssm(
     g, n, pdim = ssm.ngroups, ssm.state_dim, ssm.head_dim
 
     h = rmsnorm(x, p["ln"], cfg.rms_eps)
-    zxbcdt = h @ p["in_proj"]
+    zxbcdt = constrain(h @ p["in_proj"], "batch", None, "tp")
     z = zxbcdt[..., :d_in]
     xbc = zxbcdt[..., d_in:d_in + d_conv]
     dt = F.softplus(zxbcdt[..., d_in + d_conv:].float()
@@ -556,9 +641,9 @@ def apply_ssm(
     xbc, new_conv = _causal_conv(xbc, p["conv_w"], p["conv_b"],
                                  cache["conv"] if use_state else None,
                                  lengths=lengths)
-    x_ssm = xbc[..., :d_in].reshape(b, s, nheads, pdim)
-    b_mat = xbc[..., d_in:d_in + g * n].reshape(b, s, g, n)
-    c_mat = xbc[..., d_in + g * n:].reshape(b, s, g, n)
+    x_ssm = reshape(xbc[..., :d_in], b, s, nheads, pdim)
+    b_mat = reshape(xbc[..., d_in:d_in + g * n], b, s, g, n)
+    c_mat = reshape(xbc[..., d_in + g * n:], b, s, g, n)
 
     if mode == "decode":
         y, new_state = ops.ssd_decode_step(
@@ -583,6 +668,7 @@ def apply_ssm(
 
     y = y + (p["d_skip"][None, None, :, None] * x_ssm.float()).to(y.dtype)
     y = rmsnorm_gated(y.reshape(b, s, d_in), z, p["ssm_norm"], cfg.rms_eps)
+    y = constrain(y, "batch", None, "tp")
     return x + y @ p["out_proj"], cache if mode != "train" else None
 
 
@@ -636,6 +722,7 @@ def apply_layer(
     context: Optional[torch.Tensor] = None,
     cross_cached: bool = False,
     ctx_valid: Optional[torch.Tensor] = None,
+    attn_schedule: str = "full",
 ) -> Tuple[torch.Tensor, Optional[Params], Optional[torch.Tensor]]:
     """Returns (x, cache, aux); the cache is updated in place.  The blocks
     run in the reference's order: self-attention, the ungated
@@ -650,7 +737,8 @@ def apply_layer(
                                positions=positions, cache=cache,
                                window=window, resume=resume,
                                seq_valid=seq_valid, slot_active=slot_active,
-                               page_table=page_table)
+                               page_table=page_table,
+                               attn_schedule=attn_schedule)
     if "cross" in p:
         x, _ = apply_cross_attn(p["cross"], x, cfg=cfg, mode=mode,
                                 context=context, cache=cache,

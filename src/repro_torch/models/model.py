@@ -21,14 +21,18 @@ layer's ungated cross-attention reads the result (``xk``/``xv`` over the
 """
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed import constrain, use_sharding
+from repro_torch.distributed.sharding import current_sharding
 from repro_torch.models import layers
 from repro_torch.models.layers import Params, dtype_of
 
@@ -140,21 +144,29 @@ class Model:
             params["enc_ln"] = torch.ones((cfg.d_model,), dtype=dt, device=dev)
         return tree_map(lambda a: a.to(target), params)
 
-    def encode_audio(self, params: Params,
-                     frames: torch.Tensor) -> torch.Tensor:
+    def init_shapes(self) -> Params:
+        """The params as meta tensors (shapes and dtypes, no storage): the
+        reference's ``init_shapes``, for the dry-run and the sharding
+        rules."""
+        return self.init(_META_DRAWS, device="meta")
+
+    def encode_audio(self, params: Params, frames: torch.Tensor,
+                     attn_schedule: str = "full") -> torch.Tensor:
         """The reference's ``_encode_audio``: ``frames [B, F, De] @
         audio_proj``, the encoder's ``attn`` layers in ``train`` mode (no
         cache; their flash call is causal, as the reference's is), then
         ``enc_ln``."""
         cfg = self.cfg
         x = frames.to(params["audio_proj"].dtype) @ params["audio_proj"]
+        x = constrain(x, "batch", None, None)
         pos = torch.arange(x.shape[1], device=x.device)[None].expand(
             x.shape[:2])
         for g in range(cfg.audio.encoder_layers):
             p = tree_map(lambda a: a[g], params["encoder"])
             x, _, _ = layers.apply_layer(p, "attn", x, cfg=cfg,
                                          mode="train", positions=pos,
-                                         cache=None)
+                                         cache=None,
+                                         attn_schedule=attn_schedule)
         return layers.rmsnorm(x, params["enc_ln"], cfg.rms_eps)
 
     def apply(
@@ -177,8 +189,8 @@ class Model:
         cross_cached: bool = False,     # content-cache hit: xk/xv in cache
         ctx_valid: Optional[torch.Tensor] = None,   # [B, T_ctx] media liveness
         remat: bool = False,            # train: recompute each repeat group
-        attn_schedule: str = "full",    # accepted for the reference's
-        unroll_scan: bool = False,      # signature; one function either way
+        attn_schedule: str = "full",    # ops.flash_attention schedule
+        unroll_scan: bool = False,      # the reference's signature only
     ) -> ModelOutput:
         """``last_idx`` (a port addition for the engine's prefill waves)
         takes each row's hidden state at its own last real token before
@@ -197,11 +209,13 @@ class Model:
         In train mode ``remat`` wraps each repeat group in
         ``torch.utils.checkpoint.checkpoint`` (non-reentrant), as the
         reference checkpoints its scan body: the group's activations are
-        recomputed in the backward pass.  ``attn_schedule``
-        (``'full'`` or ``'causal'``) and ``unroll_scan`` are accepted for
-        the reference's signature and change nothing: the groups run as a
-        Python loop, and the flash kernel already skips the KV tiles a
-        causal or windowed row cannot see."""
+        recomputed in the backward pass.  ``attn_schedule`` (``'full'`` or
+        ``'causal'``) goes to every train / fresh-prefill self-attention
+        call (:func:`repro_torch.kernels.ops.flash_attention`: the causal-
+        blocks schedule off the card; on the card the flash kernel already
+        skips the KV tiles a causal or windowed row cannot see).
+        ``unroll_scan`` is accepted for the reference's signature and
+        changes nothing: the groups run as a Python loop."""
         if attn_schedule not in ("full", "causal"):
             raise ValueError(f"unknown attn_schedule {attn_schedule!r}")
         cfg = self.cfg
@@ -210,20 +224,23 @@ class Model:
         prefix, pattern, repeats = find_pattern(cfg.layer_kinds())
         if positions is None:
             positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-        x = params["embed"][tokens]
+        x = constrain(F.embedding(tokens, params["embed"]), "batch", None,
+                      None)
         context = None
         if cfg.vision is not None and mode != "decode" and not cross_cached:
             if image_embeds is None:
                 raise ValueError("a vision model's prefill needs image_embeds")
             context = image_embeds.to(x.dtype) @ params["vision_proj"]
+            context = constrain(context, "batch", None, None)
         if cfg.audio is not None and mode != "decode" and not cross_cached:
             if audio_frames is None:
                 raise ValueError("an audio model's prefill needs audio_frames")
-            context = self.encode_audio(params, audio_frames)
+            context = self.encode_audio(params, audio_frames, attn_schedule)
         kw = dict(cfg=cfg, mode=mode, positions=positions, window=window_eff,
                   resume=resume, seq_valid=seq_valid, slot_active=slot_active,
                   page_table=page_table, context=context,
-                  cross_cached=cross_cached, ctx_valid=ctx_valid)
+                  cross_cached=cross_cached, ctx_valid=ctx_valid,
+                  attn_schedule=attn_schedule)
 
         aux_total = None
         for i, kind in enumerate(prefix):
@@ -233,23 +250,34 @@ class Model:
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
 
+        sharding = current_sharding()
+
         def group(x, g):
-            """Repeat group ``g``: (x, the sum of its MoE losses or None)."""
+            """Repeat group ``g``: (x, the sum of its MoE losses or None).
+            It runs under the caller's sharding wherever it runs (remat
+            recomputes it on the autograd engine's thread)."""
             aux_g = None
-            for i, kind in enumerate(pattern):
-                p = tree_map(lambda a: a[g], params["block"][f"pos{i}"])
-                sub = (tree_map(lambda a: a[g], cache["block"][f"pos{i}"])
-                       if cache is not None else None)
-                x, _, aux = layers.apply_layer(p, kind, x, cache=sub, **kw)
-                if aux is not None:
-                    aux_g = aux if aux_g is None else aux_g + aux
+            with (use_sharding(*sharding) if sharding is not None
+                  and current_sharding() is None else nullcontext()):
+                for i, kind in enumerate(pattern):
+                    p = tree_map(lambda a: a[g], params["block"][f"pos{i}"])
+                    sub = (tree_map(lambda a: a[g],
+                                    cache["block"][f"pos{i}"])
+                           if cache is not None else None)
+                    x, _, aux = layers.apply_layer(p, kind, x, cache=sub,
+                                                   **kw)
+                    if aux is not None:
+                        aux_g = aux if aux_g is None else aux_g + aux
             return x, aux_g
 
         group_aux = []
         for g in range(repeats if pattern else 0):
             if remat and mode == "train":
+                # no random op runs in a group: nothing to replay (and a
+                # CUDA RNG restore inside DTensor dispatch faults on 2.11)
                 x, aux_g = torch.utils.checkpoint.checkpoint(
-                    group, x, g, use_reentrant=False)
+                    group, x, g, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 x, aux_g = group(x, g)
             if aux_g is not None:
@@ -266,10 +294,19 @@ class Model:
         elif logits_mode == "last":
             x = x[:, -1:]
         head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head
+        logits = constrain(x @ head, "batch", None, "vocab")
         return ModelOutput(logits,
                            cache if mode in ("prefill", "decode") else None,
                            aux_total)
+
+
+class _MetaDraws:
+    """Stands in for a generator in :meth:`Model.init_shapes`: every draw
+    and constant lands on the meta device."""
+    device = torch.device("meta")
+
+
+_META_DRAWS = _MetaDraws()
 
 
 def _stack(trees):
@@ -326,3 +363,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                                 ctx_len, dtype, device)
         for i, kind in enumerate(pattern)} or None
     return cache
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, *,
+                 ctx_len: int = 0, dtype=None) -> Params:
+    """:func:`init_cache` as meta tensors (the reference's
+    ``cache_shapes``; the dry-run, no storage)."""
+    return init_cache(cfg, batch, cache_len, ctx_len=ctx_len, dtype=dtype,
+                      device="meta")

@@ -94,7 +94,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                     unroll_scan: bool = False, microbatches: int = 1):
     """``train_step(state, batch) -> (state, metrics)``: the state's params
     and moments updated in place, metrics ``loss``, ``lm_loss``,
-    ``aux_loss``, ``lr`` and ``grad_norm`` as floats.  ``microbatches > 1``
+    ``aux_loss``, ``lr`` and ``grad_norm`` as floats
+    (``train_step.tensors`` gives them as tensors, with no host sync: the
+    dry-run's step over meta DTensors).  ``microbatches > 1``
     splits the batch on its first axis and accumulates float32 gradients
     over a Python loop."""
     opt_cfg = opt_cfg or AdamWConfig()
@@ -109,6 +111,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]
                    ) -> Tuple[Dict[str, Any], Dict[str, float]]:
+        state, metrics = train_step_tensors(state, batch)
+        return state, {k: float(v) for k, v in metrics.items()}
+
+    def train_step_tensors(state: Dict[str, Any], batch: Dict[str, Any]
+                           ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         params = state["params"]
         device = tree_leaves(params)[0].device
         batch = batch_to(batch, device)
@@ -138,7 +145,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
                      "aux_loss": a_acc / microbatches}
         _, _, opt_metrics = adamw_update(
             opt_cfg, params, tree_unflatten(params, grads), state["opt"])
-        metrics = {"loss": loss, **parts, **opt_metrics}
-        return state, {k: float(v) for k, v in metrics.items()}
+        return state, {"loss": loss, **parts, **opt_metrics}
 
+    train_step.tensors = train_step_tensors
     return train_step

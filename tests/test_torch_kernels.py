@@ -1050,3 +1050,96 @@ def test_attention_kernels_match_plain_at_the_family_shapes(cuda, dtype, arch,
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     _close(got, want, dtype)
+
+
+def _gated_vision_case():
+    """A reduced ``llama-3.2-vision-90b`` (float32, 5 layers) whose one cross
+    layer is a prefix layer, its gates at 0.5, and a batch with images."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    base = get_config("llama-3.2-vision-90b")
+    red = base.reduced()
+    cfg = dataclasses.replace(red, num_layers=5, dtype="float32",
+                              vision=dataclasses.replace(
+                                  red.vision, cross_attn_every=base.vision
+                                  .cross_attn_every))
+    params = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    for sub in params["prefix_layers"]:
+        if "cross" in sub:
+            sub["xgate_ffn"].fill_(0.5)
+            sub["cross"]["xgate_attn"].fill_(0.5)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1),
+             "mask": torch.ones((2, 16)),
+             "image_embeds": torch.rand((2, cfg.vision.num_image_tokens,
+                                         cfg.vision.embed_dim),
+                                        generator=g) * 2 - 1}
+    return cfg, params, batch
+
+
+def test_gate_terms_bound_the_gate_gradient():
+    """``chip_smoke.traced_gate_terms``, the scale 6d holds the bf16
+    cross-attention gates' gradients to: on the CPU it traces both gates,
+    each sum of absolute terms bounds its gate's gradient from autograd,
+    and ``layers._gate`` comes back untouched."""
+    from repro_torch.models import layers
+    from repro_torch.training import train_step as tts
+    from repro_torch.training.optimizer import tree_flatten_with_path
+    cs = _chip_smoke()
+    cfg, params, batch = _gated_vision_case()
+    flat = tree_flatten_with_path(params)
+    names = {id(t): "/".join(map(str, p)) for p, t in flat if t.dim() == 0}
+    assert sorted(names.values()) == ["prefix_layers/4/cross/xgate_attn",
+                                      "prefix_layers/4/xgate_ffn"]
+    real, sums = layers._gate, {}
+    with cs.traced_gate_terms(torch, layers, names, sums):
+        _, _, grads = tts.loss_and_grads(params, batch, cfg=cfg, remat=True)
+    assert layers._gate is real and set(sums) == set(names.values())
+    for (path, _), grad in zip(flat, grads):
+        key = "/".join(map(str, path))
+        if key in sums:
+            assert 0 < abs(float(grad)) <= sums[key] * (1 + 1e-6)
+
+
+def test_grads_vs_plain_holds_the_gates_to_their_terms(monkeypatch):
+    """``chip_smoke.grads_vs_plain`` with ``gate_tol`` on the CPU (both
+    runs plain, equal to float32 noise): each gate is read against its sum of terms and
+    the matrices as before; a first run whose gate gradients are doubled
+    fails once ``gate_tol`` lies under the gates' control (what a 2x error
+    reads)."""
+    import types
+    from repro_torch.models import layers
+    from repro_torch.training import train_step as tts
+    from repro_torch.training.optimizer import tree_flatten_with_path
+    cs = _chip_smoke()
+    cfg, params, batch = _gated_vision_case()
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ns = types.SimpleNamespace(
+        ops=ops, layers=layers, tts=tts,
+        wrappers={"flash_attention": types.SimpleNamespace(launches=0)},
+        tree_flatten_with_path=tree_flatten_with_path)
+    res = cs.grads_vs_plain(torch, ns, cfg, params, batch, "cpu",
+                            gate_tol=1e-6, remat=True)
+    gates = res["gates"]
+    assert sorted(gates) == ["prefix_layers/4/cross/xgate_attn",
+                             "prefix_layers/4/xgate_ffn"]
+    assert all(v["rel_to_terms"] < 1e-6 and 0 < v["control"] <= 1
+               for v in gates.values())
+    assert res["worst_leaf"] not in gates
+    real = tts.loss_and_grads
+    calls = []
+
+    def doubled_first(p, b, **kw):
+        loss, parts, grads = real(p, b, **kw)
+        calls.append(1)
+        if len(calls) == 1:
+            grads = [g * 2 if g.dim() == 0 else g for g in grads]
+        return loss, parts, grads
+
+    ns.tts = types.SimpleNamespace(loss_and_grads=doubled_first)
+    control = min(v["control"] for v in gates.values())
+    with pytest.raises(AssertionError, match="gates"):
+        cs.grads_vs_plain(torch, ns, cfg, params, batch, "cpu",
+                          gate_tol=control / 2, remat=True)
