@@ -150,6 +150,7 @@ from repro_torch.models.model import Model, init_cache, tree_map
 from repro_torch.serving.media import (AudioEncoderStub, VisionEncoderStub,
                                       decode_media)
 from repro_torch.serving.tokenizer import ByteTokenizer
+from repro_torch.tracing import TRACER
 
 
 log = logging.getLogger("repro_torch.engine")
@@ -915,7 +916,11 @@ class InferenceEngine:
         snapshot (a preempted request), adopt its speculative prefill
         progress, or open a prefill job — of the prompt + generated history
         when the snapshot was lost (the commit then samples the next token
-        from the last position)."""
+        from the last position).  A first binding ends the request's
+        ``request.queue`` span, from its arrival."""
+        if TRACER.on and not req.preempt_count:
+            TRACER.record("request.queue", req.arrival_time,
+                          time.monotonic(), rid=req.request_id)
         if ((req.preempt_count or req.request_id in self._evicted)
                 and self._try_resume(slot, req)):
             return
@@ -945,6 +950,7 @@ class InferenceEngine:
         tokens = list(req.prompt_tokens if tokens is None else tokens)
         if not tokens:
             raise ValueError("empty prompt")
+        self.scheduler.stats.prompt_tokens += len(tokens)
         if slot is not None:
             req.status = RequestStatus.PREFILLING
         embeds = ctx_valid = set_digest = None
@@ -1240,9 +1246,10 @@ class InferenceEngine:
         wave = []
         for i, (job, first) in enumerate(zip(jobs, firsts)):
             req = job.req
-            if req.prefill_time is None:
-                req.prefill_time = now - job.t0
             if req.first_token_time is None:
+                if TRACER.on:
+                    TRACER.record("request.prefill", job.t0, now,
+                                  rid=req.request_id)
                 req.first_token_time = now
             req.output_tokens.append(int(first))
             logprob = top = None
@@ -2195,14 +2202,24 @@ class InferenceEngine:
     def step(self) -> List[StreamEvent]:
         """One scheduler iteration (paper Alg.1 loop body, K tokens): the
         decode block is dispatched first and the prefill wave second, and
-        only then does the host wait on the block's tokens."""
+        only then does the host wait on the block's tokens.  Traced as
+        ``engine.step``, its phases as children: ``engine.plan``,
+        ``engine.decode_dispatch`` (n = K), ``engine.prefill_dispatch`` (n =
+        wave rows), ``engine.block_sync`` (the host waiting on the card),
+        ``engine.emit`` (n = tokens) and ``engine.commit`` (n = jobs)."""
+        with TRACER.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> List[StreamEvent]:
         events: List[StreamEvent] = []
+        stats = self.scheduler.stats
         self._fault_tick += 1
         if (self.faults is not None
                 and self.faults.fires("slow_step", self._fault_tick)):
             # an injected wedged step (drives the client watchdog)
             time.sleep(self.faults.slow_step_s)
-        self._plan_admissions()
+        with TRACER.span("engine.plan"):
+            self._plan_admissions()
 
         block_plan = spec_meta = None
         if self._live_slots:
@@ -2233,9 +2250,10 @@ class InferenceEngine:
                     # the live set)
                     self._ensure_paged_capacity(num_steps)
                 try:
-                    toks, lps = self._decode_block(
-                        num_steps, want_logprobs=want_lp,
-                        any_stochastic=any_stochastic, any_mask=any_mask)
+                    with TRACER.span("engine.decode_dispatch", n=num_steps):
+                        toks, lps = self._decode_block(
+                            num_steps, want_logprobs=want_lp,
+                            any_stochastic=any_stochastic, any_mask=any_mask)
                 except Exception as e:  # the block raised
                     self._recover_decode_block(e)
                 else:
@@ -2243,59 +2261,29 @@ class InferenceEngine:
 
         # the encode wave and the prefill wave run behind the dispatched
         # block; encodes resolved here make requests admissible next step
-        self._dispatch_encode_wave()
-        completed = self._dispatch_prefill_wave()
+        with TRACER.span("engine.prefill_dispatch") as span:
+            rows = stats.prefill_chunks
+            self._dispatch_encode_wave()
+            completed = self._dispatch_prefill_wave()
+            span.n = stats.prefill_chunks - rows
 
         if block_plan is not None:
             num_steps, toks, lps = block_plan
-            block = toks.cpu().numpy()             # [K, B]: the block's sync
-            lp_c = lp_v = lp_i = None
-            if lps is not None:
-                lp_c, lp_v, lp_i = (a.cpu().numpy() for a in lps)
-            self.scheduler.stats.steps += 1
+            with TRACER.span("engine.block_sync"):
+                block = toks.cpu().numpy()         # [K, B]: the block's sync
+                lp_c = lp_v = lp_i = None
+                if lps is not None:
+                    lp_c, lp_v, lp_i = (a.cpu().numpy() for a in lps)
+            stats.steps += 1
             # a spec round is ONE forward however many rows it commits
-            self.scheduler.stats.device_steps += \
-                1 if spec_meta is not None else num_steps
+            stats.device_steps += 1 if spec_meta is not None else num_steps
             if spec_meta is not None:
                 self._account_spec_round(spec_meta)
-            live = {s: r for s, r in self.scheduler.active.items()
-                    if s in self._live_slots}
-            for k in range(num_steps):
-                for slot in sorted(live):
-                    req = live[slot]
-                    if req.is_finished:
-                        continue
-                    tok = int(block[k, slot])
-                    if tok < 0:                    # frozen-slot sentinel
-                        continue
-                    corrupt = tok >= self.cfg.vocab_size
-                    if corrupt or (self.faults is not None
-                                   and self.faults.fires(
-                                       "decode", req.request_id,
-                                       req.num_generated)):
-                        # a corrupt sampled token (or its injected stand-
-                        # in) fails this request only: neighbour slots are
-                        # independent and continue bit-identically
-                        self._fault_events.extend(self._fail_request(
-                            req.request_id,
-                            f"corrupt token {tok} at position "
-                            f"{req.num_generated}"
-                            + ("" if corrupt else " (injected decode fault)")))
-                        continue
-                    req.output_tokens.append(tok)
-                    self.scheduler.stats.tokens_generated += 1
-                    logprob = top = None
-                    if lp_c is not None and req.sampling.logprobs:
-                        logprob = float(lp_c[k, slot])
-                        ntop = req.sampling.top_logprobs
-                        top = list(zip(lp_i[k, slot, :ntop].tolist(),
-                                       lp_v[k, slot, :ntop].tolist()))
-                    try:
-                        events.extend(self._emit_token(slot, req, tok,
-                                                       logprob, top))
-                    except Exception as e:  # per-request boundary (codec)
-                        self._fault_events.extend(self._fail_request(
-                            req.request_id, f"codec failure: {e}"))
+            with TRACER.span("engine.emit") as span:
+                emitted = stats.tokens_generated
+                events.extend(self._emit_block(num_steps, block,
+                                               lp_c, lp_v, lp_i))
+                span.n = stats.tokens_generated - emitted
 
         # finished prefills land (the next block picks the new slots up);
         # speculative jobs whose slot came this step commit in the same
@@ -2304,9 +2292,11 @@ class InferenceEngine:
         self._ready_jobs.clear()
         completed, self._staged = self._staged + ready + completed, []
         try:
-            if self._paged:
-                completed = self._fit_commits(completed)
-            events.extend(self._commit_jobs(completed))
+            with TRACER.span("engine.commit") as span:
+                if self._paged:
+                    completed = self._fit_commits(completed)
+                span.n = len(completed)
+                events.extend(self._commit_jobs(completed))
         except Exception as e:  # commit-wave fault boundary
             log.warning("admission commit failed (%d jobs): %s",
                         len(completed), e)
@@ -2316,6 +2306,51 @@ class InferenceEngine:
         if self._fault_events:
             events.extend(self._fault_events)
             self._fault_events.clear()
+        return events
+
+    def _emit_block(self, num_steps: int, block: np.ndarray, lp_c, lp_v,
+                    lp_i) -> List[StreamEvent]:
+        """Stream the synced ``[K, B]`` token block (with its logprobs) to
+        the live slots' requests, step by step, slot by slot."""
+        events: List[StreamEvent] = []
+        live = {s: r for s, r in self.scheduler.active.items()
+                if s in self._live_slots}
+        for k in range(num_steps):
+            for slot in sorted(live):
+                req = live[slot]
+                if req.is_finished:
+                    continue
+                tok = int(block[k, slot])
+                if tok < 0:                    # frozen-slot sentinel
+                    continue
+                corrupt = tok >= self.cfg.vocab_size
+                if corrupt or (self.faults is not None
+                               and self.faults.fires(
+                                   "decode", req.request_id,
+                                   req.num_generated)):
+                    # a corrupt sampled token (or its injected stand-in)
+                    # fails this request only: neighbour slots are
+                    # independent and continue bit-identically
+                    self._fault_events.extend(self._fail_request(
+                        req.request_id,
+                        f"corrupt token {tok} at position "
+                        f"{req.num_generated}"
+                        + ("" if corrupt else " (injected decode fault)")))
+                    continue
+                req.output_tokens.append(tok)
+                self.scheduler.stats.tokens_generated += 1
+                logprob = top = None
+                if lp_c is not None and req.sampling.logprobs:
+                    logprob = float(lp_c[k, slot])
+                    ntop = req.sampling.top_logprobs
+                    top = list(zip(lp_i[k, slot, :ntop].tolist(),
+                                   lp_v[k, slot, :ntop].tolist()))
+                try:
+                    events.extend(self._emit_token(slot, req, tok,
+                                                   logprob, top))
+                except Exception as e:  # per-request boundary (codec)
+                    self._fault_events.extend(self._fail_request(
+                        req.request_id, f"codec failure: {e}"))
         return events
 
     def content_cache_stats(self) -> Dict[str, Any]:

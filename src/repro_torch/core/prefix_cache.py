@@ -16,6 +16,7 @@ pair); eviction is byte-budget LRU.
 from __future__ import annotations
 
 import hashlib
+from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +35,15 @@ def _h(prev: bytes, chunk: Sequence[int]) -> bytes:
     return m.digest()
 
 
+@dataclass
+class LookupStats:
+    """One count each per :meth:`TextPrefixCache.lookup` (the LRU's
+    ``hits``/``misses`` count one per block length probed)."""
+    lookups: int = 0
+    lookup_hits: int = 0
+    hit_tokens: int = 0      # matched tokens the hits returned
+
+
 class TextPrefixCache:
     def __init__(self, block_size: int = 16,
                  max_bytes: int = 512 * 1024 * 1024,
@@ -41,9 +51,12 @@ class TextPrefixCache:
         assert block_size >= 1
         self.block_size = block_size
         self._lru = LRUCache(max_bytes=max_bytes, on_evict=on_evict)
+        self.lookup_stats = LookupStats()
 
     @property
     def stats(self):
+        """The LRU's counters: ``hits`` and ``misses`` count probes, one
+        per block length a lookup tries (see :attr:`lookup_stats`)."""
         return self._lru.stats
 
     def __len__(self) -> int:
@@ -71,9 +84,13 @@ class TextPrefixCache:
         """
         limit = len(tokens) if max_len is None else min(max_len, len(tokens))
         chain = self._chain(tokens[:limit], salt)
+        st = self.lookup_stats
+        st.lookups += 1
         for nblocks in range(len(chain), 0, -1):            # longest first
             val = self._lru.get(chain[nblocks - 1].hex())
             if val is not None:
+                st.lookup_hits += 1
+                st.hit_tokens += nblocks * self.block_size
                 return val, nblocks * self.block_size
         return None, 0
 

@@ -131,7 +131,6 @@ class Request:
     finish_reason: Optional[FinishReason] = None
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
-    prefill_time: Optional[float] = None
     cached_prefix_len: int = 0  # tokens served from the prefix cache
     vision_cache_hits: int = 0
     vision_cache_misses: int = 0

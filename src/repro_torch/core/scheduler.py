@@ -186,6 +186,8 @@ class SchedulerStats:
     aborted: int = 0             # requests cancelled before finishing
     failed: int = 0              # requests failed by per-request fault
                                  # isolation (prefill/decode/codec errors)
+    prompt_tokens: int = 0       # tokens of the sequences opened for prefill
+    blocks_collapsed: int = 0    # decode blocks cut to K=1 by waiting work
 
     @property
     def host_syncs_per_token(self) -> float:
@@ -387,9 +389,13 @@ class ContinuousBatchingScheduler:
         Otherwise K is bounded by the smallest remaining token budget
         across active slots (finished slots would just burn masked decode
         steps) and by ``max_block``, rounded down to a power of two so the
-        engine compiles at most log2(max_block)+1 block variants."""
-        if max_block <= 1 or self.pending or self.chunk_queue \
-                or reclaim_queued or not self.active:
+        engine compiles at most log2(max_block)+1 block variants.  A block
+        cut to 1 by waiting work (not by a short budget) counts in
+        ``stats.blocks_collapsed``."""
+        if max_block <= 1 or not self.active:
+            return 1
+        if self.pending or self.chunk_queue or reclaim_queued:
+            self.stats.blocks_collapsed += 1
             return 1
         rem = min(r.sampling.max_tokens - r.num_generated
                   for r in self.active.values())
@@ -502,6 +508,8 @@ class ContinuousBatchingScheduler:
             "resumed": s.resumed,
             "aborted": s.aborted,
             "failed": s.failed,
+            "prompt_tokens": s.prompt_tokens,
+            "blocks_collapsed": s.blocks_collapsed,
             "aging_s": self.policy.aging_s,
             "latency_by_class": self.latency_by_class(),
         }

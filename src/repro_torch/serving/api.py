@@ -49,6 +49,7 @@ from repro_torch.core.sampling import (SamplingParamError,
                                        validate_sampling_params)
 from repro_torch.serving.client import (EngineClient, FinishEvent,
                                         RequestHandle, TokenEvent)
+from repro_torch.tracing import TRACER
 
 #: OpenAI caps `stop` at 4 sequences; mirrored so error behaviour matches
 MAX_STOP_SEQUENCES = 4
@@ -432,19 +433,21 @@ class OpenAIServer:
                     for i in range(greq.n)]
 
         def event_chunks(ev) -> List[Dict[str, Any]]:
-            if isinstance(ev, TokenEvent):
-                logprobs = None
-                if greq.sampling.logprobs:
-                    logprobs = self._chat_logprobs(
-                        [ev.token], [(ev.logprob, ev.top_logprobs or [])])
-                if ev.text or logprobs:
-                    return [chunk(ev.index, {"content": ev.text},
-                                  logprobs=logprobs)]
+            with TRACER.span("api.encode",
+                             n=int(isinstance(ev, TokenEvent))):
+                if isinstance(ev, TokenEvent):
+                    logprobs = None
+                    if greq.sampling.logprobs:
+                        logprobs = self._chat_logprobs(
+                            [ev.token], [(ev.logprob, ev.top_logprobs or [])])
+                    if ev.text or logprobs:
+                        return [chunk(ev.index, {"content": ev.text},
+                                      logprobs=logprobs)]
+                    return []
+                if isinstance(ev, FinishEvent):
+                    delta = {"content": ev.text} if ev.text else {}
+                    return [chunk(ev.index, delta, finish=ev.finish_reason)]
                 return []
-            if isinstance(ev, FinishEvent):
-                delta = {"content": ev.text} if ev.text else {}
-                return [chunk(ev.index, delta, finish=ev.finish_reason)]
-            return []
 
         def tail_chunks() -> List[Dict[str, Any]]:
             if not include_usage:
@@ -551,18 +554,21 @@ class OpenAIServer:
                 "finish_reason": finish}], **extra)
 
         def event_chunks(greq, base, ev) -> List[Dict[str, Any]]:
-            if isinstance(ev, TokenEvent):
-                logprobs = None
-                if greq.sampling.logprobs:
-                    logprobs = self._completion_logprobs(
-                        [ev.token], [(ev.logprob, ev.top_logprobs or [])])
-                if ev.text or logprobs:
-                    return [chunk(base + ev.index, ev.text, logprobs=logprobs)]
+            with TRACER.span("api.encode",
+                             n=int(isinstance(ev, TokenEvent))):
+                if isinstance(ev, TokenEvent):
+                    logprobs = None
+                    if greq.sampling.logprobs:
+                        logprobs = self._completion_logprobs(
+                            [ev.token], [(ev.logprob, ev.top_logprobs or [])])
+                    if ev.text or logprobs:
+                        return [chunk(base + ev.index, ev.text,
+                                      logprobs=logprobs)]
+                    return []
+                if isinstance(ev, FinishEvent):
+                    return [chunk(base + ev.index, ev.text,
+                                  finish=ev.finish_reason)]
                 return []
-            if isinstance(ev, FinishEvent):
-                return [chunk(base + ev.index, ev.text,
-                              finish=ev.finish_reason)]
-            return []
 
         def tail_chunks() -> List[Dict[str, Any]]:
             if not include_usage:
@@ -650,7 +656,9 @@ class OpenAIServer:
         """One engine's knobs (``speculative_fill`` among them), the
         ``prefix_cache`` block when the cache is on, and under the paged
         layout a ``kv_pages`` block (arena occupancy and allocator
-        counters)."""
+        counters).  The prefix cache's ``hits`` and ``misses`` count LRU
+        probes, one per block length a lookup tries; ``lookups``,
+        ``lookup_hits`` and ``hit_tokens`` count once per lookup."""
         out: Dict[str, Any] = {
             "model": self.model_name,
             "device": device_name(eng.device),
@@ -670,6 +678,7 @@ class OpenAIServer:
                 "entries": len(eng.prefix_cache),
                 "hits": eng.prefix_cache.stats.hits,
                 "misses": eng.prefix_cache.stats.misses,
+                **dataclasses.asdict(eng.prefix_cache.lookup_stats),
             }
         if isinstance(eng.pool, PagedKVPool):
             out["kv_pages"] = {"page_size": eng.pool.page_size,

@@ -54,6 +54,7 @@ from repro_torch.core.admission import (LEVEL_SHED_ALL, AdmissionController,
 from repro_torch.core.engine import InferenceEngine
 from repro_torch.core.request import (FinishReason, GenerationRequest,
                                       Request, RequestStatus, StreamEvent)
+from repro_torch.tracing import TRACER
 
 log = logging.getLogger("repro_torch.client")
 
@@ -510,40 +511,51 @@ class EngineClient:
             self._admission is not None and self._admission.queue_depth > 0)
 
     def _run(self) -> None:
-        engine = self.engine
         while True:
-            with self._cv:
-                while (not self._has_work() and not self._aborts
-                       and not self._stop and not self._drain_cutoff
-                       and not self._draining):
-                    self._cv.wait(timeout=0.5)
-                if self._stop:
-                    self._shutdown_locked()
-                    self._drained.set()
-                    self._handoff_done.set()
+            with TRACER.span("client.loop"):
+                if not self._iteration():
                     return
-                if self._handoff_requested:
-                    # block boundary: the engine is quiescent, so export
-                    # every open request and end the loop; the handles
-                    # move with the records (no finish events)
-                    self._handoff_requested = False
-                    self._handoff_export_locked()
-                    self._stop = True
-                    self._drained.set()
-                    self._handoff_done.set()
-                    return
-                if (self._draining and not self._drain_cutoff
-                        and not self._has_work() and not self._aborts):
-                    # drained: everything in flight finished and the
-                    # admission queue is empty — park and tell drain()
-                    self._drained.set()
+
+    def _iteration(self) -> bool:
+        """One turn of the loop thread, traced as ``client.loop``: wait for
+        work (``client.wait``), apply aborts and release admitted requests
+        (``client.admission``), step the engine, deliver the events
+        (``client.deliver``, n = events).  False once the loop ends."""
+        engine = self.engine
+        with self._cv:
+            while (not self._has_work() and not self._aborts
+                   and not self._stop and not self._drain_cutoff
+                   and not self._draining):
+                with TRACER.span("client.wait"):
                     self._cv.wait(timeout=0.5)
-                    continue
-                cutoff, self._drain_cutoff = self._drain_cutoff, False
-                aborts, self._aborts = self._aborts, []
-            events: List[StreamEvent] = []
-            self._step_started = time.monotonic()
-            try:
+            if self._stop:
+                self._shutdown_locked()
+                self._drained.set()
+                self._handoff_done.set()
+                return False
+            if self._handoff_requested:
+                # block boundary: the engine is quiescent, so export
+                # every open request and end the loop; the handles
+                # move with the records (no finish events)
+                self._handoff_requested = False
+                self._handoff_export_locked()
+                self._stop = True
+                self._drained.set()
+                self._handoff_done.set()
+                return False
+            if (self._draining and not self._drain_cutoff
+                    and not self._has_work() and not self._aborts):
+                # drained: everything in flight finished and the
+                # admission queue is empty — park and tell drain()
+                self._drained.set()
+                self._cv.wait(timeout=0.5)
+                return True
+            cutoff, self._drain_cutoff = self._drain_cutoff, False
+            aborts, self._aborts = self._aborts, []
+        events: List[StreamEvent] = []
+        self._step_started = time.monotonic()
+        try:
+            with TRACER.span("client.admission"):
                 # aborts land at the block boundary, before the next
                 # admission plan: the freed slot is reusable in this step;
                 # a request still waiting at admission is dropped there
@@ -558,27 +570,26 @@ class EngineClient:
                         events.extend(engine.abort(rid))
                 if self._admission is not None:
                     events.extend(self._admission_round())
-                if cutoff:
-                    events.extend(self._drain_cutoff_events())
-                elif engine.scheduler.has_work:
-                    events.extend(engine.step())
-            except Exception:
-                log.exception("engine loop error: failing in-flight requests")
-                self._loop_errors += 1
-                events.extend(self._fail_all())
-            finally:
-                self._step_started = None
-            with self._cv:
-                for ev in events:
-                    handle = self._handles.get(ev.request_id)
-                    if handle is not None:
-                        handle._on_event(ev)
-                        if ev.finished:
-                            del self._handles[ev.request_id]
-                if cutoff:
-                    self._drained.set()
             if cutoff:
-                return
+                events.extend(self._drain_cutoff_events())
+            elif engine.scheduler.has_work:
+                events.extend(engine.step())
+        except Exception:
+            log.exception("engine loop error: failing in-flight requests")
+            self._loop_errors += 1
+            events.extend(self._fail_all())
+        finally:
+            self._step_started = None
+        with self._cv, TRACER.span("client.deliver", n=len(events)):
+            for ev in events:
+                handle = self._handles.get(ev.request_id)
+                if handle is not None:
+                    handle._on_event(ev)
+                    if ev.finished:
+                        del self._handles[ev.request_id]
+            if cutoff:
+                self._drained.set()
+        return not cutoff
 
     @staticmethod
     def _finish_unstarted(req: Request, reason: FinishReason,

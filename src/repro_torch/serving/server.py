@@ -21,6 +21,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from repro_torch.serving.api import OpenAIError, OpenAIServer
+from repro_torch.tracing import TRACER
 
 
 def make_handler(api: OpenAIServer):
@@ -76,17 +77,20 @@ def make_handler(api: OpenAIServer):
             return body
 
         def _stream_sse(self, chunks):
-            """Write SSE chunks; a dropped connection closes the generator,
-            whose ``finally`` aborts the in-flight request."""
+            """Write SSE chunks, each traced as ``http.write`` (n = bytes);
+            a dropped connection closes the generator, whose ``finally``
+            aborts the in-flight request."""
             self.send_response(200)
             self.send_header("Content-Type", "text/event-stream")
             self.send_header("Cache-Control", "no-cache")
             self.end_headers()
             try:
                 for chunk in chunks:
-                    self.wfile.write(b"data: " + json.dumps(chunk).encode()
-                                     + b"\n\n")
-                    self.wfile.flush()
+                    with TRACER.span("http.write") as span:
+                        data = b"data: " + json.dumps(chunk).encode() + b"\n\n"
+                        self.wfile.write(data)
+                        self.wfile.flush()
+                        span.n = len(data)
                 self.wfile.write(b"data: [DONE]\n\n")
             except (BrokenPipeError, ConnectionResetError, OSError):
                 pass  # client went away; generator cleanup aborted the work

@@ -7,7 +7,12 @@ every attention call is the flash kernel with the backward kernel behind it
 Gradients come from ``torch.autograd.grad`` over the params' leaves in the
 reference's flattening order; ``microbatches > 1`` accumulates them in
 float32 over a Python loop, as the reference's scan does.  The step
-updates the state's tensors in place and returns float metrics."""
+updates the state's tensors in place and returns float metrics.
+
+Traced as ``train.step`` with the children ``train.batch_to``,
+``train.forward`` (``loss_fn``), ``train.backward`` (``autograd.grad``),
+``train.optimizer`` (``adamw_update``) and ``train.metrics_sync`` (the
+metrics' ``float()``: the host waiting on the card)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -21,6 +26,7 @@ from repro_torch.models.model import Model
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             init_opt_state, tree_leaves,
                                             tree_unflatten)
+from repro_torch.tracing import TRACER
 
 _INDEX_KEYS = ("tokens", "labels")
 
@@ -80,8 +86,10 @@ def loss_and_grads(params: Any, batch: Dict[str, torch.Tensor], *,
     for p in leaves:
         p.requires_grad_(True)
     try:
-        loss, parts = loss_fn(params, batch, cfg=cfg, **kw)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with TRACER.span("train.forward"):
+            loss, parts = loss_fn(params, batch, cfg=cfg, **kw)
+        with TRACER.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -111,14 +119,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
 
     def train_step(state: Dict[str, Any], batch: Dict[str, Any]
                    ) -> Tuple[Dict[str, Any], Dict[str, float]]:
-        state, metrics = train_step_tensors(state, batch)
-        return state, {k: float(v) for k, v in metrics.items()}
+        with TRACER.span("train.step"):
+            state, metrics = train_step_tensors(state, batch)
+            with TRACER.span("train.metrics_sync"):
+                return state, {k: float(v) for k, v in metrics.items()}
 
     def train_step_tensors(state: Dict[str, Any], batch: Dict[str, Any]
                            ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         params = state["params"]
         device = tree_leaves(params)[0].device
-        batch = batch_to(batch, device)
+        with TRACER.span("train.batch_to"):
+            batch = batch_to(batch, device)
         if microbatches == 1:
             loss, parts, grads = grads_of(params, batch)
         else:
@@ -143,8 +154,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None,
             loss = l_acc / microbatches
             parts = {"lm_loss": loss - a_acc / microbatches,
                      "aux_loss": a_acc / microbatches}
-        _, _, opt_metrics = adamw_update(
-            opt_cfg, params, tree_unflatten(params, grads), state["opt"])
+        with TRACER.span("train.optimizer"):
+            _, _, opt_metrics = adamw_update(
+                opt_cfg, params, tree_unflatten(params, grads), state["opt"])
         return state, {"loss": loss, **parts, **opt_metrics}
 
     train_step.tensors = train_step_tensors

@@ -142,7 +142,9 @@ def test_stats_and_health(server):
     _, stats = _request_json(server, {"method": "GET", "path": "/stats"})
     assert stats["device"] == "cpu" and stats["retired"] >= 1
     assert stats["tokens_generated"] >= 1 and stats["aborted"] == 0
-    assert set(stats["prefix_cache"]) == {"entries", "hits", "misses"}
+    assert set(stats["prefix_cache"]) == {"entries", "hits", "misses",
+                                          "lookups", "lookup_hits",
+                                          "hit_tokens"}
     assert stats["content_cache"]["encoder_invocations"] == 0
     for absent in ("kv_pages", "admission"):
         assert absent not in stats
