@@ -226,7 +226,8 @@ Phases (any failure exits non-zero and prints no result line):
    counted one and two seeded replays) in turns with three with
    ``ops.categorical`` routed to the plain version — tokens identical, the
    kernel launched between once per decode step and once per decode step
-   and wave, never on the plain route; tokens/s of both; 4m — the
+   and wave, never on the plain route (each route replays decode graphs
+   captured under it); tokens/s of both; 4m — the
    recurrent families in bf16 (``max_batch`` 8, ``cache_len`` 2048,
    ``prefill_chunk`` 512, prefix cache on): (a) ``mamba2-780m`` at full
    depth serving 4a's 12 bodies over HTTP twice, dense ring then fp
@@ -307,6 +308,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples/quickstart.py``, ``openai_server.py`` and
    ``multimodal_cache.py`` of the port on the card, each held to its
    contract.  Phases 6 and 7 run after phase 4; phase 5 last.
+
+Each phase header is preceded, where the phase before it ran decode
+steps, by a line with the decode-graph runners' captures, replays and
+eager steps in that phase.
 
 The last lines are one ``serve`` JSON line (4k under ``k4``, 4m under
 ``m4``, 4n under ``n4``, phase 6 under ``train``, phase 7 under
@@ -423,14 +428,36 @@ L2_BYTES = 50 * 2**20
 
 
 T_START = time.perf_counter()
+# decode steps the engines' decode-graph runners took since the last phase
+# header: captures, replays and steps run eagerly (:func:`tally_decode_graphs`)
+GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
 
 
 def log(msg: str) -> None:
     """Print ``msg``; a phase header (``== ...``) also gets the seconds
-    since the script started."""
+    since the script started, after a line with the decode steps of the
+    phase before it, if it ran any."""
     if msg.startswith("== "):
+        if any(GRAPHS.values()):
+            print(f"  decode graphs in the phase above: {GRAPHS}", flush=True)
+            GRAPHS.update(captures=0, replays=0, eager=0)
         msg += f" [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
+
+
+def tally_decode_graphs(DecodeGraphs) -> None:
+    """Count each decode step of every engine's runner into :data:`GRAPHS`
+    (a capture's warm-up step counts as its capture)."""
+    one_step = DecodeGraphs._one_step
+
+    def counted(self, variant):
+        graphs, replayed = len(self.graphs), self.replayed
+        one_step(self, variant)
+        GRAPHS["captures"] += len(self.graphs) - graphs
+        GRAPHS["replays"] += self.replayed - replayed
+        GRAPHS["eager"] += not self.use_graphs
+
+    DecodeGraphs._one_step = counted
 
 
 def demangle(build, syms: list) -> list:
@@ -2706,7 +2733,9 @@ def check_sampled_round(torch, ns, wrappers, params):
     on every other one, a seed each; 4a's ``max_tokens``) on ``qwen2-0.5b``
     (bf16, 24 layers, the served weights, dense ring, 8 slots, prefix cache
     off so every run prefills alike), the engine alone: a warm-up run of
-    all 12, then in turns (kernel, plain, plain, kernel, kernel, plain) the
+    all 12 on each route (a captured decode step replays the draw it was
+    captured with, so each route keeps decode graphs of its own, captured
+    there), then in turns (kernel, plain, plain, kernel, kernel, plain) the
     counted run through the categorical kernel, runs with
     ``ops.categorical`` routed to the plain version, and seeded replays
     through the kernel.  Tokens identical in every run; tokens/s of each
@@ -2728,18 +2757,28 @@ def check_sampled_round(torch, ns, wrappers, params):
                 for i, (kind, body) in enumerate(bodies)]
 
     engine = engine_4j(ns, params, enable_prefix_cache=False)
-    engine.generate(reqs())                             # warm-up
     layers = engine.cfg.num_layers
+
+    def routed(route):
+        return (plain_attention(ops, ("categorical",)) if route == "plain"
+                else nullcontext())
+
+    runners = {}
+    for route in ("kernel", "plain"):                   # warm-up
+        engine._decode_graphs = None
+        with routed(route):
+            engine.generate(reqs())
+        runners[route] = engine._decode_graphs
 
     def run(route):
         st = engine.scheduler.stats
         before = (st.device_steps, st.prefill_waves)
         rs = reqs()
         zero(wrappers)
+        engine._decode_graphs = runners[route]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with (plain_attention(ops, ("categorical",)) if route == "plain"
-              else nullcontext()):
+        with routed(route):
             engine.generate(rs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -6255,6 +6294,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.core.decode_graph import DecodeGraphs
     from repro_torch.core.engine import InferenceEngine
     from repro_torch.kernels import build, ops
     from repro_torch.kernels import categorical as cat
@@ -6288,6 +6328,7 @@ def main() -> int:
                                       quickstart)
     from repro_torch.launch import dryrun, specs
     from repro_torch.launch.mesh import make_host_mesh
+    tally_decode_graphs(DecodeGraphs)
     t_start = time.perf_counter()
 
     log("== 1. environment")

@@ -18,10 +18,11 @@ Flow per :meth:`InferenceEngine.step` (paper Alg.1 loop body):
      strictly more urgent pending request then evicts the least urgent
      live slot.
   2. **Dispatch a decode block** (if any slot is live): K decode+sample
-     iterations as a Python loop over device tensors — sampling, stop-token
-     detection and budget accounting all stay on the device, and a slot
-     that finishes is frozen by the on-device finished-mask (masked cache
-     writes, no position advance).  K comes from
+     steps over device tensors, each one replay of a CUDA graph of the
+     step on the card (:mod:`repro_torch.core.decode_graph`) — sampling,
+     stop-token detection and budget accounting all stay on the device,
+     and a slot that finishes is frozen by the on-device finished-mask
+     (masked cache writes, no position advance).  K comes from
      ``scheduler.plan_decode_block`` and collapses to 1 while requests or
      prefill chunks wait.
   3. **Run an encode wave, then dispatch a prefill wave**: up to
@@ -127,6 +128,7 @@ from repro_torch.configs import ModelConfig
 from repro_torch.core.content_cache import (ContentCache, CrossKVEntry,
                                             EmbeddingEntry, MediaStats,
                                             content_hash, media_set_digest)
+from repro_torch.core.decode_graph import DecodeGraphs
 from repro_torch.core.faults import FaultInjector
 from repro_torch.core.kv_cache import (SlotKVPool, admit_decode_state,
                                        concat_cache_rows, init_decode_state,
@@ -405,6 +407,9 @@ class InferenceEngine:
                                        ctx_len=self.ctx_len,
                                        spec_k=self.spec_k,
                                        device=self.device)
+        # the decode step's static buffers and CUDA graphs, built at the
+        # first block and dropped where the arena is rebuilt (recovery)
+        self._decode_graphs: Optional[DecodeGraphs] = None
         # unseeded requests take their base key from this engine-owned key
         # chain, PRNGKey(seed + 1) split once per add (the reference's,
         # deterministic for a fixed engine seed + add order)
@@ -493,47 +498,20 @@ class InferenceEngine:
                       any_stochastic: bool, any_mask: bool):
         """K decode+sample iterations over the device state, in place.  No
         host sync happens inside: the caller copies the returned token block
-        (and logprobs) to the host once.  ``any_stochastic``/``any_mask``
-        come from the live requests' sampling parameters, known on the host,
-        so the all-greedy block never touches the sampler's sort or noise."""
-        st, n_top = self.state, self.max_top_logprobs
-        page_table = self.pool.cache["page_table"] if self._paged else None
-        ctx_valid = st.ctx_valid if self.media_kind != "none" else None
-        toks, lp_c, lp_v, lp_i = [], [], [], []
-        for _ in range(num_steps):
-            out = self.model.apply(
-                self.params, st.last_token[:, None], mode="decode",
-                positions=st.positions[:, None], cache=self.pool.cache,
-                slot_active=st.active, page_table=page_table,
-                ctx_valid=ctx_valid)
-            logits = out.logits[:, 0]
-            # frozen slots' sampler fields are neutralised, as in the
-            # reference, so a finished request's knobs cannot matter
-            act = st.active
-            nxt = masked_sample_inner(
-                logits, st.sample_key, st.positions + 1, st.temps * act,
-                torch.where(act, st.top_p, 1.0),
-                torch.where(act, st.top_k, 0),
-                torch.where(act, st.min_p, 0.0),
-                any_stochastic=any_stochastic, any_mask=any_mask)
-            nxt = torch.where(act, nxt, st.last_token)
-            toks.append(torch.where(act, nxt, -1))    # -1 = frozen
-            alive = act.long()
-            st.budget = st.budget - alive
-            hit_stop = (nxt[:, None] == st.stop_tokens).any(-1)
-            finished = act & (hit_stop | (st.budget <= 0))
-            st.last_token = nxt
-            st.positions = st.positions + alive
-            st.active = act & ~finished
-            if want_logprobs:
-                lp = torch.log_softmax(logits.float(), dim=-1)
-                lp_c.append(torch.gather(lp, 1, nxt[:, None])[:, 0])
-                top = torch.topk(lp, n_top, dim=-1)
-                lp_v.append(top.values)
-                lp_i.append(top.indices)
-        lps = ((torch.stack(lp_c), torch.stack(lp_v), torch.stack(lp_i))
-               if want_logprobs else None)
-        return torch.stack(toks), lps
+        (and logprobs) to the host once, before the next block.
+        ``any_stochastic``/``any_mask`` come from the live requests'
+        sampling parameters, known on the host, so the all-greedy block
+        never touches the sampler's sort or noise.  The steps run in
+        :class:`~repro_torch.core.decode_graph.DecodeGraphs`: each one
+        replay of a captured CUDA graph on the card, eager elsewhere."""
+        runner = self._decode_graphs
+        if runner is None:
+            runner = self._decode_graphs = DecodeGraphs(
+                self.model, self.params, self.pool, self.state,
+                paged=self._paged, use_ctx=self.media_kind != "none",
+                n_top=self.max_top_logprobs, max_steps=self.max_decode_block)
+        return runner.run(self.state, num_steps, want_logprobs,
+                          any_stochastic, any_mask)
 
     def _plan_bucket(self, n: int) -> int:
         return _next_bucket(n, floor=self._bucket_floor)
@@ -1640,9 +1618,11 @@ class InferenceEngine:
         log.error("decode block failed: %s — failing %d live request(s) "
                   "and rebuilding device buffers", exc,
                   len(self._live_slots))
-        # the raising frames hold the old cache: drop them first
+        # the raising frames hold the old cache: drop them first, and the
+        # decode graphs, which hold it and read it by address
         traceback.clear_frames(exc.__traceback__)
         exc.__traceback__ = None
+        self._decode_graphs = None
         old, self.pool.cache = self.pool, None
         self.state = init_decode_state(old.max_batch, self.max_stop_tokens,
                                        ctx_len=self.ctx_len,
@@ -2277,6 +2257,10 @@ class InferenceEngine:
             stats.steps += 1
             # a spec round is ONE forward however many rows it commits
             stats.device_steps += 1 if spec_meta is not None else num_steps
+            if spec_meta is None and self._decode_graphs is not None:
+                replayed, captured = self._decode_graphs.take_counts()
+                stats.decode_graph_steps += replayed
+                stats.decode_graph_captures += captured
             if spec_meta is not None:
                 self._account_spec_round(spec_meta)
             with TRACER.span("engine.emit") as span:

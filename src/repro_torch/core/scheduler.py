@@ -174,6 +174,8 @@ class SchedulerStats:
     retired: int = 0
     steps: int = 0               # host-loop iterations (one per decode block)
     device_steps: int = 0        # decode iterations run on-device (sum of K)
+    decode_graph_steps: int = 0  # of those, replays of a captured CUDA graph
+    decode_graph_captures: int = 0   # decode steps captured as CUDA graphs
     tokens_generated: int = 0
     peak_batch: int = 0
     prefill_waves: int = 0       # batched prefill dispatches (≥1 row each)
@@ -495,6 +497,8 @@ class ContinuousBatchingScheduler:
             "retired": s.retired,
             "steps": s.steps,
             "device_steps": s.device_steps,
+            "decode_graph_steps": s.decode_graph_steps,
+            "decode_graph_captures": s.decode_graph_captures,
             "tokens_generated": s.tokens_generated,
             "peak_batch": s.peak_batch,
             "prefill_waves": s.prefill_waves,

@@ -18,7 +18,10 @@ raises.
 each on its own loop thread, reach a kernel's first use together): one lock
 covers build and load, so a library is compiled once per process.
 :func:`count_launch` is the wrappers' launch counter, under a lock for the
-same reason.
+same reason.  Inside :func:`recording_launches` a thread's launches go to a
+table of its own instead, and only while its current stream captures: a
+CUDA graph's capture launches nothing, and each replay adds the table back
+(:func:`add_launches`), so ``launches`` counts what the card ran.
 """
 from __future__ import annotations
 
@@ -30,8 +33,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[1] / "build"
@@ -61,6 +65,7 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()      # .table: wrapper -> launches, or None
 
 
 def nvcc_path() -> str:
@@ -152,9 +157,42 @@ def load(name: str):
 
 
 def count_launch(wrapper) -> None:
-    """Add one to a kernel wrapper's ``launches`` (atomic across threads)."""
+    """Add one to a kernel wrapper's ``launches`` (atomic across threads),
+    or to the calling thread's table while it records.  A recorded launch
+    must have gone into the graph: the wrappers launch on the current
+    stream, so that stream has to be capturing."""
+    table = getattr(_RECORDING, "table", None)
+    if table is not None:
+        import torch
+        if not (torch.cuda.is_available()
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f"{getattr(wrapper, '__name__', wrapper)} launched while its "
+                "thread records a capture, on a stream that does not capture")
+        table[wrapper] = table.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextmanager
+def recording_launches() -> Iterator[Dict]:
+    """Count the calling thread's launches into the yielded table (wrapper
+    -> launches) and leave the wrappers' counters alone: around a CUDA
+    graph's capture, which records launches without running them."""
+    table: Dict = {}
+    _RECORDING.table = table
+    try:
+        yield table
+    finally:
+        _RECORDING.table = None
+
+
+def add_launches(table: Dict) -> None:
+    """Add a recorded table to the wrappers' counters (a graph's replay)."""
+    with _COUNT_LOCK:
+        for wrapper, n in table.items():
+            wrapper.launches += n
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1,10 +1,10 @@
 """The port's engine against the JAX package's ``InferenceEngine`` on the
 CPU, given the same weights (bridged from one JAX init): greedy tokens must
 be identical — with ``prefill_chunk`` 0 and 32, with more requests than
-``max_batch``, with stop tokens, ``max_tokens`` and an abort — and logprobs
-close (atol 1e-4, float32); and greedy tokens of the paper's dense
-stand-ins ``gemma3-4b-toy`` (sliding window, prompt longer than the ring)
-and ``llama-3.2-1b-toy``.  Both engines run with the same arguments,
+``max_batch``, with stop tokens, ``max_tokens`` and an abort, with decode
+blocks of K 1, 3 and 8 — and logprobs close (atol 1e-4, float32); and
+greedy tokens of the paper's dense stand-ins ``gemma3-4b-toy`` (sliding
+window, prompt longer than the ring) and ``llama-3.2-1b-toy``.  Both engines run with the same arguments,
 the prefix cache on, speculative wave filling off (its parity with the
 JAX engine is ``tests/test_torch_fill_groups_echo.py``'s).  Also the sampler: the keep-set semantics against the
 reference's, and the stateless per-token stream.
@@ -162,6 +162,36 @@ def test_logprobs_match_reference(weights):
     te.generate(tr)
     _same_outcome(jr, tr)
     for a, b in zip(jr, tr):
+        for (la, ta), (lb, tb) in zip(a.output_logprobs, b.output_logprobs):
+            assert lb == pytest.approx(la, abs=1e-4)
+            assert [t for t, _ in tb] == [t for t, _ in ta]
+            np.testing.assert_allclose([v for _, v in tb], [v for _, v in ta],
+                                       atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_decode_block_matches_reference_across_k(weights, k):
+    """The decode block's steps over the runner's static buffers (eager on
+    the CPU) against the reference's compiled block at K 1, 3 and 8, with
+    logprobs: stop tokens and budgets end slots inside a block, and queued
+    requests take the freed slots.  Tokens identical, logprobs within
+    1e-4."""
+    je, te = _engines(weights, max_batch=3, cache_len=128, prefill_chunk=32,
+                      max_decode_block=k)
+    free = _requests([{"max_tokens": 12}] * 5)[1]
+    InferenceEngine(te.cfg, te.params, device="cpu", max_batch=3,
+                    cache_len=128).generate(free)
+    kw = [{"max_tokens": m, "logprobs": True, "top_logprobs": 2,
+           "stop_token_ids": (free[i].output_tokens[5],) if i % 2 else ()}
+          for i, m in enumerate((12, 11, 5, 16, 9))]
+    jr, tr = _requests(kw)
+    je.generate(jr)
+    te.generate(tr)
+    _same_outcome(jr, tr)
+    assert any(r.finish_reason is FinishReason.STOP for r in tr)
+    assert te.scheduler.stats.decode_graph_steps == 0
+    for a, b in zip(jr, tr):
+        assert len(b.output_logprobs) == len(a.output_logprobs)
         for (la, ta), (lb, tb) in zip(a.output_logprobs, b.output_logprobs):
             assert lb == pytest.approx(la, abs=1e-4)
             assert [t for t, _ in tb] == [t for t, _ in ta]

@@ -44,9 +44,11 @@ def serve_rec():
     ]
     return {"t0_ns": S, "t1_ns": 2 * S,
             "counters": ({"steps": 10, "blocks_collapsed": 4,
-                          "prompt_tokens": 1000, "hit_tokens": 600},
+                          "prompt_tokens": 1000, "hit_tokens": 600,
+                          "device_steps": 30, "decode_graph_steps": 28},
                          {"steps": 14, "blocks_collapsed": 7,
-                          "prompt_tokens": 3000, "hit_tokens": 2200}),
+                          "prompt_tokens": 3000, "hit_tokens": 2200,
+                          "device_steps": 70, "decode_graph_steps": 66}),
             "kernels": [("k", S + 100, 100, 0), ("k", S + 1000, 100, 1)],
             "program": {"records": records, "thread": LOOP}}
 
@@ -71,6 +73,7 @@ def train_rec():
     ("engine.sync_wait_ms_per_block", serve_rec, 20e-6),
     ("engine.emit_ms_per_token", serve_rec, 60e-6 / 6),
     ("engine.blocks_collapsed_share", serve_rec, 75.0),
+    ("engine.decode_graph_share", serve_rec, 95.0),
     ("engine.queue_wait_p95_ms", serve_rec, 5050e-6),
     ("serving.codec_ms_per_token", serve_rec, 100e-6 / 3),
     ("prefix_cache.hit_token_share", serve_rec, 80.0),
@@ -83,6 +86,18 @@ def test_reader_against_hand_arithmetic(name, rec, want):
     del bare["program"]
     bare["counters"] = ({}, {})
     assert ht.READERS[name](bare) is None
+
+
+def test_untraced_readers_over_the_last_seconds():
+    """``--always``: the span readers over the stretch ending where the last
+    step ends; the counter readers give nothing."""
+    rec = serve_rec()
+    records = rec["program"]["records"]
+    got = ht.untraced_readers(records, (1900 - 10) / 1e9)
+    assert got["engine.dispatch_ms_per_step"] == pytest.approx(300e-6 / 5)
+    assert got["engine.sync_wait_ms_per_block"] == pytest.approx(20e-6)
+    assert "engine.decode_graph_share" not in got
+    assert ht.untraced_readers([], 51.0) == {}
 
 
 def test_gaps_named_by_the_launching_threads_innermost_span():

@@ -17,8 +17,12 @@ the innermost program span open on the thread that launches the kernels
 idle.
 
 The second form runs the cell as ``--trace 0`` does, with the tracer on from
-start to end, and prints the end-to-end metrics: set beside a plain
-``bench/run.py --trace 0`` run of the same seed, the tracer's cost.
+start to end, and prints the end-to-end metrics — set beside a plain
+``bench/run.py --trace 0`` run of the same seed, the tracer's cost — and
+the readers of spans alone over the run's last ``--seconds``
+(:func:`untraced_readers`).  No profiler is attached there, so they leave
+out its cost; the first form's include it, and it is largest on a CUDA
+graph's launch, which the profiler traces kernel by kernel.
 
 Each reader takes the traced run's record with ``rec["program"]`` added
 (``{"records": [Record, ...], "thread": <launching thread id>}``) and
@@ -102,6 +106,13 @@ def emit_ms_per_token(rec) -> Optional[float]:
     return None if not s else _ratio(_wall_ms(s), sum(r.n for r in s))
 
 
+def decode_graph_share(rec) -> Optional[float]:
+    """% of the stretch's decode steps run as a replay of a captured CUDA
+    graph (``SchedulerStats.decode_graph_steps`` over ``device_steps``)."""
+    return _ratio(_delta(rec, "decode_graph_steps"),
+                  _delta(rec, "device_steps"), 100.0)
+
+
 def blocks_collapsed_share(rec) -> Optional[float]:
     """% of the stretch's decode blocks cut to K=1 by waiting work."""
     return _ratio(_delta(rec, "blocks_collapsed"), _delta(rec, "steps"),
@@ -161,6 +172,7 @@ READERS = {
     "engine.dispatch_offcpu_share": dispatch_offcpu_share,
     "engine.sync_wait_ms_per_block": sync_wait_ms_per_block,
     "engine.emit_ms_per_token": emit_ms_per_token,
+    "engine.decode_graph_share": decode_graph_share,
     "engine.blocks_collapsed_share": blocks_collapsed_share,
     "engine.queue_wait_p95_ms": queue_wait_p95_ms,
     "serving.codec_ms_per_token": codec_ms_per_token,
@@ -168,6 +180,20 @@ READERS = {
     "train.dispatch_ms_per_step": train_dispatch_ms_per_step,
     "train.sync_wait_ms_per_step": train_sync_wait_ms_per_step,
 }
+
+
+def untraced_readers(records, seconds: float) -> Dict[str, float]:
+    """:data:`READERS` over the spans of the last ``seconds`` before the
+    last engine or training step ended (no counters: those readers give
+    nothing)."""
+    ends = [r.end for r in records if r.name in ("engine.step", "train.step")]
+    if not ends:
+        return {}
+    t1 = max(ends)
+    rec = {"t0_ns": t1 - int(seconds * 1e9), "t1_ns": t1,
+           "program": {"records": records, "thread": None}}
+    out = {k: f(rec) for k, f in READERS.items()}
+    return {k: v for k, v in out.items() if v is not None}
 
 
 def span_table(rec) -> Optional[Dict[str, List[float]]]:
@@ -241,7 +267,8 @@ def _patch_bench():
         out = base(engine)
         st = engine.scheduler.stats
         out.update(blocks_collapsed=st.blocks_collapsed,
-                   prompt_tokens=st.prompt_tokens)
+                   prompt_tokens=st.prompt_tokens,
+                   decode_graph_steps=st.decode_graph_steps)
         if engine.prefix_cache is not None:
             out["hit_tokens"] = engine.prefix_cache.lookup_stats.hit_tokens
         return out
@@ -305,7 +332,9 @@ def main(argv=None) -> int:
                              T_START)
         TRACER.stop()
         line.update(tracer="on throughout", correct=result["correct"],
-                    metrics=result["metrics"], spans=len(TRACER.records()))
+                    metrics=result["metrics"], spans=len(TRACER.records()),
+                    program=untraced_readers(TRACER.records(),
+                                             args.seconds))
     else:
         line.update(traced_run(cell, args.seed, args.seconds, device,
                                T_START))
